@@ -25,6 +25,9 @@
 // cores through WMMA (bf16 in, f32 accumulate); a TMA/wgmma pipeline is
 // later work.
 //
+// The W0 tile and each chunk of edge rows arrive by cp.async (many 16-byte
+// copies in flight per thread, not a chain of dependent loads).
+//
 // Block: 256 threads, `nodes_per_block` receivers x 128 output columns.
 // Shared memory: the W0 column tile [de x 128] bf16 (resident for the
 // block), one chunk of 64 LN'd edge rows [64 x de] bf16, the f32 result
@@ -82,13 +85,16 @@ edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
   const int n1 = min(N, n0 + nodes_per_block);
   const int c0 = blockIdx.y * kCols;
 
-  if (tid == 0) bounds[0] = lower_bound(receivers, E, n0);
-  if (tid == 1) bounds[1] = lower_bound(receivers, E, n1);
+  // The W0 tile streams in (cp.async) while two threads binary-search the
+  // block's edge range.
   for (int i = tid; i < de * (kCols / 8); i += kThreads) {
     const int k = i / (kCols / 8), v = i % (kCols / 8);
-    *reinterpret_cast<uint4*>(Ws + k * kLdw + v * 8) =
-        *reinterpret_cast<const uint4*>(w0 + (size_t)k * dout + c0 + v * 8);
+    gn::cp_async16(Ws + k * kLdw + v * 8, w0 + (size_t)k * dout + c0 + v * 8);
   }
+  gn::cp_async_commit();
+  if (tid == 0) bounds[0] = lower_bound(receivers, E, n0);
+  if (tid == 1) bounds[1] = lower_bound(receivers, E, n1);
+  gn::cp_async_wait<0>();
   __syncthreads();
   const int e0 = bounds[0], e1 = bounds[1];
 
@@ -103,17 +109,18 @@ edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
       snd[tid] = tid < rows ? senders[ce + tid] : 0;
       rcv[tid] = tid < rows ? receivers[ce + tid] : 0;
     }
-    for (int r = warp; r < kChunk; r += kThreads / 32) {
-      __nv_bfloat16* arow = As + r * lda;
-      if (r < rows) {
-        gn::copy_row_bf16(arow, ef + (size_t)(ce + r) * de, de, lane);
-        __syncwarp();
-        if (use_ln) gn::ln_row_inplace(arow, de, scale, bias, lane);
-      } else {
-        for (int k = lane; k < de; k += 32) arow[k] = __float2bfloat16_rn(0.f);
-      }
-    }
+    gn::cp_async_rows(As, lda, ef + (size_t)ce * de, rows, de, tid,
+                      kThreads);
+    gn::cp_async_commit();
+    for (int i = rows * de + tid; i < kChunk * de; i += kThreads)
+      As[(i / de) * lda + i % de] = __float2bfloat16_rn(0.f);
+    gn::cp_async_wait<0>();
     __syncthreads();
+    if (use_ln) {
+      for (int r = warp; r < rows; r += kThreads / 32)
+        gn::ln_row_inplace(As + r * lda, de, scale, bias, lane);
+      __syncthreads();
+    }
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
@@ -138,8 +145,11 @@ edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
 
     // Epilogue: add the gathered f32 partials in the TPU kernel's order,
     // round once, write h, and keep the rounded value for the sum.
-    for (int i = tid; i < rows * (kCols / 4); i += kThreads) {
+#pragma unroll
+    for (int it = 0; it < kChunk * (kCols / 4) / kThreads; ++it) {
+      const int i = it * kThreads + tid;
       const int r = i / (kCols / 4), q = i % (kCols / 4);
+      if (r >= rows) break;
       const int e = ce + r, c = c0 + q * 4;
       float4 a = *reinterpret_cast<float4*>(Cs + r * kLdc + q * 4);
       const float4 vs = *reinterpret_cast<const float4*>(ts + (size_t)snd[r] * dout + c);

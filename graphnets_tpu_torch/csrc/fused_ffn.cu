@@ -13,13 +13,18 @@
 //
 // What the design does about it: the [rows, 4d] hidden activation never
 // leaves the SM.  A block takes 64 rows, keeps their LN'd bf16 copy in
-// shared memory and walks the hidden dimension in slices of 64: it forms
+// shared memory and walks the hidden dimension in slices of 32: it forms
 // the slice relu(xn @ W1[:, j] + b1[j]) in shared memory, rounds it to
 // bf16 and adds slice @ W2[j, :] into an f32 [64, d] accumulator held in
 // registers (the binding resource: 8 warps x d/32 WMMA fragments, which
-// caps the row tile at 64 for d = 384).  Products run on the tensor cores
-// through WMMA (bf16 in, f32 accumulate).  W1/W2 slices are re-read from
-// L2 by every block; a TMA/wgmma pipeline with larger row tiles is later
+// caps the row tile at 64 for d = 384).  With few row tiles (T = 1024 or 8
+// on the node and graph sets) that leaves most SMs idle and one block's
+// serial walk over 4d/32 slices sets the time, so up to 8 blocks split the
+// hidden dimension of a row tile and the last to finish adds their f32
+// partials in a fixed order.  The W1/W2 slices stream from L2
+// through a two-stage cp.async ring, so the next slice is in flight while
+// the tensor cores work on this one.  Products run through WMMA (bf16 in,
+// f32 accumulate); a TMA/wgmma pipeline with larger row tiles is later
 // work.  Rows past T (T = 8 on the graph set) are zero-filled and never
 // written.
 //
@@ -35,7 +40,7 @@ using namespace nvcuda;
 namespace {
 
 constexpr int kRows = 64;     // rows per block
-constexpr int kSlice = 64;    // hidden columns per step
+constexpr int kSlice = 32;    // hidden columns per step
 constexpr int kThreads = 256;
 
 template <int D>
@@ -46,10 +51,12 @@ struct Layout {
   static constexpr int kLdhf = kSlice + 4;    // hidden slice, f32
   static constexpr int kLdhs = kSlice + 8;    // hidden slice, bf16
   static constexpr int kLdy = D + 4;          // accumulator spill, f32
+  static constexpr int kW1Stage = D * kLdw1;      // elements per stage
+  static constexpr int kW2Stage = kSlice * kLdw2;
   static constexpr size_t kX = 0;
   static constexpr size_t kW1 = kX + (size_t)kRows * kLdx * 2;
-  static constexpr size_t kW2 = kW1 + (size_t)D * kLdw1 * 2;
-  static constexpr size_t kHf = kW2 + (size_t)kSlice * kLdw2 * 2;
+  static constexpr size_t kW2 = kW1 + (size_t)2 * kW1Stage * 2;
+  static constexpr size_t kHf = kW2 + (size_t)2 * kW2Stage * 2;
   static constexpr size_t kHs = kHf + (size_t)kRows * kLdhf * 4;
   static constexpr size_t kBytes = kHs + (size_t)kRows * kLdhs * 2;
   static_assert((size_t)kRows * kLdy * 4 <= kHf, "accumulator spill fits");
@@ -65,10 +72,16 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
                        const float* __restrict__ b1,
                        const __nv_bfloat16* __restrict__ w2,
                        const float* __restrict__ b2,
-                       __nv_bfloat16* __restrict__ out, int T) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ partial,
+                       int* __restrict__ counters, int T) {
   using L = Layout<D>;
   constexpr int DH = 4 * D;
   constexpr int NY = D / 32;  // accumulator fragments per warp
+  constexpr int kSteps = DH / kSlice;
+  const int splits = gridDim.y;  // blocks sharing one row tile (split-K)
+  const int s_begin = blockIdx.y * (kSteps / splits);
+  const int s_end = s_begin + kSteps / splits;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem + L::kX);
   __nv_bfloat16* W1s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW1);
@@ -81,55 +94,79 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
   const int rows = min(kRows, T - row0);
   const int rb = warp & 3, ch = warp >> 2;  // 16-row block, column half
 
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    __nv_bfloat16* xrow = Xs + r * L::kLdx;
-    if (r < rows) {
-      gn::copy_row_bf16(xrow, x + (size_t)(row0 + r) * D, D, lane);
-      __syncwarp();
-      gn::ln_row_inplace(xrow, D, scale, bias, lane);
-    } else {
-      for (int k = lane; k < D; k += 32) xrow[k] = __float2bfloat16_rn(0.f);
+  // Issue the copy of hidden slice `s` of W1 and W2 into ring stage s & 1.
+  auto load_slice = [&](int s) {
+    const int j0 = s * kSlice;
+    __nv_bfloat16* w1s = W1s + (s & 1) * L::kW1Stage;
+    __nv_bfloat16* w2s = W2s + (s & 1) * L::kW2Stage;
+    for (int i = tid; i < D * (kSlice / 8); i += kThreads) {
+      const int k = i / (kSlice / 8), v = i % (kSlice / 8);
+      gn::cp_async16(w1s + k * L::kLdw1 + v * 8,
+                     w1 + (size_t)k * DH + j0 + v * 8);
     }
-  }
+    gn::cp_async_rows(w2s, L::kLdw2, w2 + (size_t)j0 * D, kSlice, D, tid,
+                      kThreads);
+    gn::cp_async_commit();
+  };
+
+  // Group 0: this block's x rows; group 1: its first hidden slice.
+  gn::cp_async_rows(Xs, L::kLdx, x + (size_t)row0 * D, rows, D, tid,
+                    kThreads);
+  gn::cp_async_commit();
+  load_slice(s_begin);
+  for (int i = rows * D + tid; i < kRows * D; i += kThreads)
+    Xs[(i / D) * L::kLdx + i % D] = __float2bfloat16_rn(0.f);
+  gn::cp_async_wait<1>();
+  __syncthreads();
+  for (int r = warp; r < rows; r += kThreads / 32)
+    gn::ln_row_inplace(Xs + r * L::kLdx, D, scale, bias, lane);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[NY];
 #pragma unroll
   for (int f = 0; f < NY; ++f) wmma::fill_fragment(yacc[f], 0.f);
 
-  for (int j0 = 0; j0 < DH; j0 += kSlice) {
-    for (int i = tid; i < D * (kSlice / 8); i += kThreads) {
-      const int k = i / (kSlice / 8), v = i % (kSlice / 8);
-      *reinterpret_cast<uint4*>(W1s + k * L::kLdw1 + v * 8) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)k * DH + j0 + v * 8);
-    }
-    for (int i = tid; i < kSlice * (D / 8); i += kThreads) {
-      const int r = i / (D / 8), v = i % (D / 8);
-      *reinterpret_cast<uint4*>(W2s + r * L::kLdw2 + v * 8) =
-          *reinterpret_cast<const uint4*>(w2 + (size_t)(j0 + r) * D + v * 8);
+  for (int s = s_begin; s < s_end; ++s) {
+    if (s + 1 < s_end) {
+      load_slice(s + 1);
+      gn::cp_async_wait<1>();
+    } else {
+      gn::cp_async_wait<0>();
     }
     __syncthreads();
+    const __nv_bfloat16* w1s = W1s + (s & 1) * L::kW1Stage;
+    const __nv_bfloat16* w2s = W2s + (s & 1) * L::kW2Stage;
+    const int j0 = s * kSlice;
 
-    // Hidden slice [64, 64] = xn @ W1[:, j0:j0+64]; warp: 16 rows x 32 cols.
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[2];
-    wmma::fill_fragment(hacc[0], 0.f);
-    wmma::fill_fragment(hacc[1], 0.f);
-    for (int k = 0; k < D; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, Xs + rb * 16 * L::kLdx + k, L::kLdx);
+    // Hidden slice [64, 32] = xn @ W1[:, j0:j0+32]; one fragment a warp,
+    // summed in kChains independent chains so the tensor core is not
+    // waiting on one accumulator.
+    {
+      constexpr int kChains = 4;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[kChains];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, W1s + k * L::kLdw1 + ch * 32 + j * 16,
-                               L::kLdw1);
-        wmma::mma_sync(hacc[j], fa, fb, hacc[j]);
+      for (int c = 0; c < kChains; ++c) wmma::fill_fragment(hacc[c], 0.f);
+#pragma unroll
+      for (int k = 0; k < D; k += 16 * kChains) {
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> fb;
+          const int kk = k + 16 * c;
+          wmma::load_matrix_sync(fa, Xs + rb * 16 * L::kLdx + kk, L::kLdx);
+          wmma::load_matrix_sync(fb, w1s + kk * L::kLdw1 + ch * 16,
+                                 L::kLdw1);
+          wmma::mma_sync(hacc[c], fa, fb, hacc[c]);
+        }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Hf + rb * 16 * L::kLdhf + ch * 32 + j * 16,
-                              hacc[j], L::kLdhf, wmma::mem_row_major);
+      for (int i = 0; i < hacc[0].num_elements; ++i)
+        hacc[0].x[i] = (hacc[0].x[i] + hacc[1].x[i]) +
+                       (hacc[2].x[i] + hacc[3].x[i]);
+      wmma::store_matrix_sync(Hf + rb * 16 * L::kLdhf + ch * 16, hacc[0],
+                              L::kLdhf, wmma::mem_row_major);
+    }
     __syncthreads();
 
     for (int i = tid; i < kRows * kSlice; i += kThreads) {
@@ -139,7 +176,8 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __syncthreads();
 
-    // acc[64, D] += hidden slice @ W2[j0:j0+64, :]; warp: 16 rows x D/2.
+    // acc[64, D] += hidden slice @ W2[j0:j0+32, :]; warp: 16 rows x D/2.
+#pragma unroll
     for (int k = 0; k < kSlice; k += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                      wmma::row_major> fa;
@@ -148,22 +186,56 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
       for (int f = 0; f < NY; ++f) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, W2s + k * L::kLdw2 + ch * (D / 2) + f * 16,
+        wmma::load_matrix_sync(fb, w2s + k * L::kLdw2 + ch * (D / 2) + f * 16,
                                L::kLdw2);
         wmma::mma_sync(yacc[f], fa, fb, yacc[f]);
       }
     }
+    // The next iteration refills the other stage; this one is free only
+    // after every warp is done with it.
     __syncthreads();
   }
 
-  // Epilogue: spill the accumulator over the (now free) operand buffers,
-  // then y = bf16(xf + ((acc + b2) + extra)) with xf re-read from x.
+  // Spill the accumulator over the (now free) operand buffers.
   float* Ys = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int f = 0; f < NY; ++f)
     wmma::store_matrix_sync(Ys + rb * 16 * L::kLdy + ch * (D / 2) + f * 16,
                             yacc[f], L::kLdy, wmma::mem_row_major);
   __syncthreads();
+
+  if (splits > 1) {
+    // Split-K over the hidden dimension: publish this block's partial sum;
+    // the last of the row tile's blocks to arrive adds the partials in
+    // split order (deterministic) and finishes the rows.
+    float* mine = partial + (size_t)blockIdx.y * T * D;
+    for (int i = tid; i < rows * (D / 4); i += kThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      *reinterpret_cast<float4*>(mine + (size_t)(row0 + r) * D + c) =
+          *reinterpret_cast<const float4*>(Ys + r * L::kLdy + c);
+    }
+    __threadfence();
+    __syncthreads();
+    int* last = reinterpret_cast<int*>(smem + L::kHs);
+    if (tid == 0) *last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    for (int i = tid; i < rows * (D / 4); i += kThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const size_t g = (size_t)(row0 + r) * D + c;
+      float4 a = __ldcg(reinterpret_cast<const float4*>(partial + g));
+      for (int k = 1; k < splits; ++k) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            partial + (size_t)k * T * D + g));
+        a.x += p.x; a.y += p.y; a.z += p.z; a.w += p.w;
+      }
+      *reinterpret_cast<float4*>(Ys + r * L::kLdy + c) = a;
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: y = bf16(xf + ((acc + b2) + extra)) with xf re-read from x.
   for (int i = tid; i < rows * (D / 4); i += kThreads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     const size_t g = (size_t)(row0 + r) * D + c;
@@ -191,37 +263,43 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
 template <int D>
 int launch(const void* x, const void* extra, const void* scale,
            const void* bias, const void* w1, const void* b1, const void* w2,
-           const void* b2, void* out, int T, cudaStream_t stream) {
+           const void* b2, void* out, void* partial, void* counters, int T,
+           int splits, cudaStream_t stream) {
+  if (splits < 1 || (4 * D / kSlice) % splits) return cudaErrorInvalidValue;
   const size_t smem = Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       ln_ffn_residual_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ln_ffn_residual_kernel<D><<<(T + kRows - 1) / kRows, kThreads, smem,
-                              stream>>>(
+  const dim3 grid((T + kRows - 1) / kRows, splits);
+  ln_ffn_residual_kernel<D><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)extra,
       (const float*)scale, (const float*)bias, (const __nv_bfloat16*)w1,
       (const float*)b1, (const __nv_bfloat16*)w2, (const float*)b2,
-      (__nv_bfloat16*)out, T);
+      (__nv_bfloat16*)out, (float*)partial, (int*)counters, T);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError().
-// `extra` may be null.  Preconditions, checked by the Python wrapper: bf16
-// x/extra/w1/w2/out, f32 scale/bias/b1/b2, contiguous, T >= 1 and
-// d in {128, 256, 384}.
+// `extra` may be null.  `splits` blocks share each 64-row tile, each taking
+// 1/splits of the hidden dimension; with splits > 1, `partial` is f32
+// scratch of splits * T * d and `counters` holds ceil(T / 64) zeroed ints.
+// Preconditions, checked by the Python wrapper: bf16 x/extra/w1/w2/out,
+// f32 scale/bias/b1/b2, contiguous, T >= 1, d in {128, 256, 384}, and
+// splits dividing 4d / 32.
 extern "C" int gn_ln_ffn_residual(const void* x, const void* extra,
                                   const void* scale, const void* bias,
                                   const void* w1, const void* b1,
                                   const void* w2, const void* b2, void* out,
-                                  int T, int d, void* stream) {
+                                  void* partial, void* counters, int T, int d,
+                                  int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
-    case 128: return launch<128>(x, extra, scale, bias, w1, b1, w2, b2, out, T, s);
-    case 256: return launch<256>(x, extra, scale, bias, w1, b1, w2, b2, out, T, s);
-    case 384: return launch<384>(x, extra, scale, bias, w1, b1, w2, b2, out, T, s);
+    case 128: return launch<128>(x, extra, scale, bias, w1, b1, w2, b2, out, partial, counters, T, splits, s);
+    case 256: return launch<256>(x, extra, scale, bias, w1, b1, w2, b2, out, partial, counters, T, splits, s);
+    case 384: return launch<384>(x, extra, scale, bias, w1, b1, w2, b2, out, partial, counters, T, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..graph import GraphsTuple
-from ..nn.core import FeedForward, LayerNorm, _generator
+from ..nn.core import FeedForward, LayerNorm, init_generator
 from ..ops.kernels.fused_ffn import (ln_ffn_residual,
                                      ln_ffn_residual_reference,
                                      supports_fused_ffn)
@@ -78,7 +78,8 @@ class GNFeedForward(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _require_all_positive(dims, "GNFeedForward")
-        kw = dict(device=device, dtype=dtype, generator=_generator(generator))
+        kw = dict(device=device, dtype=dtype,
+                  generator=init_generator(generator))
         de, dn, dg = dims
         self.eff = FeedForward(de, dropout, **kw)
         self.nff = FeedForward(dn, dropout, **kw)
@@ -102,7 +103,7 @@ class GNCore(nn.Module):
         super().__init__()
         _require_all_positive(dims, "GNCore")
         self.dims, self.dropout = tuple(dims), dropout
-        gen = _generator(generator)
+        gen = init_generator(generator)
         self.block = GNBlock(dims, dims, dropout=dropout, device=device,
                              dtype=dtype, generator=gen)
         self.ffwd = GNFeedForward(dims, dropout, device=device, dtype=dtype,

@@ -37,7 +37,9 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
-def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
+def init_generator(generator: Optional[torch.Generator]
+                   ) -> torch.Generator:
+    """``generator``, or a new one seeded 0."""
     return generator if generator is not None else \
         torch.Generator().manual_seed(0)
 
@@ -77,7 +79,7 @@ class Linear(nn.Module):
         w = torch.zeros(din, dout, dtype=torch.float32)
         if din > 0 and dout > 0:
             limit = math.sqrt(6.0 / (din + dout))
-            w = (torch.rand(din, dout, generator=_generator(generator))
+            w = (torch.rand(din, dout, generator=init_generator(generator))
                  * 2 - 1) * limit
         self.w = nn.Parameter(w.to(device=device, dtype=dtype))
         self.b = (nn.Parameter(torch.zeros(dout, device=device, dtype=dtype))
@@ -161,7 +163,7 @@ def FeedForward(d: int, dropout: float = 0.0, *, device=None,
                 dtype=torch.float32,
                 generator: Optional[torch.Generator] = None) -> Chain:
     """``Dense(d -> 4d, relu) -> Dense(4d -> d) -> Dropout``."""
-    gen = _generator(generator)
+    gen = init_generator(generator)
     return Chain(
         Linear(d, 4 * d, activation=relu, device=device, dtype=dtype,
                generator=gen),

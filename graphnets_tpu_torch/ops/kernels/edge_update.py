@@ -33,7 +33,7 @@ __all__ = ["fused_edge_update_agg", "fused_edge_update_agg_plain",
 
 LAUNCHES = 0            # kernel launches, for proving the path was taken
 _SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
-_EDGES_PER_BLOCK = 256  # target edge rows per block (whole receivers)
+_EDGES_PER_BLOCK = 128  # target edge rows per block (whole receivers)
 
 
 def _smem_bytes(de: int) -> int:

@@ -33,6 +33,7 @@ __all__ = ["ln_ffn_residual", "ln_ffn_residual_plain",
 
 LAUNCHES = 0                    # kernel launches, for proving the path
 _DIMS = (128, 256, 384)         # feature dims the kernel is built for
+_ROWS = 64                      # rows per block
 
 
 def supports_fused_ffn(n_rows: int, d: int,
@@ -67,11 +68,21 @@ def ln_ffn_residual_plain(x, scale, bias, w1, b1, w2, b2, extra=None):
     return (x.float() + y).to(x.dtype)
 
 
+def _splits(T: int, device) -> int:
+    """Blocks per 64-row tile (split over the hidden dimension): enough to
+    give every SM a block when there are few row tiles, at most 8."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = 1
+    while splits < 8 and -(-T // _ROWS) * splits * 2 <= sms:
+        splits *= 2
+    return splits
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ffn")
     fn = lib.gn_ln_ffn_residual
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -104,12 +115,20 @@ def _launch(x, scale, bias, w1, b1, w2, b2, extra):
         if not t.is_contiguous():
             raise ValueError("ln_ffn_residual: inputs must be contiguous")
     out = torch.empty_like(x)
+    splits = _splits(T, x.device)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty(splits * T * d, dtype=torch.float32,
+                              device=x.device)
+        counters = torch.zeros(-(-T // _ROWS), dtype=torch.int32,
+                               device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gn_ln_ffn_residual(
-            *[None if t is None else t.data_ptr() for t in args],
-            out.data_ptr(), T, d, stream)
+            *[None if t is None else t.data_ptr()
+              for t in (*args, out, partial, counters)],
+            T, d, splits, stream)
     _build.check(lib, err, "ln_ffn_residual")
     LAUNCHES += 1
     return out

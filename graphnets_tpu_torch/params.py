@@ -16,16 +16,16 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_jax_params", "flatten_tree"]
+__all__ = ["from_jax_params"]
 
 
-def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     """``{"a": {"b": x}}`` -> ``{"a.b": x}``."""
     out = {}
     for k, v in tree.items():
         name = f"{prefix}{k}"
         if isinstance(v, dict):
-            out.update(flatten_tree(v, name + "."))
+            out.update(_flatten_tree(v, name + "."))
         else:
             out[name] = v
     return out
@@ -38,7 +38,7 @@ def from_jax_params(tree, module: nn.Module) -> nn.Module:
     parameter raises ``ValueError``.  Values are cast to each parameter's
     own dtype and device (bfloat16 arrays widen exactly through float32).
     """
-    flat = flatten_tree(tree)
+    flat = _flatten_tree(tree)
     params = dict(module.named_parameters())
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))

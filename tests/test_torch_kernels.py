@@ -4,10 +4,9 @@ On the CPU the port's wrappers run their plain versions, which carry the
 CUDA kernels' rounding points; the JAX kernels run in Pallas interpret
 mode.  The same numpy inputs go to both.  Tolerances: bf16 outputs at the
 JAX kernel tests' 5e-2, the f32 edge->node sum at 1e-4 against an f32 sum
-of the rounded h, and f32 runs at 1e-5 against the JAX references.
-
-Tests marked ``cuda`` compare each CUDA kernel with its plain version on
-the card and skip without one.
+of the rounded h, and f32 runs at 1e-5 against the JAX references.  The
+kernels themselves are held against these plain versions on the card by
+``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -27,13 +26,6 @@ def interpret_mode():
     enable_pallas(True, interpret=True)
     yield
     enable_pallas(old[0], interpret=old[1])
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
 
 
 def _t(a, dtype=torch.float32):
@@ -129,7 +121,7 @@ def test_fused_edge_update_agg_f32_matches_reference():
                                atol=1e-4)
 
 
-def _ffn_inputs(seed, rows, d, wdtype=np.float32):
+def _ffn_inputs(seed, rows, d):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     return dict(x=f(rows, d), scale=f(d), bias=f(d), w1=f(d, 4 * d) * 0.05,
@@ -208,44 +200,3 @@ def test_kernel_gates():
     assert not pt_ffn.supports_fused_ffn(0, 384, bf)
     assert not pt_ffn.supports_fused_ffn(64, 512, bf)
     assert not pt_ffn.supports_fused_ffn(64, 384, torch.float32)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("padded", [False, True])
-def test_cuda_edge_update_agg_matches_plain(cuda_device, padded):
-    G, n_slots, e_slots, d = 4, 32, 256, 128
-    a = _edge_inputs(8, G, n_slots, e_slots, d, padded)
-    a.update(n_slots=n_slots, e_slots=e_slots)
-    h_p, agg_p = _port_edge(a, torch.bfloat16)
-    before = pt_eu.LAUNCHES
-    dev = {k: (torch.from_numpy(v).to(cuda_device)
-               if isinstance(v, np.ndarray) else v) for k, v in a.items()}
-    ln = {"scale": dev["scale"], "bias": dev["bias"]}
-    h_k, agg_k = pt_eu.fused_edge_update_agg(
-        dev["ef"].bfloat16(), ln, dev["w0"].bfloat16(), dev["ts"],
-        dev["tr"], dev["tg"], dev["b"], dev["senders"], dev["receivers"],
-        n_slots, e_slots)
-    torch.cuda.synchronize()
-    assert pt_eu.LAUNCHES == before + 1
-    tol = 2.0 ** -7 * float(h_p.float().abs().max())  # one bf16 ulp
-    assert float((h_k.float().cpu() - h_p.float()).abs().max()) <= tol
-    own = torch.zeros_like(agg_k).index_add_(0, dev["receivers"],
-                                             h_k.float())
-    assert torch.allclose(agg_k, own, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [8, 1000])
-def test_cuda_ln_ffn_residual_matches_plain(cuda_device, rows):
-    a = _ffn_inputs(9, rows, 128)
-    args = [_t(a[k]) for k in _FFN_KEYS]
-    args[0] = args[0].bfloat16()
-    extra = _t(a["extra"], torch.bfloat16)
-    ref = pt_ffn.ln_ffn_residual_plain(*args, extra=extra)
-    before = pt_ffn.LAUNCHES
-    out = pt_ffn.ln_ffn_residual(*[t.to(cuda_device) for t in args],
-                                 extra=extra.to(cuda_device))
-    torch.cuda.synchronize()
-    assert pt_ffn.LAUNCHES == before + 1
-    tol = 2.0 ** -6 * float(ref.float().abs().max())  # two bf16 ulps
-    assert float((out.float().cpu() - ref.float()).abs().max()) <= tol
