@@ -5,8 +5,11 @@ holds hand-written Hopper kernels for its hot paths (``ops/kernels``,
 sources in ``csrc/``).  It imports neither JAX nor ``graphnets_tpu``; the
 JAX package is the reference it is tested against.
 
-This slice covers the GNCoreList forward on uniform batches: batching,
-the nn modules, the scatter primitives, GNBlock and GNCore.
+The port covers batching, the nn modules, the scatter primitives, GNBlock
+and GNCore/GNCoreList, their forward on uniform batches and their training
+step (``make_train_step``: the masked losses, the backward through the
+kernels' own backward kernels, AdamW), with f32 master parameters and bf16
+compute on the kernel routes.
 """
 
 from .graph import GraphsTuple, PadSpec, adjacency_matrices, batch, unbatch
@@ -28,7 +31,11 @@ from .models.gn_core import (
     graphnet_add,
 )
 from .nn.core import Chain, Dropout, FeedForward, LayerNorm, Linear, relu
-from .params import from_jax_params
+from .params import from_jax_params, to_numpy_tree
+from .training.losses import (graph_accuracy, graph_loss_nf_ef,
+                              masked_accuracy, masked_logit_crossentropy,
+                              per_graph_correct)
+from .training.train import adamw, make_train_step
 from .utils.config import enable_kernels, use_kernels
 
 __version__ = "0.1.0"
@@ -40,5 +47,7 @@ __all__ = [
     "getgraphfninput", "zerodim2nothing",
     "GNCore", "GNCoreList", "GNFeedForward", "GNGraphNorm", "graphnet_add",
     "Chain", "Dropout", "FeedForward", "LayerNorm", "Linear", "relu",
-    "from_jax_params", "enable_kernels", "use_kernels",
+    "from_jax_params", "to_numpy_tree", "enable_kernels", "use_kernels",
+    "masked_logit_crossentropy", "graph_loss_nf_ef", "masked_accuracy",
+    "per_graph_correct", "graph_accuracy", "adamw", "make_train_step",
 ]

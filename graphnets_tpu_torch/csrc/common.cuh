@@ -16,6 +16,39 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// First index i in the ascending a[0, n) with a[i] >= key (n if none).
+__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Four consecutive values as f32, and back with one rounding.  The
+// pointer is aligned to the access (8 bytes for bf16, 16 for f32).
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
 // Flux LayerNorm of one row held in shared memory, done by one warp, in
 // place: f32 statistics, (x - mean) / (std + eps) with std = 0 where
 // var == 0, then * scale + bias and one rounding to bf16.  Division and

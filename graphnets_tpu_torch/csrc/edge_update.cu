@@ -1,7 +1,8 @@
 // Fused edge update with the edge->node sum, for uniform slot layouts.
 //
-// Replaces the Pallas kernel `fused_edge_update_agg`
-// (graphnets_tpu/ops/pallas/edge_update.py, `_kernel` and `_forward`):
+// Replaces the Pallas kernel of `fused_edge_update_agg` and
+// `fused_edge_update` (graphnets_tpu/ops/pallas/edge_update.py, `_kernel`
+// and `_forward`; the second writes h alone, here with agg == nullptr):
 //
 //   h[e]   = bf16( f32(bf16(LN(ef[e])) @ W0) + ts[s[e]] + tr[r[e]]
 //                  + tg[e / e_slots] + b )
@@ -47,15 +48,6 @@ constexpr int kThreads = 256;
 constexpr int kLdw = kCols + 8;
 constexpr int kLdc = kCols + 4;
 
-__device__ int lower_bound(const int* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kThreads)
 edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
                        const __nv_bfloat16* __restrict__ w0,
@@ -92,8 +84,8 @@ edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
     gn::cp_async16(Ws + k * kLdw + v * 8, w0 + (size_t)k * dout + c0 + v * 8);
   }
   gn::cp_async_commit();
-  if (tid == 0) bounds[0] = lower_bound(receivers, E, n0);
-  if (tid == 1) bounds[1] = lower_bound(receivers, E, n1);
+  if (tid == 0) bounds[0] = gn::lower_bound(receivers, E, n0);
+  if (tid == 1) bounds[1] = gn::lower_bound(receivers, E, n1);
   gn::cp_async_wait<0>();
   __syncthreads();
   const int e0 = bounds[0], e1 = bounds[1];
@@ -174,8 +166,9 @@ edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
 
     // Edge->node sum: thread t owns column c0 + t and walks the chunk's
     // edges in order; a finished segment is written once, and receivers
-    // with no edges get a zero row.
-    if (tid < kCols) {
+    // with no edges get a zero row.  Skipped without `agg` (the variant
+    // the training route takes).
+    if (agg != nullptr && tid < kCols) {
       for (int r = 0; r < rows; ++r) {
         const int node = rcv[r];
         if (node != cur) {
@@ -190,7 +183,7 @@ edge_update_agg_kernel(const __nv_bfloat16* __restrict__ ef,
     }
     __syncthreads();
   }
-  if (tid < kCols && n0 < n1) {
+  if (agg != nullptr && tid < kCols && n0 < n1) {
     agg[(size_t)cur * dout + c0 + tid] = run;
     for (int n = cur + 1; n < n1; ++n) agg[(size_t)n * dout + c0 + tid] = 0.f;
   }
@@ -203,7 +196,8 @@ extern "C" size_t gn_edge_update_agg_smem(int de) {
          (size_t)kChunk * kLdc * 4 + (2 * kChunk + 2) * sizeof(int);
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError().
+// Launches the kernel on `stream` and returns cudaGetLastError().  `agg`
+// may be null: then only h is written (`fused_edge_update`).
 // Preconditions, checked by the Python wrapper: bf16 ef/w0, f32 partials,
 // scale, bias and b, int32 ids with ascending receivers, de % 128 == 0,
 // dout % 128 == 0, contiguous row-major tensors.

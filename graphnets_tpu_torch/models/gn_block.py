@@ -11,12 +11,16 @@ Semantics kept exactly:
 * zero feature dims are legal and zero-width outputs become ``None``;
 * ``dropout`` is accepted and never applied, like the reference.
 
-Routes: on a uniform slot layout with kernels on, the edge update and the
-edge->node sum run in the fused CUDA kernel (``ops/kernels/edge_update``).
-Every other route runs the plain split-linear path: the JAX package's
-``ln_matmul`` term, deferred ``sorted_gather_add`` and G = 1 kernel are not
-ported yet, so here they keep their pure semantics (the LN of ``ef`` is
-materialised and the gathers are ``index_select``).
+Routes: on a uniform slot layout with kernels on, the edge update runs in
+the fused CUDA kernel (``ops/kernels/edge_update``): in inference with the
+edge->node sum in the same pass, under training without it (its backward
+composes the segment-sum, gather and LN->matmul backward kernels) and
+followed by the sorted segment-sum kernel, as ``gn_block.py:357-376`` of
+the JAX package decides.  Every other route runs the plain split-linear
+path: the JAX package's ``ln_matmul`` term, deferred ``sorted_gather_add``
+and G = 1 kernel are not ported yet, so here they keep their pure
+semantics (the LN of ``ef`` is materialised and the gathers are
+``index_select``).
 """
 
 from __future__ import annotations
@@ -214,8 +218,11 @@ class GNBlock(nn.Module):
         """Split-linear edge update: the fused kernel on a uniform layout
         with kernels on, else gather-after-transform partial sums.
         Returns ``(h_ef, agg)``; ``agg`` is the kernel's f32 edge->node sum
-        or ``None``."""
-        from ..ops.kernels.edge_update import (fused_edge_update_agg,
+        or ``None``.  Under training the kernel writes ``h`` alone: the
+        JAX package measured the fused sum's backward slower than a
+        separate aggregation there."""
+        from ..ops.kernels.edge_update import (fused_edge_update,
+                                               fused_edge_update_agg,
                                                supports_fused_edge_update)
         de, dn, dg = self.in_dims
         E, N, G = g.num_edge_slots, g.num_node_slots, g.num_graph_slots
@@ -224,13 +231,13 @@ class GNBlock(nn.Module):
                 and de > 0 and dn > 0 and dg > 0
                 and supports_fused_edge_update(E, N, G, de, self.out_dims[0],
                                                *g.slot_shape, ef.dtype)):
-            if training:
-                raise NotImplementedError(
-                    "the fused edge update has no backward yet; train with "
-                    "enable_kernels(False)")
             ts = matmul_f32(nf, w[de:de + dn])
             tr = matmul_f32(nf, w[de + dn:de + 2 * dn])
             tg = matmul_f32(gf, w[de + 2 * dn:])
+            if training:
+                return fused_edge_update(ef, ef_ln, w[:de], ts, tr, tg, b,
+                                         g.senders, g.receivers,
+                                         *g.slot_shape).to(dtype), None
             h, agg = fused_edge_update_agg(ef, ef_ln, w[:de], ts, tr, tg, b,
                                            g.senders, g.receivers,
                                            *g.slot_shape)

@@ -12,8 +12,12 @@ dims must be > 0.
 
 With kernels on, the pre-block edge LN is handed to the fused edge update,
 and the second branch plus both residuals run in the fused LN->FFN->residual
-kernel (``ops/kernels/fused_ffn``), one call per feature set.  Those kernels
-have no backward yet, so ``training=True`` on a kernel route raises.
+kernel (``ops/kernels/fused_ffn``), one call per feature set.  Under
+training the JAX package's gates hold (``gn_core.py:168-213``): above
+d = 256 the second branch is composed from plain ops, and a feature set
+under 65,536 rows takes the composed reference.  The one case left, the
+fused FFN's own backward (d <= 256 and >= 65,536 rows), is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -129,34 +133,47 @@ class GNCore(nn.Module):
         if self._use_fused(g, training):
             # The whole second branch and both residuals in one kernel
             # pass per feature set: y = x + branch1 + FF(LN2(x)).
-            return self._fused_branch2(g, branch1)
+            return self._fused_branch2(g, branch1, training)
         branch2 = self.ffwd(self.gn2(g), training=training,
                             generator=generator)
         return graphnet_add(graphnet_add(g, branch1), branch2)
 
+    # The JAX package's training gates, measured there: above this edge
+    # feature dim the fused FFN's recomputing backward loses to the
+    # composed ops under training...
+    _FUSED_FFN_TRAIN_MAX_DIM = 256
+    # ...and a feature set with fewer rows takes the composed reference.
+    _FUSED_FFN_TRAIN_MIN_ROWS = 1 << 16
+
     def _use_fused(self, g: GraphsTuple, training: bool) -> bool:
         if not use_kernels() or (training and self.dropout > 0):
             return False
-        fused = (supports_fused_ffn(g.num_edge_slots, self.dims[0],
-                                    g.ef.dtype)
-                 and supports_fused_ffn(g.num_node_slots, self.dims[1],
-                                        g.nf.dtype))
-        if fused and training:
-            raise NotImplementedError(
-                "the fused LN->FFN->residual kernel has no backward yet; "
-                "train with enable_kernels(False)")
-        return fused
+        if training and self.dims[0] > self._FUSED_FFN_TRAIN_MAX_DIM:
+            return False
+        return (supports_fused_ffn(g.num_edge_slots, self.dims[0],
+                                   g.ef.dtype)
+                and supports_fused_ffn(g.num_node_slots, self.dims[1],
+                                       g.nf.dtype))
 
-    def _fused_branch2(self, g: GraphsTuple,
-                       branch1: GraphsTuple) -> GraphsTuple:
+    def _fused_branch2(self, g: GraphsTuple, branch1: GraphsTuple,
+                       training: bool) -> GraphsTuple:
         def one(x, extra, ln: LayerNorm, ff: nn.Module):
             args = (x, ln.scale, ln.bias, ff[0].w, ff[0].b, ff[1].w,
                     ff[1].b)
-            if supports_fused_ffn(x.shape[0], x.shape[1], x.dtype):
-                return ln_ffn_residual(*args, extra=extra)
-            # A feature set the kernel does not take (the JAX kernel falls
-            # back the same way inside ln_ffn_residual).
-            return ln_ffn_residual_reference(*args, extra=extra)
+            if ((training and x.shape[0] < self._FUSED_FFN_TRAIN_MIN_ROWS)
+                    or not supports_fused_ffn(x.shape[0], x.shape[1],
+                                              x.dtype)):
+                # The composed reference: the measured winner for small
+                # row counts under training, and the JAX kernel's own
+                # fallback for a feature set it does not take.
+                return ln_ffn_residual_reference(*args, extra=extra)
+            if training:
+                raise NotImplementedError(
+                    "training through the fused LN->FFN->residual kernel "
+                    "needs its backward (PERF.md kernel table row 3, "
+                    "fused_ffn.py:240 _fused_backward), which is not "
+                    "ported; train with enable_kernels(False)")
+            return ln_ffn_residual(*args, extra=extra)
 
         return g.with_features(
             ef=one(g.ef, branch1.ef, self.gn2.edgeln, self.ffwd.eff),

@@ -1,4 +1,4 @@
-"""Load a ``graphnets_tpu`` parameter tree into a port module.
+"""Move parameters between ``graphnets_tpu`` trees and port modules.
 
 The JAX package keeps parameters as nested dicts (``{"0": {"block":
 {"edgefn": {"w", "b"}, ...}}}``); the port's modules use the same names and
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "to_numpy_tree"]
 
 
 def _flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -54,3 +54,16 @@ def from_jax_params(tree, module: nn.Module) -> nn.Module:
         with torch.no_grad():
             p.copy_(src.to(device=p.device, dtype=p.dtype))
     return module
+
+
+def to_numpy_tree(module: nn.Module) -> dict:
+    """The module's parameters as a nested dict of f32 numpy arrays, in the
+    JAX package's tree layout (the reverse of :func:`from_jax_params`)."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = p.detach().float().cpu().numpy()
+    return tree

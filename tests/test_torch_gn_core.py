@@ -218,17 +218,6 @@ def test_gnblock_matches_jax(kernels_off, split, dims):
     _compare(yj, yp, torch.float32)
 
 
-def test_training_on_kernel_route_raises(kernels_on):
-    d = 128
-    data = _graphs(6, 2, 16, 8, d, False)
-    gp = pt.batch(data, pad=pt.PadSpec.uniform(16, 128), device="cpu")
-    gp = gp.with_features(ef=gp.ef.bfloat16(), nf=gp.nf.bfloat16(),
-                          gf=gp.gf.bfloat16())
-    core = pt.GNCore((d, d, d), device="cpu", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        core(gp, training=True)
-
-
 def test_corelist_copies_repeated_core():
     core = pt.GNCore((8, 8, 8), device="cpu")
     stack = pt.GNCoreList([core] * 3)
