@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
-(4b and the training kernels of phase 3 came with the training slice):
+(4b drives the training step; A and B drive the non-uniform route):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``graphnets_tpu_torch/csrc`` with ``nvcc``
@@ -13,7 +13,7 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line
 3. hold each kernel against its plain torch version on the card, at the
    shapes the main path gives it: the fused edge update on the headline
    layout and on a padded uniform layout, the fused LN->FFN->residual at
-   T = 16384, 1024 and 8 rows; record the largest error against the stated
+   T = 16384, 1024, 8 and 1056 rows; record the largest error against the stated
    tolerance, and time kernel and plain version with CUDA events
    (warm-up excluded): device time from a replayed CUDA graph, and the
    eager per-call time with its host cost.  The training kernels likewise:
@@ -45,6 +45,39 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line
    the 8-row graph set by far more than 5e-2).  The loss over 5 steps
    must stay finite.  Print the eager step time, edges/s and a profile of
    one step;
+A. run the sort-task flagship (``examples/sort_torch.py``: encoder ->
+   2 GNCores -> decoder at (384, 384, 384), batch 4, f32, AdamW(3e-4), on
+   ``sort_pad_spec`` batches from the host generator: N = 41, E = 512,
+   G = 5, not a uniform layout) through ``train_sort``: one step on the
+   kernel route and one on the plain route (kernels off) from the same
+   seed, whose losses must agree within 1e-4 relative and whose gradients
+   within 1e-3 of each tensor's largest magnitude (f32 sums in another
+   order); then a few more steps with the counters set to 0 just before
+   and read just after: every step must launch ``ln_matmul`` twice, the
+   LN backward twice (in f32), the windowed segment sum 3 times (the
+   senders gather's backward in the encoder and both cores) and no other
+   kernel; then
+   ``sort_accuracy`` on a few batches, on both routes.  Print steps/s,
+   the eager and the device time of a step and a profile;
+B. run the headline model on a bucket-padded batch (``bench.py``'s eight
+   graphs batched with ``PadSpec.bucketed(1024, 16384, 8,
+   node_multiple=32)``: N = 1056, E = 16384, G = 9, bf16): one forward,
+   which must launch ``ln_matmul`` and ``sorted_gather_add`` 3 times each
+   and match the plain route within 5e-2 of each feature set's largest
+   magnitude; then the train step of phase 4b on that batch, with 4b's
+   limits on the loss and the gradients, and per step 3 ``ln_matmul``, 3
+   ``sorted_gather_add``, 3 LN backwards, 6 sorted and 3 windowed segment
+   sums and 3 sorted gathers.  The kernels of this route are held against
+   their plain versions in phase 3 too: ``ln_matmul`` at [16384, 384]
+   bf16 with an f32 addend and without, and at [512, 384] f32; the LN
+   backward at [512, 384] f32; ``sorted_gather_add`` with a [1056, 384]
+   f32 table and an f32 addend (bit-equal); the segment sums on the
+   bucketed layout, whose last window holds the padding, on bf16 rows
+   (the edge->node sum) and on f32 rows (the cotangents of the deferred
+   receivers term and of the senders gather); the windowed sum of f32
+   [512, 384] rows into the 41 node slots of a sort-task batch; the
+   sorted gather from a [1056, 384] bf16 table; the fused FFN at
+   T = 1056;
 5. print one JSON line listing the kernels, then the ``ok`` line.
 
 Float32 products everywhere run without TF32 (set below), so the plain
@@ -293,19 +326,26 @@ def check_edge_update_h(torch, eu, g, seed):
             **times, "bound_ms": bms, "bound_by": by}
 
 
-def check_segment_sums(torch, ss, g, seed):
+def check_segment_sums(torch, ss, g, seed, dtype=None,
+                       which=("sorted", "windowed")):
     """The sorted (receivers) and windowed (senders) sums of an [E, D]
-    bf16 input into the N node segments of ``g``, against their plain
-    versions: one bf16 ulp at the largest magnitude.  ``library_ms``:
-    ``index_add_`` of the f32 widening of x into a zeroed f32 buffer."""
+    input (bf16, or ``dtype``) into the N node segments of ``g``, against
+    their plain versions: one bf16 ulp at the largest magnitude, or 1e-5
+    of it for f32 rows (an f32 sum in another order).  The windows are the
+    model's (``searchsorted`` of the graph ids), so on a bucketed batch
+    the last one holds the padding.  ``library_ms``: ``index_add_`` of the
+    f32 widening of x into a zeroed f32 buffer."""
     dev = g.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     E, N, G = g.num_edge_slots, g.num_node_slots, g.num_graph_slots
-    x = torch.randn(E, D, generator=gen, device=dev).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    es = 2 if dtype == torch.bfloat16 else 4
+    x = torch.randn(E, D, generator=gen, device=dev).to(dtype)
     xf = x.float()
-    ns, es = g.slot_shape
     gi = torch.arange(G + 1, dtype=torch.int32, device=dev)
-    wins = (gi * ns, gi * es)
+    wins = (torch.searchsorted(g.node_graph, gi).to(torch.int32),
+            torch.searchsorted(g.edge_graph, gi).to(torch.int32))
+    counts = {"sorted": "LAUNCHES", "windowed": "WINDOWED_LAUNCHES"}
     cases = {}
     for name, ids, kernel, plain in (
             ("sorted", g.receivers,
@@ -315,21 +355,27 @@ def check_segment_sums(torch, ss, g, seed):
              lambda: ss.windowed_segment_sum(x, g.senders, N, *wins),
              lambda: ss.windowed_segment_sum_plain(x, g.senders, N,
                                                    *wins))):
+        if name not in which:
+            continue
         ids_long = ids.long()
         library = lambda: torch.zeros(N, D, device=dev).index_add_(
             0, ids_long, xf)
         with torch.no_grad():
+            before = getattr(ss, counts[name])
             out, ref = kernel(), plain()
         torch.cuda.synchronize()
+        if getattr(ss, counts[name]) != before + 1:
+            raise SystemExit(f"{name}_segment_sum did not launch its kernel")
         err = max_err(out, ref)
-        tol = 2.0 ** -7 * float(ref.float().abs().max())
-        nbytes = E * D * 2 + E * 4 + N * D * 2 + (
+        tol = (2.0 ** -7 if es == 2 else 1e-5) * float(ref.float().abs().max())
+        nbytes = E * D * es + E * 4 + N * D * es + (
             2 * (G + 1) * 4 if name == "windowed" else 0)
         bms, by = bound_ms(nbytes, 0, flops_f32=E * D)
-        cases[name] = {"shape": f"{name} E={E} N={N} d={D} bf16",
+        cases[name] = {"shape": f"{name} E={E} N={N} G={G} d={D} "
+                                f"{'bf16' if es == 2 else 'f32'}",
                        "max_err": err, "tol": tol,
-                       "ok": err <= tol and bool(torch.isfinite(
-                           out.float()).all()),
+                       "ok": (err <= tol and out.dtype == ref.dtype
+                              and bool(torch.isfinite(out.float()).all())),
                        **timed(torch, kernel, plain, library),
                        "bound_ms": bms, "bound_by": by}
     return cases
@@ -357,12 +403,14 @@ def check_gather(torch, ga, g, seed):
             "bound_ms": bms, "bound_by": by}
 
 
-def check_ln_backward(torch, ll, lnp, T, seed):
-    """The LN->matmul backward at T rows, d = dout = D: dx within 2^-6 and
-    dW, dscale, dbias within 1e-3 of their largest magnitudes."""
+def check_ln_backward(torch, ll, lnp, T, seed, dtype=None):
+    """The LN->matmul backward at T rows, d = dout = D.  bf16 rows: dx
+    within 2^-6 and dW, dscale, dbias within 1e-3 of their largest
+    magnitudes; f32 rows: all within 1e-4 (f32 sums in another order)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
+    es = 2 if bf == torch.bfloat16 else 4
     args = (rnd(T, D).to(bf), 1 + 0.1 * rnd(D), 0.1 * rnd(D),
             (rnd(D, D) * D ** -0.5).to(bf), rnd(T, D).to(bf))
     kernel = lambda: ll.ln_linear_backward(*args)
@@ -372,11 +420,14 @@ def check_ln_backward(torch, ll, lnp, T, seed):
     names = ("dx", "dscale", "dbias", "dw")
     rel = {n: max_err(o, r) / max(float(r.float().abs().max()), 1e-30)
            for n, o, r in zip(names, out, ref)}
-    tols = dict(zip(names, (2.0 ** -6, 1e-3, 1e-3, 1e-3)))
+    tols = dict(zip(names, (2.0 ** -6, 1e-3, 1e-3, 1e-3) if es == 2
+                    else (1e-4,) * 4))
     finite = all(bool(torch.isfinite(o.float()).all()) for o in out)
-    nbytes = 3 * T * D * 2 + D * D * 2 + 2 * D * 4 + D * D * 4 + 2 * D * 4
-    bms, by = bound_ms(nbytes, 4 * T * D * D)
-    return {"shape": f"T={T} d={D} dout={D}",
+    nbytes = 3 * T * D * es + D * D * es + 2 * D * 4 + D * D * 4 + 2 * D * 4
+    flops = 4 * T * D * D
+    bms, by = bound_ms(nbytes, flops if es == 2 else 0,
+                       flops_f32=0 if es == 2 else flops)
+    return {"shape": f"T={T} d={D} dout={D} {'bf16' if es == 2 else 'f32'}",
             "max_err": max(max_err(o, r) for o, r in zip(out, ref)),
             "rel_err": rel, "tol": tols,
             "ok": finite and all(rel[n] <= tols[n] for n in names),
@@ -384,15 +435,90 @@ def check_ln_backward(torch, ll, lnp, T, seed):
             "bound_by": by}
 
 
+def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype):
+    """``ln_matmul`` at T rows, d = dout = D, against its plain version.
+    bf16 rows: the completed row within one bf16 ulp at the largest
+    magnitude (a normalised value may round the other way after a
+    differently ordered f32 sum), the f32 partial within 1e-3 of it; f32
+    rows: within 1e-4 (an f32 sum in another order).  No single PyTorch
+    call computes LN, product and add, so ``library_ms`` is null."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rnd(T, D)
+    x[:3] = 0.0  # var == 0 rows
+    args = (x.to(dtype), 1 + 0.1 * rnd(D), 0.1 * rnd(D),
+            (rnd(D, D) * D ** -0.5).to(dtype))
+    addend = None if addend_dtype is None else rnd(T, D).to(addend_dtype)
+    kernel = lambda: ll.ln_matmul(*args, addend=addend)
+    plain = lambda: lnp.ln_matmul_reference(*args, addend=addend)
+    with torch.no_grad():
+        before = ll.FWD_LAUNCHES
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if ll.FWD_LAUNCHES != before + 1:
+            raise SystemExit("ln_matmul did not launch its kernel")
+        err = max_err(out, ref)
+        if dtype == torch.float32:
+            rel = 1e-4
+        else:
+            rel = 1e-3 if addend is None else 2.0 ** -7
+        tol = rel * float(ref.float().abs().max())
+        times = timed(torch, kernel, plain)
+    es = x.to(dtype).element_size()
+    nbytes = (T * D * es + D * D * es + 2 * D * 4 + T * D * out.element_size()
+              + (0 if addend is None else T * D * addend.element_size()))
+    flops = 2 * T * D * D
+    bms, by = bound_ms(nbytes, flops if es == 2 else 0,
+                       flops_f32=0 if es == 2 else flops)
+    name = lambda t: str(t).replace("torch.", "")
+    return {"shape": f"T={T} d={D} dout={D} {name(dtype)} addend="
+                     f"{name(addend_dtype)}", "max_err": err, "tol": tol,
+            "ok": (err <= tol and out.dtype == ref.dtype
+                   and bool(torch.isfinite(out.float()).all())),
+            **times, "bound_ms": bms, "bound_by": by}
+
+
+def check_gather_add(torch, ga, g, seed):
+    """``sorted_gather_add`` of an [N, D] f32 table by the receivers of
+    ``g`` onto an [E, D] f32 addend (the deferred receivers term of the
+    bucketed edge update): one f32 add of the same two values, bit-equal
+    to its plain version.  No single PyTorch call computes gather and add,
+    so ``library_ms`` is null."""
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E, N = g.num_edge_slots, g.num_node_slots
+    table = torch.randn(N, D, generator=gen, device=dev)
+    addend = torch.randn(E, D, generator=gen, device=dev)
+    kernel = lambda: ga.sorted_gather_add(table, g.receivers, addend)
+    plain = lambda: ga.sorted_gather_add_plain(table, g.receivers, addend)
+    with torch.no_grad():
+        before = ga.ADD_LAUNCHES
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if ga.ADD_LAUNCHES != before + 1:
+            raise SystemExit("sorted_gather_add did not launch its kernel")
+        times = timed(torch, kernel, plain)
+    bms, by = bound_ms(N * D * 4 + E * 4 + 2 * E * D * 4, 0,
+                       flops_f32=E * D)
+    return {"shape": f"table [{N}, {D}] f32 -> {E} rows + f32 addend",
+            "max_err": max_err(out, ref), "tol": 0.0,
+            "ok": bool(torch.equal(out, ref)), **times, "bound_ms": bms,
+            "bound_by": by}
+
+
 def kernel_entry(name, source, replaces, launches, cases):
     """One kernel's line entry; its times are those of the heaviest case
-    (the first), and every case is listed under ``cases``.  ``ms`` and
+    (the first), and every case is listed under ``cases``.  ``launches``
+    maps each driven path to the count read just after it (set to 0 just
+    before); the entry's ``launches`` is their sum.  ``ms`` and
     ``plain_ms`` are device times (CUDA-graph replay); the ``*_call_ms``
     of each case include the eager host cost of a call."""
     head = cases[0]
     err = max(c["max_err"] for c in cases)
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": err, "max_err": err, "tol": head["tol"],
             "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -400,11 +526,78 @@ def kernel_entry(name, source, replaces, launches, cases):
             "library_ms": head.get("library_ms"), "cases": cases}
 
 
-def train_phase(torch, pt, g, zero_counts, read_counts):
-    """Phase 4b: ``benchmarks/bench_train_step.py``'s step on ``g`` (bf16
-    features), f32 master params, bf16 compute, AdamW(3e-4).  Raises
-    ``SystemExit`` on a wrong launch count, a gradient off the pure route
-    or a non-finite loss."""
+def forward_phase(torch, pt, g, expect, zero_counts, read_counts, what):
+    """One forward of 3 GNCores at (D, D, D) with seeded bf16 params on
+    ``g`` (bf16 features), counters set to 0 just before and read just
+    after; the output against the pure route (kernels off) on the card,
+    within 5e-2 of each feature set's largest magnitude; eager and
+    CUDA-graph times of both routes and a profile of one eager forward.
+    Raises ``SystemExit`` on a wrong launch count or a wrong output."""
+    gen = torch.Generator().manual_seed(0)
+    model = pt.GNCoreList([pt.GNCore((D, D, D), generator=gen)
+                           for _ in range(N_CORES)]).to(torch.bfloat16)
+    pt.enable_kernels(True)
+    with torch.no_grad():
+        zero_counts()
+        y = model(g)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        log(f"{what} launches: {launches}")
+        want = {k: 0 for k in launches}
+        want.update(expect)
+        if launches != want:
+            raise SystemExit(f"{what} did not take the kernels as "
+                             f"expected ({want}): {launches}")
+        fwd_ms = cuda_ms(torch, lambda: model(g), iters=10)
+        fwd_graph_ms = graph_ms(torch, lambda: model(g), iters=10)
+        prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: model(g))
+        pt.enable_kernels(False)
+        y_pure = model(g)
+        pure_ms = cuda_ms(torch, lambda: model(g), iters=10)
+        pure_graph_ms = graph_ms(torch, lambda: model(g), iters=10)
+        pt.enable_kernels(True)
+    out, ref = pt.unbatch(y), pt.unbatch(y_pure)
+    # test_gncore_fused_matches_pure holds the f32 routes to rtol 1e-4;
+    # in bf16 (8-bit mantissa) three cores of differently rounded residual
+    # sums are held to 5e-2 of the largest magnitude of each feature set.
+    path_err = {}
+    for key in ("ef", "nf", "gf"):
+        a, r = np.asarray(out[key], np.float32), np.asarray(ref[key],
+                                                            np.float32)
+        if a.shape != r.shape or not np.isfinite(a).all():
+            raise SystemExit(f"{what} {key}: bad shape or non-finite")
+        path_err[key] = float(np.abs(a - r).max() / np.abs(r).max())
+    log(f"{what} vs pure route (max err / max |ref|): {path_err}, "
+        f"tolerance 5e-2")
+    if max(path_err.values()) > 5e-2:
+        raise SystemExit(f"{what} disagrees with the pure route")
+    return {"launches": launches, "fwd_ms": fwd_ms,
+            "fwd_graph_ms": fwd_graph_ms, "pure_ms": pure_ms,
+            "pure_graph_ms": pure_graph_ms, "prof_rows": prof_rows,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "path_err": path_err}
+
+
+def log_forward(what, fwd, n_edges, where):
+    log(f"{what}: {fwd['fwd_ms']:.4f} ms eager "
+        f"({n_edges / fwd['fwd_ms'] * 1e3:.4e} edges/s), "
+        f"{fwd['fwd_graph_ms']:.4f} ms as a CUDA graph, kernel route; "
+        f"pure route {fwd['pure_ms']:.4f} ms eager, "
+        f"{fwd['pure_graph_ms']:.4f} ms as a graph; {where}")
+    log(f"profile of one eager {what} (profiler on): "
+        f"{sum(r[1] for r in fwd['prof_rows'])} kernels, "
+        f"{fwd['busy_ms']:.4f} ms of {fwd['wall_ms']:.4f} ms wall; without "
+        f"the profiler the device idles "
+        f"{1 - fwd['fwd_graph_ms'] / fwd['fwd_ms']:.3f} of the eager "
+        f"forward (1 - graph time / eager time)")
+    for dev_ms, count, name in fwd["prof_rows"][:10]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+
+
+def train_phase(torch, pt, g, expect, zero_counts, read_counts, what):
+    """``benchmarks/bench_train_step.py``'s step on ``g`` (bf16 features),
+    f32 master params, bf16 compute, AdamW(3e-4).  Raises ``SystemExit``
+    on a wrong launch count, a gradient off the pure route or a non-finite
+    loss."""
     import copy
     rng = np.random.default_rng(1)
     E, N = g.num_edge_slots, g.num_node_slots
@@ -426,12 +619,12 @@ def train_phase(torch, pt, g, zero_counts, read_counts):
     m = step(g, y)
     torch.cuda.synchronize()
     launches = read_counts()
-    expect = {k: 0 for k in launches}
-    expect.update(edge=N_CORES, segment_sum=2 * N_CORES, windowed=N_CORES,
-                  gather=N_CORES, ln_backward=N_CORES)
-    if launches != expect:
-        raise SystemExit(f"train step did not take the kernels as expected "
-                         f"({expect}): {launches}")
+    log(f"{what} launches: {launches}")
+    want = {k: 0 for k in launches}
+    want.update(expect)
+    if launches != want:
+        raise SystemExit(f"{what} did not take the kernels as expected "
+                         f"({want}): {launches}")
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     pt.enable_kernels(False)
     mp = pure_step(g, y)
@@ -451,7 +644,7 @@ def train_phase(torch, pt, g, zero_counts, read_counts):
     worst = max((r, n) for n, r in ratios.items())
     if (abs(loss - pure_loss) > 1e-2 * abs(pure_loss) or worst[0] > 1.0
             or not all(bool(torch.isfinite(t).all()) for t in grads.values())):
-        raise SystemExit(f"train step disagrees with the pure route: loss "
+        raise SystemExit(f"{what} disagrees with the pure route: loss "
                          f"{loss} vs {pure_loss}, worst gradient {worst}")
     losses = [loss] + [float(step(g, y)["loss"]) for _ in range(4)]
     if not all(np.isfinite(losses)):
@@ -474,6 +667,139 @@ def train_phase(torch, pt, g, zero_counts, read_counts):
             "pure_kernels": sum(r[1] for r in pure_rows)}
 
 
+def log_train(what, train, n_edges, where):
+    log(f"{what} vs pure route: loss {train['loss']:.6f} vs "
+        f"{train['pure_loss']:.6f} (tolerance 1e-2 relative); worst "
+        f"gradient {train['worst_grad'][1]} at {train['worst_grad'][0]:.4f}"
+        f" of its bound (max of 5e-2 x its largest magnitude and the "
+        f"pure route's bf16-vs-f32 distance)")
+    log(f"{what} losses over {len(train['losses'])} steps: "
+        f"{train['losses']}")
+    log(f"{what}: {train['step_ms']:.4f} ms eager "
+        f"({n_edges / train['step_ms'] * 1e3:.4e} edges/s), kernel route; "
+        f"pure route {train['pure_step_ms']:.4f} ms; {where}")
+    log(f"profile of one {what} (profiler on): "
+        f"{sum(r[1] for r in train['prof_rows'])} kernels, "
+        f"{train['busy_ms']:.4f} ms of {train['wall_ms']:.4f} ms wall, busy "
+        f"share {train['busy_ms'] / train['wall_ms']:.3f}; without the "
+        f"profiler the device is busy "
+        f"{train['busy_ms'] / train['step_ms']:.3f} of the eager step "
+        f"(kernel time / eager time)")
+    for dev_ms, count, name in train["prof_rows"][:15]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    log(f"profile of one pure-route {what}: {train['pure_kernels']} "
+        f"kernels, {train['pure_busy_ms']:.4f} ms")
+    log(f"host ops of the kernel-route {what} by self CPU time (profiler "
+        f"on), {len(train['host_rows'])} kinds:")
+    for host_ms, count, name in train["host_rows"][:12]:
+        log(f"  {host_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+
+
+SORT_STEPS, SORT_EVAL_BATCHES = 30, 4
+
+
+def sort_phase(torch, pt, zero_counts, read_counts):
+    """Phase A: the sort flagship through ``train_sort`` and
+    ``sort_accuracy`` at full width, in f32.  Raises ``SystemExit`` on a
+    wrong launch count, a first step off the plain route, a non-finite
+    loss or accuracies that differ between the routes."""
+    cfg = pt.SortTaskConfig()
+    run = lambda steps: pt.train_sort(steps=steps, cfg=cfg,
+                                      core_dims=(D, D, D), n_cores=2,
+                                      learning_rate=3e-4, seed=0)
+    # One step on each route from the same seed: the same init (a seeded
+    # host generator) and the same first batch.
+    pt.enable_kernels(True)
+    zero_counts()
+    first = run(1)
+    first_launches = read_counts()
+    pt.enable_kernels(False)
+    plain = run(1)
+    pt.enable_kernels(True)
+    torch.cuda.synchronize()
+    loss, plain_loss = first.metrics["loss"], plain.metrics["loss"]
+    worst = (0.0, "")
+    for (n, p), q in zip(first.model.named_parameters(),
+                         plain.model.parameters()):
+        if p.numel():
+            rel = float((p.grad - q.grad).abs().max()) / max(
+                float(q.grad.abs().max()), 1e-30)
+            worst = max(worst, (rel, n))
+    log(f"sort step 1 vs plain route: loss {loss:.7f} vs {plain_loss:.7f} "
+        f"(tolerance 1e-4 relative); worst gradient {worst[1]} off by "
+        f"{worst[0]:.3e} of its largest magnitude (tolerance 1e-3)")
+    if (not np.isfinite(loss) or worst[0] > 1e-3
+            or abs(loss - plain_loss) > 1e-4 * abs(plain_loss)):
+        raise SystemExit("sort step disagrees with the plain route")
+
+    zero_counts()
+    res = run(SORT_STEPS)
+    launches = read_counts()
+    log(f"sort train launches over {SORT_STEPS} steps: {launches} (first "
+        f"step alone: {first_launches})")
+    want = {k: 0 for k in launches}
+    # Per step: the two cores' ln_matmul and LN backward, and the windowed
+    # sum behind the senders gather of the encoder and of each core (512
+    # rows of width 384 pass its gate; the decoder's width 2 does not).
+    want.update(ln_matmul=2 * SORT_STEPS, ln_backward=2 * SORT_STEPS,
+                windowed=3 * SORT_STEPS)
+    one = {k: v // SORT_STEPS for k, v in want.items()}
+    if launches != want or first_launches != one:
+        raise SystemExit(f"train_sort did not launch ln_matmul and the LN "
+                         f"backward twice a step, the windowed sum 3 times "
+                         f"and nothing else: {launches}, first step "
+                         f"{first_launches}")
+    if not all(np.isfinite(v) for v in res.metrics.values()):
+        raise SystemExit(f"non-finite sort metrics: {res.metrics}")
+
+    zero_counts()
+    acc = pt.sort_accuracy(res.model, cfg, num_batches=SORT_EVAL_BATCHES)
+    eval_launches = read_counts()
+    pt.enable_kernels(False)
+    plain_acc = pt.sort_accuracy(res.model, cfg,
+                                 num_batches=SORT_EVAL_BATCHES)
+    pt.enable_kernels(True)
+    log(f"sort accuracy after {SORT_STEPS} steps: {acc}; plain route "
+        f"{plain_acc}; launches {eval_launches}")
+    want = {k: 0 for k in eval_launches}
+    want.update(ln_matmul=2 * SORT_EVAL_BATCHES)
+    # An argmax over two logits may flip where they are within rounding:
+    # the routes' slot accuracies are held to 0.02 of each other, and the
+    # whole-graph accuracy to one graph of a batch.
+    slack = dict(node_acc=0.02, edge_acc=0.02,
+                 graph_acc=1.0 / cfg.batch_size)
+    if (eval_launches != want
+            or not all(0.0 <= v <= 1.0 for v in acc.values())
+            or any(abs(acc[k] - plain_acc[k]) > slack[k] for k in acc)):
+        raise SystemExit("sort_accuracy is off the plain route or did not "
+                         "launch ln_matmul twice a batch")
+
+    # The step alone (no host generation): eager and device time.
+    x, y = pt.get_batch(np.random.default_rng(0), cfg)
+    step = pt.make_train_step(res.model, res.optimizer)
+    step_ms = cuda_ms(torch, lambda: step(x, y), iters=10)
+    prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: step(x, y))
+    pt.enable_kernels(False)
+    pure_step_ms = cuda_ms(torch, lambda: step(x, y), iters=10)
+    pure_rows, pure_busy_ms, _ = profile_forward(torch, lambda: step(x, y))
+    pt.enable_kernels(True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: res.model(x), iters=10)
+        fwd_graph_ms = graph_ms(torch, lambda: res.model(x), iters=10)
+    return {"launches": launches, "first_launches": first_launches,
+            "eval_launches": eval_launches, "loss": loss,
+            "plain_loss": plain_loss, "worst_grad": worst,
+            "metrics": res.metrics, "steps_per_sec": res.steps_per_sec,
+            "acc": acc,
+            "plain_acc": plain_acc, "step_ms": step_ms,
+            "pure_step_ms": pure_step_ms, "busy_ms": busy_ms,
+            "wall_ms": wall_ms, "prof_rows": prof_rows,
+            "kernels_per_step": sum(r[1] for r in prof_rows),
+            "pure_busy_ms": pure_busy_ms,
+            "pure_kernels_per_step": sum(r[1] for r in pure_rows),
+            "fwd_ms": fwd_ms, "fwd_graph_ms": fwd_graph_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -494,7 +820,9 @@ def main() -> int:
                 "edge": (eu, "LAUNCHES_NO_AGG"),
                 "segment_sum": (ss, "LAUNCHES"),
                 "windowed": (ss, "WINDOWED_LAUNCHES"),
-                "gather": (ga, "LAUNCHES"), "ln_backward": (ll, "LAUNCHES")}
+                "gather": (ga, "LAUNCHES"), "ln_backward": (ll, "LAUNCHES"),
+                "ln_matmul": (ll, "FWD_LAUNCHES"),
+                "gather_add": (ga, "ADD_LAUNCHES")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -512,6 +840,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    where = f"{kind}, {card.split(',')[-1].strip()}"
     log(f"card: {card}")
 
     # 2. Build every kernel.
@@ -534,17 +863,52 @@ def main() -> int:
     if (g_exact.slot_shape != (N_PER_G, N_PER_G * DEG)
             or g_exact.pad_aliases_real or not g_padded.pad_aliases_real):
         raise SystemExit("unexpected uniform layouts from batch()")
+    # The same eight graphs, bucket-padded: one padding graph owns the 32
+    # padding nodes; no uniform slot layout.
+    g_bucket = pt.batch(bench_graphs(0, N_PER_G, DEG, N_PER_G,
+                                     N_PER_G * DEG),
+                        pad=pt.PadSpec.bucketed(B * N_PER_G,
+                                                B * N_PER_G * DEG, B,
+                                                node_multiple=32))
+    if ((g_bucket.num_node_slots, g_bucket.num_edge_slots,
+         g_bucket.num_graph_slots) != (1056, 16384, 9)
+            or g_bucket.slot_shape is not None):
+        raise SystemExit("unexpected bucketed layout from batch()")
+    # A sort-task batch (N = 41, E = 512, G = 5), for the windowed sum
+    # behind its senders gather.
+    g_sort, _ = pt.get_batch(np.random.default_rng(0), pt.SortTaskConfig())
+    if ((g_sort.num_node_slots, g_sort.num_edge_slots,
+         g_sort.num_graph_slots) != (41, 512, 5)):
+        raise SystemExit("unexpected sort-task layout from get_batch()")
+    T_E, T_SORT = B * N_PER_G * DEG, 512
     edge_cases = [check_edge_update(torch, eu, g, i)
                   for i, g in enumerate((g_exact, g_padded))]
     ffn_cases = [check_ffn(torch, ffn, T, 10 + i)
-                 for i, T in enumerate((B * N_PER_G * DEG, B * N_PER_G, B))]
+                 for i, T in enumerate((T_E, B * N_PER_G, B,
+                                        g_bucket.num_node_slots))]
     edge_h_cases = [check_edge_update_h(torch, eu, g, 20 + i)
                     for i, g in enumerate((g_exact, g_padded))]
     seg_cases = check_segment_sums(torch, ss, g_exact, 30)
-    gather_case = check_gather(torch, ga, g_exact, 31)
-    ln_case = check_ln_backward(torch, ll, lnp, B * N_PER_G * DEG, 32)
+    seg_bucket = check_segment_sums(torch, ss, g_bucket, 33)
+    # f32 rows: the cotangents that the bucketed step's deferred receivers
+    # term and senders gather scatter back, and the sort task's.
+    seg_bucket32 = check_segment_sums(torch, ss, g_bucket, 39, torch.float32)
+    seg_sort32 = check_segment_sums(torch, ss, g_sort, 40, torch.float32,
+                                    which=("windowed",))
+    gather_cases = [check_gather(torch, ga, g_exact, 31),
+                    check_gather(torch, ga, g_bucket, 41)]
+    ln_cases = [check_ln_backward(torch, ll, lnp, T_E, 32),
+                check_ln_backward(torch, ll, lnp, T_SORT, 34,
+                                  torch.float32)]
+    bf, f32 = torch.bfloat16, torch.float32
+    lnm_cases = [check_ln_matmul(torch, ll, lnp, T_E, 35, bf, f32),
+                 check_ln_matmul(torch, ll, lnp, T_E, 36, bf, None),
+                 check_ln_matmul(torch, ll, lnp, T_SORT, 37, f32, f32)]
+    gather_add_case = check_gather_add(torch, ga, g_bucket, 38)
     checks = (edge_cases + ffn_cases + edge_h_cases
-              + list(seg_cases.values()) + [gather_case, ln_case])
+              + list(seg_cases.values()) + list(seg_bucket.values())
+              + list(seg_bucket32.values()) + list(seg_sort32.values())
+              + gather_cases + ln_cases + lnm_cases + [gather_add_case])
     for c in checks:
         log("check: " + json.dumps(c))
     failed = [c["shape"] for c in checks if not c["ok"]]
@@ -552,119 +916,100 @@ def main() -> int:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
 
     # 4. The main path, through the entry points a user calls.
-    g = g_exact.with_features(ef=g_exact.ef.to(torch.bfloat16),
-                              nf=g_exact.nf.to(torch.bfloat16),
-                              gf=g_exact.gf.to(torch.bfloat16))
-    gen = torch.Generator().manual_seed(0)
-    model = pt.GNCoreList([pt.GNCore((D, D, D), generator=gen)
-                           for _ in range(N_CORES)]).to(torch.bfloat16)
-    pt.enable_kernels(True)
-    with torch.no_grad():
-        zero_counts()
-        y = model(g)
-        torch.cuda.synchronize()
-        launches = read_counts()
-        log(f"main path launches: {launches}")
-        expect = {k: 0 for k in counters}
-        expect.update(edge_agg=N_CORES, ffn=3 * N_CORES)
-        if launches != expect:
-            raise SystemExit(f"main path did not take the kernels as "
-                             f"expected ({expect}): {launches}")
-        fwd_ms = cuda_ms(torch, lambda: model(g), iters=10)
-        fwd_graph_ms = graph_ms(torch, lambda: model(g), iters=10)
-        prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: model(g))
-        pt.enable_kernels(False)
-        y_pure = model(g)
-        pure_ms = cuda_ms(torch, lambda: model(g), iters=10)
-        pure_graph_ms = graph_ms(torch, lambda: model(g), iters=10)
-        pt.enable_kernels(True)
-    out, ref = pt.unbatch(y), pt.unbatch(y_pure)
-    # test_gncore_fused_matches_pure holds the f32 routes to rtol 1e-4;
-    # in bf16 (8-bit mantissa) three cores of differently rounded residual
-    # sums are held to 5e-2 of the largest magnitude of each feature set.
-    path_err = {}
-    for key in ("ef", "nf", "gf"):
-        a, r = np.asarray(out[key], np.float32), np.asarray(ref[key],
-                                                            np.float32)
-        if a.shape != r.shape or not np.isfinite(a).all():
-            raise SystemExit(f"main path {key}: bad shape or non-finite")
-        path_err[key] = float(np.abs(a - r).max() / np.abs(r).max())
-    log(f"main path vs pure route (max err / max |ref|): {path_err}, "
-        f"tolerance 5e-2")
-    if max(path_err.values()) > 5e-2:
-        raise SystemExit("main path disagrees with the pure route")
+    as_bf16 = lambda t: t.with_features(ef=t.ef.to(bf), nf=t.nf.to(bf),
+                                        gf=t.gf.to(bf))
+    g = as_bf16(g_exact)
     n_edges = int(g.n_edge.sum())
-    log(f"forward: {fwd_ms:.4f} ms eager ({n_edges / fwd_ms * 1e3:.4e} "
-        f"edges/s), {fwd_graph_ms:.4f} ms as a CUDA graph, kernel route; "
-        f"pure route {pure_ms:.4f} ms eager, {pure_graph_ms:.4f} ms as a "
-        f"graph; {kind}, {card.split(',')[-1].strip()}")
-    log(f"profile of one eager forward (profiler on): kernels "
-        f"{busy_ms:.4f} ms of {wall_ms:.4f} ms wall; without the profiler "
-        f"the device idles {1 - fwd_graph_ms / fwd_ms:.3f} of the eager "
-        f"forward (1 - graph time / eager time)")
-    for dev_ms, count, name in prof_rows[:10]:
-        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    fwd = forward_phase(torch, pt, g, dict(edge_agg=N_CORES,
+                                           ffn=3 * N_CORES),
+                        zero_counts, read_counts, "main path")
+    log_forward("forward", fwd, n_edges, where)
 
     # 4b. The headline training step, through make_train_step.
-    train = train_phase(torch, pt, g, zero_counts, read_counts)
-    log(f"train step launches: {train['launches']}")
-    log(f"train step vs pure route: loss {train['loss']:.6f} vs "
-        f"{train['pure_loss']:.6f} (tolerance 1e-2 relative); worst "
-        f"gradient {train['worst_grad'][1]} at {train['worst_grad'][0]:.4f}"
-        f" of its bound (max of 5e-2 x its largest magnitude and the "
-        f"pure route's bf16-vs-f32 distance)")
-    log(f"train losses over {len(train['losses'])} steps: "
-        f"{train['losses']}")
-    log(f"train step: {train['step_ms']:.4f} ms eager "
-        f"({n_edges / train['step_ms'] * 1e3:.4e} edges/s), kernel route; "
-        f"pure route {train['pure_step_ms']:.4f} ms; {kind}, "
-        f"{card.split(',')[-1].strip()}")
-    log(f"profile of one train step (profiler on): "
-        f"{sum(r[1] for r in train['prof_rows'])} kernels, "
-        f"{train['busy_ms']:.4f} ms of {train['wall_ms']:.4f} ms wall, busy "
-        f"share {train['busy_ms'] / train['wall_ms']:.3f}; without the "
-        f"profiler the device is busy "
-        f"{train['busy_ms'] / train['step_ms']:.3f} of the eager step "
-        f"(kernel time / eager time)")
-    for dev_ms, count, name in train["prof_rows"][:15]:
+    train = train_phase(
+        torch, pt, g, dict(edge=N_CORES, segment_sum=2 * N_CORES,
+                           windowed=N_CORES, gather=N_CORES,
+                           ln_backward=N_CORES),
+        zero_counts, read_counts, "train step")
+    log_train("train step", train, n_edges, where)
+
+    # A. The sort flagship: train_sort and sort_accuracy, f32.
+    sort = sort_phase(torch, pt, zero_counts, read_counts)
+    log(f"sort training: {sort['steps_per_sec']:.4f} steps/s over "
+        f"{SORT_STEPS - 1} steps with the host generator, kernel route "
+        f"(metrics {sort['metrics']}); the step alone "
+        f"{sort['step_ms']:.4f} ms eager (pure route "
+        f"{sort['pure_step_ms']:.4f} ms), {sort['kernels_per_step']} "
+        f"kernels of {sort['busy_ms']:.4f} ms, busy share "
+        f"{sort['busy_ms'] / sort['step_ms']:.3f} (kernel time / eager "
+        f"time); pure route {sort['pure_kernels_per_step']} kernels of "
+        f"{sort['pure_busy_ms']:.4f} ms; forward {sort['fwd_ms']:.4f} ms "
+        f"eager, {sort['fwd_graph_ms']:.4f} ms as a CUDA graph; {where}")
+    for dev_ms, count, name in sort["prof_rows"][:10]:
         log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
-    log(f"profile of one pure-route train step: {train['pure_kernels']} "
-        f"kernels, {train['pure_busy_ms']:.4f} ms")
-    log(f"host ops of the kernel-route step by self CPU time (profiler on), "
-        f"{len(train['host_rows'])} kinds:")
-    for host_ms, count, name in train["host_rows"][:12]:
-        log(f"  {host_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+
+    # B. The headline model on the bucket-padded batch.
+    gb = as_bf16(g_bucket)
+    bfwd = forward_phase(
+        torch, pt, gb, dict(ln_matmul=N_CORES, gather_add=N_CORES,
+                            segment_sum=N_CORES, ffn=2 * N_CORES),
+        zero_counts, read_counts, "bucketed forward")
+    log_forward("bucketed forward", bfwd, n_edges, where)
+    btrain = train_phase(
+        torch, pt, gb, dict(ln_matmul=N_CORES, gather_add=N_CORES,
+                            ln_backward=N_CORES, segment_sum=2 * N_CORES,
+                            windowed=N_CORES, gather=N_CORES),
+        zero_counts, read_counts, "bucketed train step")
+    log_train("bucketed train step", btrain, n_edges, where)
 
     # 5. Results.
-    tl = train["launches"]
+    paths = {"forward": fwd["launches"], "train_step": train["launches"],
+             "sort_train_step": sort["first_launches"],
+             "bucketed_forward": bfwd["launches"],
+             "bucketed_train_step": btrain["launches"]}
+    by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src, ref = "graphnets_tpu_torch/csrc/", "graphnets_tpu/ops/pallas/"
     kernels = [
         kernel_entry("fused_edge_update_agg", src + "edge_update.cu",
-                     ref + "edge_update.py:212", launches["edge_agg"],
+                     ref + "edge_update.py:212", by_path("edge_agg"),
                      edge_cases),
         kernel_entry("ln_ffn_residual", src + "fused_ffn.cu",
-                     ref + "fused_ffn.py:156", launches["ffn"], ffn_cases),
+                     ref + "fused_ffn.py:156", by_path("ffn"), ffn_cases),
         kernel_entry("fused_edge_update", src + "edge_update.cu",
-                     ref + "edge_update.py:212", tl["edge"], edge_h_cases),
+                     ref + "edge_update.py:212", by_path("edge"),
+                     edge_h_cases),
         kernel_entry("sorted_segment_sum", src + "segment_sum.cu",
-                     ref + "segment_sum.py:193", tl["segment_sum"],
-                     [seg_cases["sorted"]]),
+                     ref + "segment_sum.py:193", by_path("segment_sum"),
+                     [seg_cases["sorted"], seg_bucket["sorted"],
+                      seg_bucket32["sorted"]]),
         kernel_entry("windowed_segment_sum", src + "segment_sum.cu",
-                     ref + "segment_sum.py:193", tl["windowed"],
-                     [seg_cases["windowed"]]),
+                     ref + "segment_sum.py:193", by_path("windowed"),
+                     [seg_cases["windowed"], seg_bucket["windowed"],
+                      seg_bucket32["windowed"], seg_sort32["windowed"]]),
         kernel_entry("sorted_gather", src + "gather.cu",
-                     ref + "gather.py:226", tl["gather"], [gather_case]),
+                     ref + "gather.py:226", by_path("gather"),
+                     gather_cases),
         kernel_entry("ln_linear_backward", src + "ln_linear_bwd.cu",
-                     ref + "ln_linear.py:214", tl["ln_backward"], [ln_case]),
+                     ref + "ln_linear.py:214", by_path("ln_backward"),
+                     ln_cases),
+        kernel_entry("ln_matmul", src + "ln_linear_fwd.cu",
+                     ref + "ln_linear.py:143", by_path("ln_matmul"),
+                     lnm_cases),
+        kernel_entry("sorted_gather_add", src + "gather.cu",
+                     ref + "gather.py:226", by_path("gather_add"),
+                     [gather_add_case]),
     ]
-    log(json.dumps({"kernels": kernels, "forward_ms": fwd_ms,
-                    "forward_graph_ms": fwd_graph_ms,
-                    "pure_forward_ms": pure_ms,
-                    "pure_forward_graph_ms": pure_graph_ms,
-                    "device_idle_share": 1 - fwd_graph_ms / fwd_ms,
-                    "profiled_kernel_ms": busy_ms,
-                    "profiled_wall_ms": wall_ms,
-                    "edges_per_s": n_edges / fwd_ms * 1e3,
+    slim = lambda d: {k: v for k, v in d.items()
+                      if k not in ("prof_rows", "host_rows")}
+    log(json.dumps({"kernels": kernels, "forward_ms": fwd["fwd_ms"],
+                    "forward_graph_ms": fwd["fwd_graph_ms"],
+                    "pure_forward_ms": fwd["pure_ms"],
+                    "pure_forward_graph_ms": fwd["pure_graph_ms"],
+                    "device_idle_share":
+                        1 - fwd["fwd_graph_ms"] / fwd["fwd_ms"],
+                    "profiled_kernel_ms": fwd["busy_ms"],
+                    "profiled_wall_ms": fwd["wall_ms"],
+                    "edges_per_s": n_edges / fwd["fwd_ms"] * 1e3,
                     "train_step_ms": train["step_ms"],
                     "pure_train_step_ms": train["pure_step_ms"],
                     "train_edges_per_s": n_edges / train["step_ms"] * 1e3,
@@ -676,6 +1021,8 @@ def main() -> int:
                     "pure_train_kernels_per_step": train["pure_kernels"],
                     "train_losses": train["losses"],
                     "train_worst_grad_err": train["worst_grad"],
+                    "sort": slim(sort), "bucketed_forward": slim(bfwd),
+                    "bucketed_train_step": slim(btrain),
                     "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,10 +9,16 @@ The port covers batching, the nn modules, the scatter primitives, GNBlock
 and GNCore/GNCoreList, their forward on uniform batches and their training
 step (``make_train_step``: the masked losses, the backward through the
 kernels' own backward kernels, AdamW), with f32 master parameters and bf16
-compute on the kernel routes.
+compute on the kernel routes; the non-uniform route (``PadSpec.bucketed``
+batches through ``ln_matmul`` and ``sorted_gather_add``); and the sort
+task: ``EncodeProcessDecode``, the host data generator, ``train_sort`` and
+``sort_accuracy``.
 """
 
+from .data.sort_task import (SortTaskConfig, gen_sample, get_batch,
+                             sort_pad_spec)
 from .graph import GraphsTuple, PadSpec, adjacency_matrices, batch, unbatch
+from .models.encode_process_decode import EncodeProcessDecode, GNModel
 from .models.gn_block import (
     GNBlock,
     get_edge_fn_input,
@@ -35,7 +41,9 @@ from .params import from_jax_params, to_numpy_tree
 from .training.losses import (graph_accuracy, graph_loss_nf_ef,
                               masked_accuracy, masked_logit_crossentropy,
                               per_graph_correct)
-from .training.train import adamw, make_train_step
+from .training.evaluate import sort_accuracy
+from .training.train import (SortTrainResult, adamw, make_train_step,
+                             train_sort)
 from .utils.config import enable_kernels, use_kernels
 
 __version__ = "0.1.0"
@@ -50,4 +58,7 @@ __all__ = [
     "from_jax_params", "to_numpy_tree", "enable_kernels", "use_kernels",
     "masked_logit_crossentropy", "graph_loss_nf_ef", "masked_accuracy",
     "per_graph_correct", "graph_accuracy", "adamw", "make_train_step",
+    "EncodeProcessDecode", "GNModel", "SortTaskConfig", "gen_sample",
+    "get_batch", "sort_pad_spec", "train_sort", "SortTrainResult",
+    "sort_accuracy",
 ]

@@ -36,6 +36,14 @@
 //    order.
 //
 // A wgmma/TMA pipeline and a fused reduction are later work.
+//
+// f32 rows (the sort task trains in f32) take the same three passes with
+// every product on the CUDA cores in plain f32 multiply-adds, never TF32:
+// the row pass keeps x, g and a 32-column slice of W^T in shared memory
+// and gives each thread a 4-row x (d / 32)-column tile of dxn; the dW pass
+// takes 64 x 64 tiles, 4 x 4 a thread.  At the sort task's shape (T = 512,
+// d = dout = 384) that is 0.4 GFLOP of f32 work (~6 us at 67 TFLOP/s)
+// against 3.7 MB, so operations bound it.
 
 #include <mma.h>
 
@@ -384,6 +392,242 @@ int launch_rows(const void* x, const void* g, const void* w,
   return cudaGetLastError();
 }
 
+// ---- f32 rows ------------------------------------------------------------
+
+constexpr int kWkF = 32;           // W^T rows (dout) per slice, f32 row pass
+constexpr int kLdwF = kWkF + 1;    // odd stride: lanes read distinct banks
+constexpr int kTileF = 64;         // dW tile (both dims), f32 dW pass
+constexpr int kLdtF = kTileF + 4;
+
+__host__ __device__ constexpr size_t rows_ring_bytes_f32(int d) {
+  return (size_t)d * kLdwF * 4 > (size_t)kRows * (d + 4) * 4
+             ? (size_t)d * kLdwF * 4
+             : (size_t)kRows * (d + 4) * 4;
+}
+__host__ __device__ constexpr size_t rows_smem_bytes_f32(int d, int dout) {
+  return (size_t)kRows * (d + 4) * 4 + (size_t)kRows * (dout + 4) * 4 +
+         rows_ring_bytes_f32(d) + (size_t)kRows * 3 * 4;
+}
+
+// The row pass for f32 rows: as ln_bwd_rows_kernel, with dxn = g @ W^T in
+// f32 on the CUDA cores.  Warp w takes rows 4w .. 4w + 3; lane l takes the
+// columns l, l + 32, ...
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_rows_f32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ g,
+                       const float* __restrict__ w,
+                       const float* __restrict__ scale,
+                       float* __restrict__ dx, float* __restrict__ stats,
+                       float* __restrict__ part_ds,
+                       float* __restrict__ part_db, int T, int dout) {
+  constexpr int kLdx = D + 4;
+  constexpr int kLdd = D + 4;
+  constexpr int NC = D / 32;  // dxn columns a lane
+  const int ldg = dout + 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Xs = reinterpret_cast<float*>(smem);
+  float* Gs = Xs + kRows * kLdx;
+  float* Wt = Gs + kRows * ldg;   // [D][kLdwF]: W[n][k0 + kk] at n, kk
+  float* Ds = Wt;                 // after the product
+  float* st = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(Wt) + rows_ring_bytes_f32(D));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * kRows;
+  const int rows = min(kRows, T - row0);
+
+  for (int i = tid; i < kRows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), v = (i % (D / 4)) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) val = gn::load4(x + ((size_t)row0 + r) * D + v);
+    *reinterpret_cast<float4*>(Xs + r * kLdx + v) = val;
+  }
+  for (int i = tid; i < kRows * (dout / 4); i += kThreads) {
+    const int r = i / (dout / 4), v = (i % (dout / 4)) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) val = gn::load4(g + ((size_t)row0 + r) * dout + v);
+    *reinterpret_cast<float4*>(Gs + r * ldg + v) = val;
+  }
+  __syncthreads();
+
+  // Statistics, one warp a row.
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const float* xr = Xs + r * kLdx;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += xr[c];
+    const float mean = gn::warp_sum(s) / D;
+    float q = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float v = xr[c] - mean;
+      q += v * v;
+    }
+    const float var = gn::warp_sum(q) / D;
+    const float sd = var > 0.f ? sqrtf(var) : 0.f;
+    if (lane == 0) {
+      st[r * 3] = mean;
+      st[r * 3 + 1] = sd + gn::kLnEps;
+      st[r * 3 + 2] = var > 0.f ? sd : 1.f;
+      if (r < rows) {
+        stats[(size_t)(row0 + r) * 2] = mean;
+        stats[(size_t)(row0 + r) * 2 + 1] = sd + gn::kLnEps;
+      }
+    }
+  }
+
+  // dxn[r][n] = sum over k of g[r][k] * W[n][k].
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < dout; k0 += kWkF) {
+    for (int i = tid; i < D * kWkF; i += kThreads) {
+      const int n = i / kWkF, kk = i % kWkF;
+      Wt[n * kLdwF + kk] = w[(size_t)n * dout + k0 + kk];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kWkF; ++kk) {
+      float gv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gv[i] = Gs[(warp * 4 + i) * ldg + k0 + kk];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const float wv = Wt[(lane + 32 * j) * kLdwF + kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(gv[i], wv, acc[i][j]);
+      }
+    }
+    // The next slice overwrites Wt (and Ds reuses it after the last).
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      Ds[(warp * 4 + i) * kLdd + lane + 32 * j] = acc[i][j];
+  __syncthreads();
+
+  // dx, one warp a row.
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    const float mean = st[r * 3], s = st[r * 3 + 1], sigma = st[r * 3 + 2];
+    const float* xr = Xs + r * kLdx;
+    const float* dr = Ds + r * kLdd;
+    float sdz = 0.f, sdzz = 0.f, sz = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float z = (xr[c] - mean) / s;
+      const float dz = dr[c] * scale[c];
+      sdz += dz;
+      sdzz += dz * z;
+      sz += z;
+    }
+    const float mean_dz = gn::warp_sum(sdz) / D;
+    const float mean_dzz = gn::warp_sum(sdzz) / D;
+    const float mean_z = gn::warp_sum(sz) / D;
+    float* out = dx + (size_t)(row0 + r) * D;
+    for (int c = lane; c < D; c += 32) {
+      const float z = (xr[c] - mean) / s;
+      const float dz = dr[c] * scale[c];
+      out[c] = (dz - mean_dz) / s - (z - mean_z) * (mean_dzz / sigma);
+    }
+  }
+
+  // This block's column sums of dxn * z and dxn, rows in order.
+  for (int c = tid; c < D; c += kThreads) {
+    float sds = 0.f, sdb = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float z = (Xs[r * kLdx + c] - st[r * 3]) / st[r * 3 + 1];
+      const float d = Ds[r * kLdd + c];
+      sds += d * z;
+      sdb += d;
+    }
+    part_ds[(size_t)blockIdx.x * D + c] = sds;
+    part_db[(size_t)blockIdx.x * D + c] = sdb;
+  }
+}
+
+// Partial dW tile for f32 rows: xn[rows]^T @ g[rows] for one 64 x 64 tile
+// and one range of rows; thread (ty, tx) takes a 4 x 4 piece.
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ stats,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ bias,
+                     float* __restrict__ part_dw, int T, int D, int dout,
+                     int rows_per_split) {
+  __shared__ __align__(16) float As[kTk * kLdtF];   // xn rows [k][m]
+  __shared__ __align__(16) float Bs[kTk * kLdtF];   // g rows [k][n]
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int m0 = blockIdx.x * kTileF, n0 = blockIdx.y * kTileF;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(T, r_begin + rows_per_split);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kTk) {
+    for (int i = tid; i < kTk * (kTileF / 4); i += kThreads) {
+      const int rr = i / (kTileF / 4), v = (i % (kTileF / 4)) * 4;
+      const int row = r0 + rr;
+      float4 xa = make_float4(0.f, 0.f, 0.f, 0.f), ga = xa;
+      if (row < r_end) {
+        const float mean = stats[(size_t)row * 2];
+        const float s = stats[(size_t)row * 2 + 1];
+        const float4 xv = gn::load4(x + (size_t)row * D + m0 + v);
+        const float4 sc = gn::load4(scale + m0 + v);
+        const float4 bi = gn::load4(bias + m0 + v);
+        xa.x = __fadd_rn(__fmul_rn((xv.x - mean) / s, sc.x), bi.x);
+        xa.y = __fadd_rn(__fmul_rn((xv.y - mean) / s, sc.y), bi.y);
+        xa.z = __fadd_rn(__fmul_rn((xv.z - mean) / s, sc.z), bi.z);
+        xa.w = __fadd_rn(__fmul_rn((xv.w - mean) / s, sc.w), bi.w);
+        ga = gn::load4(g + (size_t)row * dout + n0 + v);
+      }
+      *reinterpret_cast<float4*>(As + rr * kLdtF + v) = xa;
+      *reinterpret_cast<float4*>(Bs + rr * kLdtF + v) = ga;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kTk; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(As + kk * kLdtF + ty * 4);
+      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * kLdtF + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+        acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+        acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
+        acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part_dw + (size_t)blockIdx.z * D * dout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    gn::store4(out + (size_t)(m0 + ty * 4 + i) * dout + n0 + tx * 4,
+               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+}
+
+template <int D>
+int launch_rows_f32(const void* x, const void* g, const void* w,
+                    const void* scale, void* dx, void* stats, void* part_ds,
+                    void* part_db, int T, int dout, cudaStream_t stream) {
+  const size_t smem = rows_smem_bytes_f32(D, dout);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_rows_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  ln_bwd_rows_f32_kernel<D><<<(T + kRows - 1) / kRows, kThreads, smem,
+                              stream>>>(
+      (const float*)x, (const float*)g, (const float*)w, (const float*)scale,
+      (float*)dx, (float*)stats, (float*)part_ds, (float*)part_db, T, dout);
+  return cudaGetLastError();
+}
+
 int reduce(const void* part, int parts, int n, void* out,
            cudaStream_t stream) {
   reduce_partials_kernel<<<(n + 31) / 32, kThreads, 0, stream>>>(
@@ -398,7 +642,7 @@ int reduce(const void* part, int parts, int n, void* out,
 // [splits, d, dout], part_ds and part_db [ceil(T / 32), d], all f32, where
 // splits = ceil(T / rows_per_split).  Preconditions, checked there: bf16
 // x [T, d], g [T, dout], w [d, dout]; f32 scale, bias; contiguous; T >= 1;
-// d in {128, 256, 384}; dout % 128 == 0; rows_per_split % 32 == 0.
+// d in {128, 256, 384, 512}; dout % 128 == 0; rows_per_split % 32 == 0.
 extern "C" int gn_ln_linear_backward(const void* x, const void* g,
                                      const void* w, const void* scale,
                                      const void* bias, void* dx, void* dw,
@@ -412,6 +656,7 @@ extern "C" int gn_ln_linear_backward(const void* x, const void* g,
     case 128: err = launch_rows<128>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
     case 256: err = launch_rows<256>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
     case 384: err = launch_rows<384>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
+    case 512: err = launch_rows<512>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
@@ -419,6 +664,40 @@ extern "C" int gn_ln_linear_backward(const void* x, const void* g,
   const dim3 grid(d / kTile, dout / kTile, splits);
   ln_bwd_dw_kernel<<<grid, kThreads, 0, s>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const float*)stats,
+      (const float*)scale, (const float*)bias, (float*)part_dw, T, d, dout,
+      rows_per_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int blocks = (T + kRows - 1) / kRows;
+  if ((err = reduce(part_dw, splits, d * dout, dw, s)) != cudaSuccess)
+    return err;
+  if ((err = reduce(part_ds, blocks, d, ds, s)) != cudaSuccess) return err;
+  return reduce(part_db, blocks, d, db, s);
+}
+
+// The same for f32 rows: x, g, w and dx are f32, the products run in f32 on
+// the CUDA cores.  Scratch and preconditions as above.
+extern "C" int gn_ln_linear_backward_f32(const void* x, const void* g,
+                                         const void* w, const void* scale,
+                                         const void* bias, void* dx, void* dw,
+                                         void* ds, void* db, void* stats,
+                                         void* part_dw, void* part_ds,
+                                         void* part_db, int T, int d,
+                                         int dout, int rows_per_split,
+                                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int err;
+  switch (d) {
+    case 128: err = launch_rows_f32<128>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
+    case 256: err = launch_rows_f32<256>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
+    case 384: err = launch_rows_f32<384>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
+    case 512: err = launch_rows_f32<512>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  const int splits = (T + rows_per_split - 1) / rows_per_split;
+  const dim3 grid(d / kTileF, dout / kTileF, splits);
+  ln_bwd_dw_f32_kernel<<<grid, kThreads, 0, s>>>(
+      (const float*)x, (const float*)g, (const float*)stats,
       (const float*)scale, (const float*)bias, (float*)part_dw, T, d, dout,
       rows_per_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

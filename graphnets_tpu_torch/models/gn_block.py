@@ -16,11 +16,14 @@ the fused CUDA kernel (``ops/kernels/edge_update``): in inference with the
 edge->node sum in the same pass, under training without it (its backward
 composes the segment-sum, gather and LN->matmul backward kernels) and
 followed by the sorted segment-sum kernel, as ``gn_block.py:357-376`` of
-the JAX package decides.  Every other route runs the plain split-linear
-path: the JAX package's ``ln_matmul`` term, deferred ``sorted_gather_add``
-and G = 1 kernel are not ported yet, so here they keep their pure
-semantics (the LN of ``ef`` is materialised and the gathers are
-``index_select``).
+the JAX package decides.  Every other batch (``PadSpec.bucketed``, the
+sort task's pad) takes the split-linear path (``gn_block.py:123-229,
+434-448``): partial products at N and G rows gathered to the edge slots,
+with kernels on the first sorted term deferred to ``sorted_gather_add``
+and the row completed inside ``ln_matmul`` with the f32 sum as its addend,
+so the LN of ``ef`` and the f32 partial sum never reach device memory.
+The G = 1 kernel of the JAX package is not ported yet: a single graph
+takes the same split-linear path.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from ..graph import GraphsTuple
 from ..nn.core import Linear, layer_norm
 from ..ops import scatter
 from ..ops.ln_linear import matmul_f32
-from ..utils.config import use_kernels, use_split_linear
+from ..utils.config import (bf16_gather_partials, use_kernels,
+                            use_split_linear)
 
 __all__ = [
     "GNBlock",
@@ -111,33 +115,81 @@ getnodefninput = get_node_fn_input
 getgraphfninput = get_graph_fn_input
 
 
-def _linear_split(lin: Linear, out_dtype: torch.dtype,
-                  terms: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+def _linear_split(lin: Linear, out_dtype: torch.dtype, terms: Sequence[tuple],
                   rows: int) -> torch.Tensor:
     """``concat(xs, -1) @ W + b`` as a sum of per-segment products.
 
-    Each ``(x, idx)`` term consumes the next ``x.shape[-1]`` rows of ``W``;
-    with ``idx`` the f32 partial product is gathered by ``idx`` after the
-    product (gather-after-transform).  Partials accumulate in f32 and the
-    sum rounds once, so this is at least as accurate as the concat form.
+    ``terms`` is a sequence of ``(x, idx)``, ``(x, idx, ln_params)``,
+    ``(x, idx, ln_params, idx_sorted)`` or ``(x, idx, ln_params,
+    idx_sorted, windows)``.  Each ``x`` consumes the next ``x.shape[-1]``
+    rows of ``W``; with ``idx`` the f32 partial product is gathered by
+    ``idx`` after the product (gather-after-transform; ``idx_sorted`` and
+    ``windows`` as in ``scatter.take_rows_sorted_grad``).  With
+    ``ln_params`` the term is ``LayerNorm(x) @ W_slice``, computed by the
+    fused ``ln_matmul`` kernel.  The order of the sum is the JAX package's
+    (``gn_block.py:145-229``): the other partials in f32, the bias, then
+    with kernels on the first sorted gathered term by ``sorted_gather_add``,
+    and last the LN term inside ``ln_matmul`` with that f32 sum as its
+    addend: one rounding, and the f32 sum never returns to device memory
+    between the two.
     """
+    from ..ops.kernels.gather import sorted_gather_add, supports_sorted_gather
+    from ..ops.kernels.ln_linear import ln_matmul
     w, b = lin.w, lin.b
+    dout = w.shape[1]
     acc = None
     off = 0
-    for x, idx in terms:
+    ln_term = None       # (x, ln_params, w_slice): completed last, fused
+    fused_gather = None  # (partial table, idx): completed last but one
+    for term in terms:
+        x, idx = term[0], term[1]
+        ln_params = term[2] if len(term) > 2 else None
+        idx_sorted = term[3] if len(term) > 3 else False
+        windows = term[4] if len(term) > 4 else None
         d = x.shape[-1]
         if d == 0:
             continue
-        y = matmul_f32(x, w[off:off + d])
+        ws = w[off:off + d]
         off += d
+        if ln_params is not None:
+            if idx is not None or ln_term is not None:
+                raise ValueError("one ungathered LayerNorm term at most")
+            ln_term = (x, ln_params, ws)
+            continue
+        y = matmul_f32(x, ws)
         if idx is not None:
-            y = y.index_select(0, idx)
-        acc = y if acc is None else acc + y
-    if acc is None:  # all-zero-width input: a bias broadcast
-        acc = torch.zeros(rows, w.shape[1], dtype=torch.float32,
-                          device=w.device)
+            # Partials gather in f32, except large bandwidth-bound gathers
+            # of bf16 inputs, which round to bf16 first (the config gate).
+            if (x.dtype == torch.bfloat16
+                    and bf16_gather_partials(idx.shape[0])):
+                y = y.to(torch.bfloat16)
+            if (idx_sorted and fused_gather is None and use_kernels()
+                    and supports_sorted_gather(idx.shape[0], y.shape[0],
+                                               y.shape[1])):
+                fused_gather = (y, idx)
+                continue
+            y = scatter.take_rows_sorted_grad(y, idx, idx_sorted, windows)
+        acc = y.float() if acc is None else acc + y.float()
+    if acc is None and ln_term is None and fused_gather is None:
+        # All-zero-width input: Linear(0, dout) is a bias broadcast.
+        acc = torch.zeros(rows, dout, dtype=torch.float32, device=w.device)
     if b is not None:
-        acc = acc + b.float()
+        acc = b.float() if acc is None else acc + b.float()
+    if fused_gather is not None:
+        yt, gidx = fused_gather
+        if acc is None:
+            acc = scatter.take_rows_sorted_grad(yt, gidx, True).float()
+        else:
+            acc = sorted_gather_add(yt, gidx,
+                                    acc.expand(rows, dout).contiguous())
+    if ln_term is not None:
+        x, ln_params, ws = ln_term
+        if acc is None:
+            acc = torch.zeros(rows, dout, dtype=torch.float32,
+                              device=w.device)
+        return ln_matmul(x, ln_params["scale"], ln_params["bias"], ws,
+                         addend=acc.expand(rows, dout).contiguous()
+                         ).to(out_dtype)
     return acc.to(out_dtype)
 
 
@@ -193,6 +245,11 @@ class GNBlock(nn.Module):
             raise ValueError(f"feature dims {widths} != declared in_dims "
                              f"{self.in_dims}")
 
+        if ef_ln is not None and not (use_split_linear() and de > 0
+                                      and use_kernels()):
+            # Materialise the LN: the pure path keeps the module numerics.
+            ef = layer_norm(ef, ef_ln["scale"], ef_ln["bias"])
+            ef_ln = None
         if use_split_linear():
             h_ef, agg = self._edge_update_split(g, ef, nf, gf, ef_ln, dtype,
                                                 training)
@@ -204,10 +261,8 @@ class GNBlock(nn.Module):
                 agg = agg.to(dtype)
             h_nf = _linear_split(self.nodefn, dtype,
                                  [(agg, None), (nf, None),
-                                  (gf, g.node_graph)], rows=N)
+                                  (gf, g.node_graph, None, True)], rows=N)
         else:
-            if ef_ln is not None:
-                ef = layer_norm(ef, ef_ln["scale"], ef_ln["bias"])
             h_ef = self.edgefn(get_edge_fn_input(g, ef=ef, nf=nf, gf=gf))
             h_nf = self.nodefn(get_node_fn_input(g, ef=h_ef, nf=nf, gf=gf))
         h_gf = self.graphfn(get_graph_fn_input(g, ef=h_ef, nf=h_nf, gf=gf))
@@ -216,7 +271,8 @@ class GNBlock(nn.Module):
     def _edge_update_split(self, g: GraphsTuple, ef, nf, gf, ef_ln, dtype,
                            training: bool):
         """Split-linear edge update: the fused kernel on a uniform layout
-        with kernels on, else gather-after-transform partial sums.
+        with kernels on, else gather-after-transform partial sums (with
+        kernels on completed by ``sorted_gather_add`` and ``ln_matmul``).
         Returns ``(h_ef, agg)``; ``agg`` is the kernel's f32 edge->node sum
         or ``None``.  Under training the kernel writes ``h`` alone: the
         JAX package measured the fused sum's backward slower than a
@@ -242,9 +298,19 @@ class GNBlock(nn.Module):
                                            g.senders, g.receivers,
                                            *g.slot_shape)
             return h.to(dtype), agg
-        if ef_ln is not None:
-            ef = layer_norm(ef, ef_ln["scale"], ef_ln["bias"])
+        # The senders are unsorted within each graph but local to it: with
+        # many small graphs their backward scatter takes per-graph windows
+        # (the windowed kernel) instead of a sort.
+        windows = None
+        if use_kernels() and G > 1 and N <= 256 * G:
+            gi = torch.arange(G + 1, dtype=torch.int32,
+                              device=g.node_graph.device)
+            windows = (
+                torch.searchsorted(g.node_graph, gi).to(torch.int32),
+                torch.searchsorted(g.edge_graph, gi).to(torch.int32))
+        ef_term = (ef, None) if ef_ln is None else (ef, None, ef_ln)
         return _linear_split(
             self.edgefn, dtype,
-            [(ef, None), (nf, g.senders), (nf, g.receivers),
-             (gf, g.edge_graph)], rows=E), None
+            [ef_term, (nf, g.senders, None, False, windows),
+             (nf, g.receivers, None, True),
+             (gf, g.edge_graph, None, True)], rows=E), None

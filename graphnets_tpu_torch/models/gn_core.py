@@ -145,15 +145,22 @@ class GNCore(nn.Module):
     # ...and a feature set with fewer rows takes the composed reference.
     _FUSED_FFN_TRAIN_MIN_ROWS = 1 << 16
 
+    @staticmethod
+    def _takes_fused(x: torch.Tensor) -> bool:
+        """The JAX package's gate for one feature set
+        (``fused_ffn.py:99-105``): whole 8-row tiles.  The CUDA kernel masks
+        a ragged tile itself, but a set the JAX kernel refuses takes the
+        composed reference there, and so here."""
+        rows = x.shape[0]
+        return (rows % 8 == 0 and rows >= 8
+                and supports_fused_ffn(rows, x.shape[1], x.dtype))
+
     def _use_fused(self, g: GraphsTuple, training: bool) -> bool:
         if not use_kernels() or (training and self.dropout > 0):
             return False
         if training and self.dims[0] > self._FUSED_FFN_TRAIN_MAX_DIM:
             return False
-        return (supports_fused_ffn(g.num_edge_slots, self.dims[0],
-                                   g.ef.dtype)
-                and supports_fused_ffn(g.num_node_slots, self.dims[1],
-                                       g.nf.dtype))
+        return self._takes_fused(g.ef) and self._takes_fused(g.nf)
 
     def _fused_branch2(self, g: GraphsTuple, branch1: GraphsTuple,
                        training: bool) -> GraphsTuple:
@@ -161,8 +168,7 @@ class GNCore(nn.Module):
             args = (x, ln.scale, ln.bias, ff[0].w, ff[0].b, ff[1].w,
                     ff[1].b)
             if ((training and x.shape[0] < self._FUSED_FFN_TRAIN_MIN_ROWS)
-                    or not supports_fused_ffn(x.shape[0], x.shape[1],
-                                              x.dtype)):
+                    or not self._takes_fused(x)):
                 # The composed reference: the measured winner for small
                 # row counts under training, and the JAX kernel's own
                 # fallback for a feature set it does not take.

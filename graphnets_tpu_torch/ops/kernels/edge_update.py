@@ -51,17 +51,35 @@ def _smem_bytes(de: int) -> int:
     return de * 136 * 2 + 64 * (de + 8) * 2 + 64 * 132 * 4 + 130 * 4
 
 
+def _has_slot_tile(G: int, n_slots: int, e_slots: int) -> bool:
+    """The JAX package's tile condition (``edge_update.py:80-92``): some
+    divisor ``k`` of G whose ``k`` slots give a lane-aligned edge tile
+    (``k * e_slots % 128 == 0``, at most 8192 rows) and a sublane-aligned
+    node window (``k * n_slots % 8 == 0``, at most 2048 rows)."""
+    for k in range(1, G + 1):
+        te, nw = k * e_slots, k * n_slots
+        if G % k == 0 and te % 128 == 0 and nw % 8 == 0 and nw <= 2048 \
+                and te <= 8192:
+            return True
+    return False
+
+
 def supports_fused_edge_update(E: int, N: int, G: int, de: int, dout: int,
                                n_slots: int, e_slots: int,
                                dtype: torch.dtype) -> bool:
-    """Shapes the kernel takes: bf16 edges on a uniform layout of G >= 2
-    graphs, feature dims multiples of 128, and the block's W0 tile plus one
-    64-row chunk within shared memory (de <= 384)."""
+    """Shapes that take the kernel: bf16 edges on a uniform layout of
+    G >= 2 graphs, feature dims multiples of 128, the block's W0 tile plus
+    one 64-row chunk within shared memory (de <= 384), and a layout the JAX
+    package's kernel tiles too (the CUDA kernel needs no such tile; the
+    condition keeps both packages on the same route, since the layouts it
+    refuses take the split-linear path there)."""
     if dtype != torch.bfloat16:
         return False
     if G < 2 or N != G * n_slots or E != G * e_slots:
         return False
     if de < 128 or dout < 128 or de % 128 or dout % 128:
+        return False
+    if not _has_slot_tile(G, n_slots, e_slots):
         return False
     return _smem_bytes(de) <= _SMEM_LIMIT
 

@@ -1,6 +1,7 @@
 """Sorted row gather (counterpart of ``graphnets_tpu/ops/pallas/gather.py``).
 
     out[e] = table[idx[e]]    (zeros where idx[e] is outside [0, N))
+    out[e] = table[idx[e]] + addend[e]    (the fused form, f32 sum)
 
 Kernel: ``csrc/gather.cu``.  It replaces the Pallas kernel of
 ``sorted_gather`` (``gather.py:121-251,321-338``).  On the H100 it is a
@@ -13,6 +14,16 @@ the table rows.  Out-of-range ids read zeros, the Pallas kernel's contract
 ``sorted_segment_sum`` (``gather.py:263-267``).  It takes
 :func:`sorted_gather_plain` for CPU tensors only; a CUDA tensor launches
 the kernel or raises.
+
+:func:`sorted_gather_add` is the fused form (``gather.py:297-318``): the
+sum is taken in f32 and rounded once to the wider of the two types, so the
+separate ``[E, d]`` add stream of the split-linear edge update disappears.
+It replaces the same Pallas kernel with its accumulator started from the
+addend block; here it is a streamed copy-and-add bound by memory (~52 MB
+at 16384 rows of 384 f32, ~15.5 us).  Its backward is
+``sorted_segment_sum`` for the table and a cast for the addend
+(``gather.py:286-291``).  :func:`supports_sorted_gather` is the JAX
+package's routing gate: both packages defer the same split-linear term.
 """
 
 from __future__ import annotations
@@ -23,14 +34,26 @@ import torch
 
 from . import _build
 
-__all__ = ["sorted_gather", "sorted_gather_plain", "LAUNCHES"]
+__all__ = ["sorted_gather", "sorted_gather_plain", "sorted_gather_add",
+           "sorted_gather_add_plain", "supports_sorted_gather", "LAUNCHES",
+           "ADD_LAUNCHES"]
 
-LAUNCHES = 0  # kernel launches, for proving the path was taken
+LAUNCHES = 0      # sorted_gather launches, for proving the path was taken
+ADD_LAUNCHES = 0  # sorted_gather_add launches
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def sorted_gather_plain(table: torch.Tensor,
-                        idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` in plain torch, with zeros for out-of-range ids."""
+def supports_sorted_gather(num_out: int, num_rows: int, dim: int) -> bool:
+    """The shape conditions of the JAX package's gate (``gather.py:76-90``):
+    lane-aligned rows, an output row count divisible by 512, 256 or 128,
+    and a table of a multiple of 32 rows.  The CUDA kernels have no tile
+    whose size depends on the element type."""
+    tiled = any(num_out % t == 0 and num_out >= t for t in (512, 256, 128))
+    return (dim % 128 == 0 and tiled and num_rows % 32 == 0
+            and num_rows >= 32)
+
+
+def _rows_or_zeros(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = table.shape[0]
     idx = idx.long()
     valid = (idx >= 0) & (idx < n)
@@ -40,12 +63,29 @@ def sorted_gather_plain(table: torch.Tensor,
                                    device=table.device))
 
 
+def sorted_gather_plain(table: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` in plain torch, with zeros for out-of-range ids."""
+    return _rows_or_zeros(table, idx)
+
+
+def sorted_gather_add_plain(table: torch.Tensor, idx: torch.Tensor,
+                            addend: torch.Tensor) -> torch.Tensor:
+    """``table[idx] + addend`` in plain torch: zeros for out-of-range ids,
+    the sum in f32, one rounding to the wider of the two types."""
+    dt = torch.promote_types(table.dtype, addend.dtype)
+    return (_rows_or_zeros(table, idx).float() + addend.float()).to(dt)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gather")
     if lib.gn_sorted_gather.argtypes is None:
         lib.gn_sorted_gather.argtypes = \
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.gn_sorted_gather.restype = ctypes.c_int
+        lib.gn_sorted_gather_add.argtypes = \
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.gn_sorted_gather_add.restype = ctypes.c_int
     return lib
 
 
@@ -105,3 +145,72 @@ def sorted_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for ascending ``idx`` (the canonical receivers);
     out-of-range ids read zeros.  Differentiable in ``table``."""
     return _SortedGather.apply(table, idx)
+
+
+def _launch_add(table: torch.Tensor, idx: torch.Tensor,
+                addend: torch.Tensor) -> torch.Tensor:
+    global ADD_LAUNCHES
+    if table.dim() != 2 or idx.dim() != 1 or tuple(addend.shape) != (
+            idx.shape[0], table.shape[1]):
+        raise ValueError(
+            f"sorted_gather_add: table must be [N, d], idx [E] and addend "
+            f"[E, d], got {tuple(table.shape)}, {tuple(idx.shape)} and "
+            f"{tuple(addend.shape)}")
+    if table.dtype not in _DTYPES or addend.dtype not in _DTYPES:
+        raise TypeError(f"sorted_gather_add: table and addend must be bf16 "
+                        f"or f32, got {table.dtype} and {addend.dtype}")
+    if table.shape[1] % 8:
+        raise ValueError(f"sorted_gather_add: d = {table.shape[1]}; the "
+                         "kernel moves 4 values a thread from 16-byte "
+                         "aligned rows (d % 8 == 0)")
+    if idx.dtype != torch.int32:
+        raise TypeError("sorted_gather_add: idx must be int32")
+    for t in (table, idx, addend):
+        if not t.is_cuda or t.device != table.device:
+            raise ValueError(f"sorted_gather_add: inputs must be on "
+                             f"{table.device}")
+        if not t.is_contiguous():
+            raise ValueError("sorted_gather_add: inputs must be contiguous")
+    if table.data_ptr() % 16 or addend.data_ptr() % 16:
+        raise ValueError("sorted_gather_add: table and addend must be "
+                         "16-byte aligned")
+    out = torch.empty(idx.shape[0], table.shape[1], device=table.device,
+                      dtype=torch.promote_types(table.dtype, addend.dtype))
+    lib = _lib()
+    with torch.cuda.device(table.device):
+        err = lib.gn_sorted_gather_add(
+            table.data_ptr(), idx.data_ptr(), addend.data_ptr(),
+            out.data_ptr(), idx.shape[0], table.shape[0], table.shape[1],
+            int(table.dtype == torch.bfloat16),
+            int(addend.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sorted_gather_add")
+    ADD_LAUNCHES += 1
+    return out
+
+
+class _SortedGatherAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, addend):
+        ctx.save_for_backward(idx)
+        ctx.meta = (table.shape[0], table.dtype, addend.dtype)
+        if table.device.type == "cpu":
+            return sorted_gather_add_plain(table, idx, addend)
+        return _launch_add(table, idx, addend)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .segment_sum import sorted_segment_sum
+        (idx,) = ctx.saved_tensors
+        num_rows, table_dtype, addend_dtype = ctx.meta
+        g = g.contiguous()
+        return (sorted_segment_sum(g, idx, num_rows).to(table_dtype), None,
+                g.to(addend_dtype))
+
+
+def sorted_gather_add(table: torch.Tensor, idx: torch.Tensor,
+                      addend: torch.Tensor) -> torch.Tensor:
+    """``table[idx] + addend`` in one pass for ascending ``idx``: the sum in
+    f32, rounded once to ``promote_types(table, addend)``; out-of-range ids
+    read zeros.  Differentiable in ``table`` and ``addend``."""
+    return _SortedGatherAdd.apply(table, idx, addend)

@@ -1,69 +1,152 @@
-"""Backward of ``bf16(LayerNorm(x)) @ w`` (counterpart of ``_backward`` in
-``graphnets_tpu/ops/pallas/ln_linear.py``): dx, dscale, dbias and dW.
+"""``LayerNorm(x) @ w [+ addend]`` fused, forward and backward (counterpart
+of ``graphnets_tpu/ops/pallas/ln_linear.py``).
 
-Kernel: ``csrc/ln_linear_bwd.cu``.  It replaces the Pallas kernel
+Forward kernel: ``csrc/ln_linear_fwd.cu``.  It replaces the Pallas kernel
+of ``ln_matmul`` (``ln_linear.py:100-159,298-308``), with its arithmetic:
+f32 row statistics in the Flux convention, the normalised row rounded to
+``x.dtype``, the product accumulated in f32; without ``addend`` the f32
+partial comes back, with it ``(product + addend)`` rounded once to
+``x.dtype``.  The normalised ``[T, d]`` rows never reach device memory.
+On the H100 the bucketed headline shape (T = 16384, d = dout = 384, bf16
+rows, f32 addend) is bound by memory (~50.6 MB for 4.8 GFLOP, ~15 us); the
+sort task's (T = 512, f32) by f32 operations (~3 us).  bf16 rows run on
+the tensor cores (WMMA), f32 rows on the CUDA cores in true f32.
+
+Backward kernel: ``csrc/ln_linear_bwd.cu``.  It replaces the Pallas kernel
 ``_bwd_kernel`` (``ln_linear.py:165-246``), with its arithmetic: the LN
 statistics are recomputed from ``x``, and the Flux std convention and the
-var == 0 guard hold.  On the H100 it is bound by memory (~38.6 MB for
-9.7 GFLOP at T = 16384, d = dout = 384, ~11.5 us).  The TPU kernel carried
-dW, dscale and dbias across its sequential grid; here a row pass writes
-dx and per-block column sums, a split-K pass computes partial dW tiles on
-the tensor cores, and a last pass adds the partials in a fixed order (no
-atomics).  One call of :func:`ln_linear_backward` runs the three passes
-and counts as one launch.  The source note in the ``.cu`` file has the
-details.
+var == 0 guard hold.  On the H100 it is bound by memory in bf16 (~38.6 MB
+for 9.7 GFLOP at T = 16384, d = dout = 384, ~11.5 us).  The TPU kernel
+carried dW, dscale and dbias across its sequential grid; here a row pass
+writes dx and per-block column sums, a split-K pass computes partial dW
+tiles (on the tensor cores for bf16 rows, on the CUDA cores for f32 rows),
+and a last pass adds the partials in a fixed order (no atomics).  One call
+of :func:`ln_linear_backward` runs the three passes and counts as one
+launch.  The source notes in the ``.cu`` files have the details.
 
-:func:`ln_linear_backward` takes ``ops.ln_linear.ln_linear_backward_plain``
-for CPU tensors only; a CUDA tensor launches the kernel or raises.
+:func:`ln_matmul` is differentiable: its backward is
+:func:`ln_linear_backward`, and the gradient of ``addend`` is the
+cotangent cast to the addend's type (``ln_linear.py:275-292``).  Both take
+their plain versions (``ops.ln_linear``) for CPU tensors only; a CUDA
+tensor launches the kernel or raises.  A shape outside
+:func:`supports_ln_matmul` takes the plain composition on any device, as
+in the JAX package; the gate is the JAX package's shape conditions and the
+forward block's shared memory, nothing else.  Where that memory alone
+refuses rows on the card (bf16 at d >= 512) a warning says so once.  f32
+rows wider than the backward kernel takes (d > 512) run the forward kernel
+and raise in the backward on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
+from typing import Optional
 
 import torch
 
-from ..ln_linear import ln_linear_backward_plain
+from ..ln_linear import ln_linear_backward_plain, ln_matmul_reference
 from . import _build
 
-__all__ = ["ln_linear_backward", "supports_ln_linear_backward", "LAUNCHES"]
+__all__ = ["ln_matmul", "supports_ln_matmul", "ln_linear_backward",
+           "supports_ln_linear_backward", "LAUNCHES", "FWD_LAUNCHES"]
 
-LAUNCHES = 0            # kernel launches, for proving the path was taken
-_DIMS = (128, 256, 384)
+LAUNCHES = 0            # backward launches, for proving the path was taken
+FWD_LAUNCHES = 0        # ln_matmul (forward) launches
+_DIMS = (128, 256, 384, 512)
+_DTYPES = (torch.bfloat16, torch.float32)
 _SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
 _ROWS = 32              # rows per block of the row pass
 
 
-def _smem_bytes(d: int, dout: int) -> int:
-    """Shared memory of a row-pass block, as ``rows_smem_bytes``: x and g
-    rows, the W ring (two 32-column slices) or the f32 dxn rows, and the
-    row statistics."""
+def _smem_bytes(d: int, dout: int, dtype: torch.dtype) -> int:
+    """Shared memory of a row-pass block, as ``rows_smem_bytes`` and
+    ``rows_smem_bytes_f32``: x and g rows, the W ring or the f32 dxn rows,
+    and the row statistics."""
+    if dtype == torch.float32:
+        ring = max(d * 33 * 4, _ROWS * (d + 4) * 4)
+        return _ROWS * ((d + 4) * 4 + (dout + 4) * 4 + 3 * 4) + ring
     ring = max(2 * d * 40 * 2, _ROWS * (d + 4) * 4)
     return _ROWS * ((d + 8) * 2 + (dout + 8) * 2 + 3 * 4) + ring
 
 
 def supports_ln_linear_backward(n_rows: int, d: int, dout: int,
                                 dtype: torch.dtype) -> bool:
-    """Shapes the kernel takes: bf16 rows, ``d`` in 128 / 256 / 384,
-    ``dout`` a multiple of 128 whose g rows fit in shared memory."""
-    return (dtype == torch.bfloat16 and d in _DIMS and n_rows >= 1
+    """Shapes the kernel takes: bf16 or f32 rows, ``d`` in 128 / 256 / 384
+    / 512, ``dout`` a multiple of 128 whose g rows fit in shared memory."""
+    return (dtype in _DTYPES and d in _DIMS and n_rows >= 1
             and dout >= 128 and dout % 128 == 0
-            and _smem_bytes(d, dout) <= _SMEM_LIMIT)
+            and _smem_bytes(d, dout, dtype) <= _SMEM_LIMIT)
 
 
-def _rows_per_split(T: int, d: int, dout: int, device) -> int:
-    """Rows per block of the split-K dW pass: about two blocks an SM."""
+def _fwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Shared memory of a forward block, as ``gn_ln_matmul_smem``."""
+    if dtype == torch.float32:
+        return 32 * (d + 4) * 4 + 32 * 132 * 4
+    return d * 136 * 2 + 64 * (d + 8) * 2 + 64 * 132 * 4
+
+
+def supports_ln_matmul(n_rows: int, d: int, dout: int,
+                       dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The JAX package's shape gate (``ln_linear.py:81-85``: lane-aligned
+    ``d`` and ``dout``, whole 8-row tiles) for bf16 or f32 rows, within
+    the forward block's shared memory (in place of the TPU kernel's VMEM
+    term): bf16 rows up to d = 384, f32 rows of any such width."""
+    return (_jax_shape_gate(n_rows, d, dout) and dtype in _DTYPES
+            and _fwd_smem_bytes(d, dtype) <= _SMEM_LIMIT)
+
+
+def _jax_shape_gate(n_rows: int, d: int, dout: int) -> bool:
+    return (d % 128 == 0 and dout % 128 == 0 and n_rows % 8 == 0
+            and n_rows >= 8)
+
+
+_lost_route_logged = False
+
+
+def _warn_lost_route(x: torch.Tensor, dout: int) -> None:
+    """Say once that rows on the card compose plain ops only because the
+    forward block's shared memory cannot hold them."""
+    global _lost_route_logged
+    if (_lost_route_logged or x.device.type != "cuda"
+            or x.dtype not in _DTYPES
+            or not _jax_shape_gate(x.shape[0], x.shape[1], dout)):
+        return
+    _lost_route_logged = True
+    logging.getLogger("graphnets_tpu_torch").warning(
+        "ln_matmul: x %s %s does not fit the kernel's shared memory "
+        "(%d > %d bytes); these rows take the plain composition.",
+        tuple(x.shape), x.dtype, _fwd_smem_bytes(x.shape[1], x.dtype),
+        _SMEM_LIMIT)
+
+
+def _rows_per_split(T: int, d: int, dout: int, tile: int, device) -> int:
+    """Rows per block of the split-K dW pass (``tile`` x ``tile`` tiles of
+    dW): about two blocks an SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = (d // 128) * (dout // 128)
+    tiles = (d // tile) * (dout // tile)
     splits = max(1, min(-(-2 * sms // tiles), -(-T // _ROWS)))
     return -(-T // (splits * _ROWS)) * _ROWS
 
 
+def _backward_args():
+    return [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ln_linear_bwd")
-    fn = lib.gn_ln_linear_backward
+    if lib.gn_ln_linear_backward.argtypes is None:
+        for fn in (lib.gn_ln_linear_backward, lib.gn_ln_linear_backward_f32):
+            fn.argtypes = _backward_args()
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ln_linear_fwd")
+    fn = lib.gn_ln_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -75,8 +158,8 @@ def _launch(x, scale, bias, w, g):
     dout = w.shape[1]
     if not supports_ln_linear_backward(T, d, dout, x.dtype):
         raise ValueError(f"ln_linear_backward: unsupported x "
-                         f"{tuple(x.shape)} {x.dtype}, dout={dout} (bf16, d "
-                         f"in {_DIMS}, dout % 128 == 0)")
+                         f"{tuple(x.shape)} {x.dtype}, dout={dout} (bf16 or "
+                         f"f32, d in {_DIMS}, dout % 128 == 0)")
     shapes = {"w": (w, (d, dout)), "g": (g, (T, dout)),
               "scale": (scale, (d,)), "bias": (bias, (d,))}
     for name, (t, shape) in shapes.items():
@@ -92,7 +175,9 @@ def _launch(x, scale, bias, w, g):
             raise ValueError("ln_linear_backward: inputs must be contiguous "
                              "and 16-byte aligned")
     f32 = dict(dtype=torch.float32, device=x.device)
-    rows_per_split = _rows_per_split(T, d, dout, x.device)
+    is_f32 = x.dtype == torch.float32
+    rows_per_split = _rows_per_split(T, d, dout, 64 if is_f32 else 128,
+                                     x.device)
     splits = -(-T // rows_per_split)
     blocks = -(-T // _ROWS)
     dx = torch.empty_like(x)
@@ -102,8 +187,10 @@ def _launch(x, scale, bias, w, g):
     scratch = [torch.empty(T, 2, **f32), torch.empty(splits, d, dout, **f32),
                torch.empty(blocks, d, **f32), torch.empty(blocks, d, **f32)]
     lib = _lib()
+    entry = (lib.gn_ln_linear_backward_f32 if is_f32
+             else lib.gn_ln_linear_backward)
     with torch.cuda.device(x.device):
-        err = lib.gn_ln_linear_backward(
+        err = entry(
             *[t.data_ptr() for t in (*args, dx, dw, ds, db, *scratch)],
             T, d, dout, rows_per_split,
             torch.cuda.current_stream().cuda_stream)
@@ -114,9 +201,84 @@ def _launch(x, scale, bias, w, g):
 
 def ln_linear_backward(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
-    """Gradients of ``bf16(LayerNorm(x; scale, bias)) @ w`` for the
+    """Gradients of ``x.dtype(LayerNorm(x; scale, bias)) @ w`` for the
     cotangent ``g [T, dout]``: ``(dx [T, d] in x.dtype, dscale [d],
     dbias [d], dw [d, dout])``, the last three in f32."""
     if x.device.type == "cpu":
         return ln_linear_backward_plain(x, scale, bias, w, g)
     return _launch(x, scale, bias, w, g)
+
+
+def _launch_forward(x, scale, bias, w, addend):
+    global FWD_LAUNCHES
+    T, d = x.shape
+    dout = w.shape[1]
+    if not supports_ln_matmul(T, d, dout, x.dtype):
+        raise ValueError(f"ln_matmul: unsupported x {tuple(x.shape)} "
+                         f"{x.dtype}, dout={dout}")
+    shapes = {"w": (w, (d, dout)), "scale": (scale, (d,)),
+              "bias": (bias, (d,))}
+    if addend is not None:
+        shapes["addend"] = (addend, (T, dout))
+        if addend.dtype not in _DTYPES:
+            raise TypeError(f"ln_matmul: addend must be bf16 or f32, got "
+                            f"{addend.dtype}")
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ln_matmul: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    args = [x, w.to(x.dtype), scale.float(), bias.float()]
+    for t in args + ([] if addend is None else [addend]):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"ln_matmul: all inputs must be on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("ln_matmul: inputs must be contiguous and "
+                             "16-byte aligned")
+    kind = 0 if addend is None else (1 if addend.dtype == torch.float32
+                                     else 2)
+    out = torch.empty(T, dout, device=x.device,
+                      dtype=torch.float32 if addend is None else x.dtype)
+    lib = _fwd_lib()
+    with torch.cuda.device(x.device):
+        err = lib.gn_ln_matmul(
+            *[t.data_ptr() for t in args],
+            None if addend is None else addend.data_ptr(), out.data_ptr(),
+            T, d, dout, int(x.dtype == torch.float32), kind,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "ln_matmul")
+    FWD_LAUNCHES += 1
+    return out
+
+
+class _LnMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, w, addend):
+        ctx.save_for_backward(x, scale, bias, w)
+        ctx.addend_dtype = None if addend is None else addend.dtype
+        if x.device.type == "cpu":
+            return ln_matmul_reference(x, scale, bias, w, addend)
+        return _launch_forward(x, scale, bias, w, addend)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx, ds, db, dw = ln_linear_backward(x, scale, bias, w, g)
+        d_addend = (None if ctx.addend_dtype is None
+                    else g.to(ctx.addend_dtype))
+        return (dx, ds.to(scale.dtype), db.to(bias.dtype), dw.to(w.dtype),
+                d_addend)
+
+
+def ln_matmul(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              w: torch.Tensor, addend: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """``LayerNorm(x; scale, bias) @ w [+ addend]`` in one pass.
+
+    Without ``addend`` the result is the f32 partial product; with it
+    (``[T, dout]``, f32 or bf16) the completed row in ``x.dtype``, rounded
+    once.  Differentiable in every tensor argument."""
+    if not supports_ln_matmul(x.shape[0], x.shape[1], w.shape[1], x.dtype):
+        _warn_lost_route(x, w.shape[1])
+        return ln_matmul_reference(x, scale, bias, w, addend)
+    return _LnMatmul.apply(x, scale, bias, w, addend)

@@ -2,10 +2,10 @@
 (counterparts of ``ln_matmul_reference`` and ``_backward`` in
 ``graphnets_tpu/ops/pallas/ln_linear.py``).
 
-The ``ln_matmul`` kernel itself is not on the port's path yet; the plain
-edge update (``ops/kernels/edge_update.py``) needs the forward reference.
-:func:`ln_linear_backward_plain` is the plain version of the backward
-kernel in ``ops/kernels/ln_linear.py``.
+:func:`ln_matmul_reference` and :func:`ln_linear_backward_plain` are the
+plain versions of the forward and backward kernels in
+``ops/kernels/ln_linear.py``; the plain edge update
+(``ops/kernels/edge_update.py``) composes the forward one too.
 """
 
 from __future__ import annotations

@@ -9,6 +9,11 @@ ever involved.  With kernels on, a ``sorted_pad_safe`` sum over more than
 64 segments takes the sorted segment-sum kernel instead
 (``ops/kernels/segment_sum``), as the JAX package does
 (``scatter.py:227-232``).
+
+:func:`take_rows_sorted_grad` is a row gather whose backward scatter-add
+runs as such a sorted f32 sum (``scatter.py:91-190``): directly for
+ascending ids, through the windowed kernel for ids local to their graph
+(the senders), after one stable sort otherwise.
 """
 
 from __future__ import annotations
@@ -17,10 +22,11 @@ from typing import Optional
 
 import torch
 
-from ..utils.config import use_kernels
+from ..utils.config import get_config, use_kernels
 
 __all__ = [
     "gather_nodes",
+    "take_rows_sorted_grad",
     "segment_sum",
     "aggregate_edges_for_nodes",
     "aggregate_edges_for_globals",
@@ -37,8 +43,84 @@ def _mask_rows(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
                                                       device=x.device))
 
 
-def gather_nodes(nf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``nf[idx]``: node rows gathered onto edge slots."""
+class _TakeRows(torch.autograd.Function):
+    """``x[idx]``; the backward is a sorted f32 segment sum."""
+
+    @staticmethod
+    def forward(ctx, x, idx, idx_sorted):
+        ctx.save_for_backward(idx)
+        ctx.meta = (x.shape[0], idx_sorted)
+        if idx_sorted and use_kernels():
+            # Ascending ids: the sorted-gather kernel where the JAX
+            # package's kernel takes the shape.
+            from .kernels import gather
+            if gather.supports_sorted_gather(idx.shape[0], x.shape[0],
+                                             x.shape[1]):
+                return gather.sorted_gather(x, idx)
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n, idx_sorted = ctx.meta
+        g = g.contiguous()
+        if not idx_sorted:
+            # One stable sort gives the segment ids and the permutation.
+            seg, perm = torch.sort(idx, stable=True)
+            g, idx = g.index_select(0, perm), seg
+        dx = segment_sum(g, idx, n, sorted_pad_safe=True)
+        return dx.to(g.dtype), None, None
+
+
+class _TakeRowsWindowed(torch.autograd.Function):
+    """``x[idx]`` for ids unsorted within each graph but local to it; the
+    backward is the windowed segment sum (no sort, no permutation)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, node_offsets, edge_offsets):
+        ctx.save_for_backward(idx, node_offsets, edge_offsets)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .kernels import segment_sum as kss
+        idx, node_offsets, edge_offsets = ctx.saved_tensors
+        n = ctx.num_rows
+        g = g.contiguous()
+        if use_kernels() and kss.supports_sorted_segment_sum(
+                g.shape[0], n, g.shape[1]):
+            dx = kss.windowed_segment_sum(g, idx, n, node_offsets,
+                                          edge_offsets)
+        else:
+            dx = segment_sum(g, idx, n)
+        return dx.to(g.dtype), None, None, None
+
+
+def take_rows_sorted_grad(x: torch.Tensor, idx: torch.Tensor,
+                          idx_sorted: bool = False,
+                          windows=None) -> torch.Tensor:
+    """``x[idx]`` whose backward scatter-add runs sorted, in f32.
+
+    ``idx_sorted=True`` declares the ids ascending (the canonical
+    receivers, ``edge_graph``, ``node_graph``): no sort in the backward,
+    and the forward takes the sorted-gather kernel where its gate holds.
+    ``windows=(node_offsets, edge_offsets)`` (``[G + 1]`` int32 each)
+    declares ids unsorted within graphs but local to them (the senders):
+    the backward takes the windowed kernel.  Otherwise the backward sorts
+    the ids once.  Only the order of the f32 sums differs between the
+    three."""
+    if windows is not None and not idx_sorted:
+        return _TakeRowsWindowed.apply(x, idx, windows[0], windows[1])
+    return _TakeRows.apply(x, idx, idx_sorted)
+
+
+def gather_nodes(nf: torch.Tensor, idx: torch.Tensor,
+                 idx_sorted: bool = False, windows=None) -> torch.Tensor:
+    """``nf[idx]``: node rows gathered onto edge slots; the backward runs
+    sorted (see :func:`take_rows_sorted_grad`)."""
+    if get_config().sorted_scatter_grad:
+        return take_rows_sorted_grad(nf, idx, idx_sorted, windows)
     return nf.index_select(0, idx)
 
 
@@ -92,11 +174,15 @@ def aggregate_nodes_for_globals(nf: torch.Tensor, node_graph: torch.Tensor,
 
 def broadcast_globals_to_edges(gf: torch.Tensor,
                                edge_graph: torch.Tensor) -> torch.Tensor:
-    """Graph features tiled onto edge slots."""
+    """Graph features tiled onto edge slots (``edge_graph`` ascends)."""
+    if get_config().sorted_scatter_grad:
+        return take_rows_sorted_grad(gf, edge_graph, idx_sorted=True)
     return gf.index_select(0, edge_graph)
 
 
 def broadcast_globals_to_nodes(gf: torch.Tensor,
                                node_graph: torch.Tensor) -> torch.Tensor:
-    """Graph features tiled onto node slots."""
+    """Graph features tiled onto node slots (``node_graph`` ascends)."""
+    if get_config().sorted_scatter_grad:
+        return take_rows_sorted_grad(gf, node_graph, idx_sorted=True)
     return gf.index_select(0, node_graph)

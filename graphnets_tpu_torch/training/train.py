@@ -1,4 +1,5 @@
-"""The training step (counterpart of ``make_train_step`` in
+"""The training step and the sort-task trainer (counterparts of
+``make_train_step`` and ``train_sort`` in
 ``graphnets_tpu/training/train.py``).
 
 The model's parameters are the f32 master copy.  Each step runs the
@@ -8,20 +9,31 @@ compute dtype while the gradients come back through the cast in f32 (the
 JAX headline step, ``benchmarks/bench_train_step.py:47-55``).  The
 optimizer updates the masters in place, which JAX's functional step does
 by returning new arrays.
+
+:func:`train_sort` is the host loop of the sort example: batches from the
+numpy generator, one step each.  The JAX package's loops that generate the
+data inside the compiled step (``train_sort_device``, ``evaluate_sort``)
+are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+import dataclasses
+import time
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..data.sort_task import SortTaskConfig, get_batch, sort_pad_spec
 from ..graph import GraphsTuple
+from ..models.encode_process_decode import EncodeProcessDecode
+from ..utils.config import resolve_device
 from .losses import graph_accuracy, graph_loss_nf_ef, masked_accuracy
 
-__all__ = ["adamw", "make_train_step"]
+__all__ = ["adamw", "make_train_step", "train_sort", "SortTrainResult"]
 
 
 def adamw(params: Iterable[torch.Tensor], lr: float = 3e-4
@@ -77,3 +89,65 @@ def make_train_step(
             }
 
     return step
+
+
+@dataclasses.dataclass
+class SortTrainResult:
+    """The trained ``model`` (it holds the parameters), its ``optimizer``
+    (the AdamW moments), the last step's ``metrics`` as floats, and the
+    throughput without the first step."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    metrics: dict
+    steps_per_sec: float
+
+
+def train_sort(
+    steps: int = 1000,
+    cfg: SortTaskConfig = SortTaskConfig(),
+    core_dims: Tuple[int, int, int] = (384, 384, 384),
+    n_cores: int = 2,
+    learning_rate: float = 3e-4,
+    seed: int = 0,
+    log_every: int = 0,
+    model: Optional[nn.Module] = None,
+    device=None,
+) -> SortTrainResult:
+    """Train the sort model in f32: encoder ``(0, vocab, 0) -> core_dims``,
+    ``n_cores`` GNCores, decoder to ``(2, 2, 0)``, AdamW, on batches from
+    the host generator seeded with ``seed``.  Runs on ``device`` (``cuda``
+    unless the caller passes another); a ``model`` passed in must already
+    live there.  The first step (kernel builds, allocator warm-up) is left
+    out of ``steps_per_sec``."""
+    device = resolve_device(device)
+    if model is None:
+        model = EncodeProcessDecode(
+            x_dims=(0, cfg.vocab_size, 0), core_dims=core_dims,
+            y_dims=(2, 2, 0), n_cores=n_cores, device=device,
+            generator=torch.Generator().manual_seed(seed))
+    optimizer = adamw(model.parameters(), learning_rate)
+    step_fn = make_train_step(model, optimizer)
+
+    def wait():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    rng = np.random.default_rng(seed)
+    pad = sort_pad_spec(cfg)
+    metrics: Dict[str, torch.Tensor] = {}
+    t0 = None
+    for i in range(steps):
+        x, y = get_batch(rng, cfg, pad, device=device)
+        metrics = step_fn(x, y)
+        if i == 0:
+            wait()
+            t0 = time.perf_counter()
+        if log_every and (i + 1) % log_every == 0:
+            print(f"step {i + 1}: " + ", ".join(
+                f"{k}={float(v):.4f}" for k, v in metrics.items()))
+    wait()
+    dt = (time.perf_counter() - t0) if steps > 1 else float("inf")
+    return SortTrainResult(
+        model=model, optimizer=optimizer,
+        metrics={k: float(v) for k, v in metrics.items()},
+        steps_per_sec=(steps - 1) / dt if steps > 1 else 0.0)

@@ -5,11 +5,15 @@
 kernels (``ops/kernels``).  ``None`` means "auto": on iff CUDA is available,
 decided on first query.  ``GRAPHNETS_TPU_TORCH_KERNELS=0/1`` forces either
 mode, as ``GRAPHNETS_TPU_PALLAS`` does for the JAX package.
+``bf16_gather_partials(rows)`` is the JAX package's gate for rounding the
+gathered split-linear partials to bf16 (``GRAPHNETS_TPU_TORCH_BF16_GATHER``
+pins it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Optional
 
@@ -25,16 +29,30 @@ class Config:
     # gather-after-transform instead of materializing the concatenated
     # input (same per-row dot products; partials accumulate in f32).
     split_linear: bool = True
+    # Run the backward scatter-add of row gathers as a sorted f32 segment
+    # sum (the sorted / windowed kernels where their gates hold) instead of
+    # autograd's ``index_add_`` in the cotangent's own type.
+    sorted_scatter_grad: bool = True
+    # Round the partial products of GATHERED split-linear terms to bf16
+    # before the E-row gather (models/gn_block._linear_split): half the
+    # bytes of the dominant streams of the non-uniform edge update, at up
+    # to 3 more bf16 roundings per output element.  Only bf16 inputs are
+    # affected.  None = "auto": on when the gather writes at least
+    # ``bf16_gather_rows`` rows.
+    bf16_gather_partials: Optional[bool] = None
+    bf16_gather_rows: int = 1 << 17
 
 
-def _env_kernels() -> Optional[bool]:
-    v = os.environ.get("GRAPHNETS_TPU_TORCH_KERNELS", "auto").lower()
+def _env_tristate(name: str) -> Optional[bool]:
+    v = os.environ.get(name, "auto").lower()
     if v in ("auto", ""):
         return None
     return v == "1"
 
 
-_config = Config(use_kernels=_env_kernels())
+_config = Config(
+    use_kernels=_env_tristate("GRAPHNETS_TPU_TORCH_KERNELS"),
+    bf16_gather_partials=_env_tristate("GRAPHNETS_TPU_TORCH_BF16_GATHER"))
 
 
 def get_config() -> Config:
@@ -53,6 +71,27 @@ def enable_kernels(flag: bool = True) -> None:
 
 def use_split_linear() -> bool:
     return _config.split_linear
+
+
+_bf16_gate_logged = False
+
+
+def bf16_gather_partials(rows: int) -> bool:
+    """Whether a gathered partial of ``rows`` output rows rounds to bf16."""
+    if _config.bf16_gather_partials is not None:
+        return _config.bf16_gather_partials
+    on = rows >= _config.bf16_gather_rows
+    global _bf16_gate_logged
+    if on and not _bf16_gate_logged:
+        # The auto gate keys on the padded row count, so two runs of one
+        # model with other padding can round differently: say so once.
+        _bf16_gate_logged = True
+        logging.getLogger("graphnets_tpu_torch").info(
+            "bf16_gather_partials auto-enabled (gather rows %d >= %d): "
+            "split-linear partials round to bf16 before the edge gather; "
+            "set GRAPHNETS_TPU_TORCH_BF16_GATHER=0/1 to pin.",
+            rows, _config.bf16_gather_rows)
+    return on
 
 
 def resolve_device(device=None) -> torch.device:

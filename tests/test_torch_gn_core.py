@@ -147,8 +147,11 @@ def test_corelist_bf16_kernels_match_jax_kernels(kernels_on, padded):
         import graphnets_tpu_torch.models.gn_core as core_mod
         m.setattr(core_mod, "ln_ffn_residual", spy("ffn", real_ffn))
         yp = stack_p(gp)
-    # Both kernel routes were taken: 1 edge update and 3 FFN calls per core.
-    assert calls == {"edge": 2, "ffn": 6}
+    # Both kernel routes were taken: per core 1 edge update and 2 FFN calls
+    # (edges and nodes).  The graph set has 2 rows, less than the 8-row tile
+    # of the JAX package's gate (``fused_ffn.py:99-105``), so both packages
+    # compose its branch from the reference.
+    assert calls == {"edge": 2, "ffn": 4}
     assert (pt_eu.LAUNCHES, pt_ffn.LAUNCHES) == launches
     _compare(stack_j.apply(params_j, gj), yp, torch.bfloat16)
 
