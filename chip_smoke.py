@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
-(4b drives the training step; A and B drive the non-uniform route):
+(4b drives the training step; A and B drive the non-uniform route; C and D
+the single large graph, forward, training and sampled training; R the
+random gather):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``graphnets_tpu_torch/csrc`` with ``nvcc``
@@ -78,7 +80,55 @@ B. run the headline model on a bucket-padded batch (``bench.py``'s eight
    [512, 384] rows into the 41 node slots of a sort-task batch; the
    sorted gather from a [1056, 384] bf16 table; the fused FFN at
    T = 1056;
-5. print one JSON line listing the kernels, then the ``ok`` line.
+C. run the single large graph (``benchmarks/bench_large_graph.py``: one
+   graph of N = 65,536 nodes and E = 1,048,576 edges from seed 0, 3 GNCores
+   at (256, 256, 256), bf16): one forward, which must launch the
+   single-graph edge update (with its fused edge->node sum) 3 times and the
+   fused FFN 6 times (edge and node sets; the 1-row graph set composes) and
+   match the pure route within 5e-2 of each feature set's largest
+   magnitude; then the train step (f32 masters, random bf16 targets,
+   ``graph_loss_nf_ef``, AdamW(3e-4)) through ``make_train_step``: per step
+   3 single-graph edge updates, 6 FFN forwards and 6 FFN backwards, 3 LN
+   backwards, 6 sorted segment sums (d tr, and the senders' sort-once
+   scatter) and 3 sorted gathers (the agg cotangent).  Loss and gradients
+   against the pure route's f32 twin (it and the bf16 twin run under
+   per-core activation checkpointing so that they fit): each gradient no
+   further from the twin's, in the 2-norm, than 5e-2 of the twin's norm or
+   1.5 times the pure bf16 route's own distance from it, and the loss
+   likewise (its random-normal targets make it a sum with heavy
+   cancellation).  Phase 4b's rule, which holds the two bf16 routes to each
+   other by the largest element, fails at this size; its worst share and
+   the largest-element distances are printed.  3 finite losses; eager time, a profile, the peak device
+   memory; then one step with ``g1_agg_fusion_training`` off (the
+   benchmark's ``--g1-agg 0``), which takes the kernel without the sum and
+   9 sorted sums.  The kernels of this route are held against their plain
+   versions in phase 3: the single-graph edge update with and without the
+   sum at the large graph's shape (bf16 partials), at the sampled
+   subgraph's shape (E = 56,320, N = 56,960, f32 partials, power-law
+   receivers with a hub, empty nodes and pad edges on the last node) and on
+   f32 rows; the FFN backward at T = 1,048,576 and 65,536 (d = 256) and at
+   d = 128; the FFN forward, the LN backward, the sorted sum and the sorted
+   gather at the shapes this route gives them; and the wide rows of
+   ``ln_matmul`` and its backward (d = dout = 512 and 1024 in bf16, 640 in
+   f32).  The million-row cases are timed by 5 eager calls between CUDA
+   events, not by a CUDA graph;
+D. run sampled training (``benchmarks/bench_arxiv.py``: a synthetic graph
+   of 169,343 nodes and 1,166,243 edges with power-law in-degree, 128-d
+   features, 40 classes; ``NeighborSampler((10, 10), batch 512)`` with
+   node ids; ``EncodeProcessDecode((0, 128, 0) -> (256,) * 3 -> (1, 40,
+   0))``, 2 cores, bf16 compute with f32 masters, Adam(1e-3)) through
+   ``make_node_classification_step``: 1 + 10 steps on padded subgraphs of
+   56,960 node slots and 56,320 edge slots.  The first loss must match the
+   pure route's within 2e-2 relative and the first step's gradients the
+   pure route's under phase 4b's rule, every loss be finite, and every step
+   launch the single-graph edge update twice.  Print both routes' losses
+   on the same batches, the step time with and without the host sampler
+   and a profile;
+R. run ``random_gather`` through its entry point ([65,536, 256] bf16 table,
+   1,048,576 random ids) against ``index_select``: bit-equal, one launch;
+   print both times and rates;
+5. print one JSON line listing the kernels (it fails if one was launched on
+   no path), then the ``ok`` line.
 
 Float32 products everywhere run without TF32 (set below), so the plain
 versions' f32 matmuls are exact-product, f32-accumulate.  The script
@@ -99,6 +149,18 @@ H100_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, HBM3
 H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor cores
 H100_F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores
 WARMUP, ITERS = 3, 20
+LARGE_ITERS = 5
+
+# The single large graph (benchmarks/bench_large_graph.py) and the sampled
+# arxiv-shaped training (benchmarks/bench_arxiv.py).
+LG_N, LG_DEG, LG_D, LG_CORES = 65536, 16, 256, 3
+LG_E = LG_N * LG_DEG
+AX_N, AX_E, AX_FEAT, AX_CLASSES = 169_343, 1_166_243, 128, 40
+AX_HIDDEN, AX_CORES, AX_FANOUTS, AX_BATCH = 256, 2, (10, 10), 512
+AX_STEPS = 10
+# The large-graph step's gradients (2-norm of a tensor) and loss may lie
+# this many times as far from the f32 twin as the pure bf16 route's do.
+G1_F32_SLACK = 1.5
 
 
 def log(msg):
@@ -246,7 +308,7 @@ def check_edge_update(torch, eu, g, seed):
             "bound_by": by}
 
 
-def check_ffn(torch, ffn, T, seed):
+def check_ffn(torch, ffn, T, seed, D=D, large=False):
     """Kernel 2 against its plain version at T rows of width D."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -255,8 +317,9 @@ def check_ffn(torch, ffn, T, seed):
     w = (1 + 0.1 * rnd(D), 0.1 * rnd(D),
          (rnd(D, 4 * D) * D ** -0.5).to(bf), (0.1 * rnd(4 * D)).to(bf),
          (rnd(4 * D, D) * (4 * D) ** -0.5).to(bf), (0.1 * rnd(D)).to(bf))
-    y = ffn.ln_ffn_residual(x, *w, extra=extra)
-    ref = ffn.ln_ffn_residual_plain(x, *w, extra=extra)
+    with torch.no_grad():
+        y = ffn.ln_ffn_residual(x, *w, extra=extra)
+        ref = ffn.ln_ffn_residual_plain(x, *w, extra=extra)
     torch.cuda.synchronize()
     err = float((y.float() - ref.float()).abs().max())
     # Two bf16 ulps at the largest magnitude: the final rounding, plus a
@@ -265,10 +328,8 @@ def check_ffn(torch, ffn, T, seed):
     tol = 2.0 ** -6 * float(ref.float().abs().max())
     kernel = lambda: ffn.ln_ffn_residual(x, *w, extra=extra)
     plain = lambda: ffn.ln_ffn_residual_plain(x, *w, extra=extra)
-    times = {"kernel_ms": graph_ms(torch, kernel),
-             "plain_ms": graph_ms(torch, plain),
-             "kernel_call_ms": cuda_ms(torch, kernel),
-             "plain_call_ms": cuda_ms(torch, plain)}
+    with torch.no_grad():
+        times = timed(torch, kernel, plain, large=large)
     nbytes = 3 * T * D * 2 + 2 * D * 4 * D * 2 + (2 * D + 4 * D + D) * 4
     bms, by = bound_ms(nbytes, 4 * T * D * 4 * D)
     return {"shape": f"T={T} d={D}", "max_err": err, "tol": tol,
@@ -276,10 +337,20 @@ def check_ffn(torch, ffn, T, seed):
             **times, "bound_ms": bms, "bound_by": by}
 
 
-def timed(torch, kernel, plain, library=None):
+def timed(torch, kernel, plain, library=None, large=False):
     """Device times (CUDA-graph replay) and eager per-call times of a
     kernel and its plain version, and the device time of the one PyTorch
-    call that computes the same function, where there is one."""
+    call that computes the same function, where there is one.  ``large``
+    (the million-row shapes, where a call takes a millisecond or more and
+    the host's share vanishes): 5 back-to-back eager calls between CUDA
+    events for every number, no graph capture, so that the plain versions'
+    multi-gigabyte temporaries are not held in a capture's pool."""
+    if large:
+        ms = lambda fn: cuda_ms(torch, fn, iters=LARGE_ITERS, warmup=1)
+        k, p = ms(kernel), ms(plain)
+        return {"kernel_ms": k, "plain_ms": p, "kernel_call_ms": k,
+                "plain_call_ms": p,
+                "library_ms": None if library is None else ms(library)}
     out = {"kernel_ms": graph_ms(torch, kernel),
            "plain_ms": graph_ms(torch, plain),
            "kernel_call_ms": cuda_ms(torch, kernel),
@@ -327,7 +398,7 @@ def check_edge_update_h(torch, eu, g, seed):
 
 
 def check_segment_sums(torch, ss, g, seed, dtype=None,
-                       which=("sorted", "windowed")):
+                       which=("sorted", "windowed"), D=D, large=False):
     """The sorted (receivers) and windowed (senders) sums of an [E, D]
     input (bf16, or ``dtype``) into the N node segments of ``g``, against
     their plain versions: one bf16 ulp at the largest magnitude, or 1e-5
@@ -376,12 +447,12 @@ def check_segment_sums(torch, ss, g, seed, dtype=None,
                        "max_err": err, "tol": tol,
                        "ok": (err <= tol and out.dtype == ref.dtype
                               and bool(torch.isfinite(out.float()).all())),
-                       **timed(torch, kernel, plain, library),
+                       **timed(torch, kernel, plain, library, large),
                        "bound_ms": bms, "bound_by": by}
     return cases
 
 
-def check_gather(torch, ga, g, seed):
+def check_gather(torch, ga, g, seed, D=D, large=False):
     """The sorted gather of an [N, D] bf16 table by the receivers:
     bit-equal to its plain version.  ``library_ms``: ``index_select``."""
     dev = g.device
@@ -399,14 +470,26 @@ def check_gather(torch, ga, g, seed):
             "max_err": max_err(out, ref), "tol": 0.0,
             "ok": bool(torch.equal(out, ref)),
             **timed(torch, kernel, plain,
-                    lambda: table.index_select(0, idx_long)),
+                    lambda: table.index_select(0, idx_long), large),
             "bound_ms": bms, "bound_by": by}
 
 
-def check_ln_backward(torch, ll, lnp, T, seed, dtype=None):
+def check_ln_backward(torch, ll, lnp, T, seed, dtype=None, D=D, large=False,
+                      two_step=False):
     """The LN->matmul backward at T rows, d = dout = D.  bf16 rows: dx
     within 2^-6 and dW, dscale, dbias within 1e-3 of their largest
-    magnitudes; f32 rows: all within 1e-4 (f32 sums in another order)."""
+    magnitudes; f32 rows: all within 1e-4 (f32 sums in another order).
+    ``two_step`` sends bf16 rows of a width that the one-kernel row pass
+    serves through the two-step row pass instead (the form of every other
+    width), to hold it and time it beside the other."""
+    if two_step:
+        one_step, ll._one_step_rows = ll._one_step_rows, lambda *a: False
+        try:
+            case = check_ln_backward(torch, ll, lnp, T, seed, dtype, D, large)
+        finally:
+            ll._one_step_rows = one_step
+        case["shape"] += " row pass in two steps"
+        return case
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     bf = dtype or torch.bfloat16
@@ -431,11 +514,11 @@ def check_ln_backward(torch, ll, lnp, T, seed, dtype=None):
             "max_err": max(max_err(o, r) for o, r in zip(out, ref)),
             "rel_err": rel, "tol": tols,
             "ok": finite and all(rel[n] <= tols[n] for n in names),
-            **timed(torch, kernel, plain), "bound_ms": bms,
+            **timed(torch, kernel, plain, large=large), "bound_ms": bms,
             "bound_by": by}
 
 
-def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype):
+def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype, D=D):
     """``ln_matmul`` at T rows, d = dout = D, against its plain version.
     bf16 rows: the completed row within one bf16 ulp at the largest
     magnitude (a normalised value may round the other way after a
@@ -800,6 +883,529 @@ def sort_phase(torch, pt, zero_counts, read_counts):
             "fwd_ms": fwd_ms, "fwd_graph_ms": fwd_graph_ms}
 
 
+def sorted_receivers(torch, E, N, kind, gen, device):
+    """Ascending receiver ids for a kernel check.  ``uniform``: E draws from
+    [0, N).  ``power``: a sampled subgraph's shape: two fifths of the slots
+    hold real edges with power-law receivers (p ~ 1 / (rank + 10)) over the
+    first N - 1 nodes, one of them a hub with a tenth of the slots (it spans
+    many 64-row tiles), many nodes have no edge, and the remaining slots are
+    pad edges on the last node."""
+    if kind == "uniform":
+        r = torch.randint(0, N, (E,), generator=gen)
+    else:
+        real = E * 2 // 5
+        p = 1.0 / (torch.arange(N - 1, dtype=torch.float32) + 10.0)
+        r = torch.multinomial(p, real, replacement=True, generator=gen)
+        r[: E // 10] = 7
+        r = torch.cat([r, torch.full((E - real,), N - 1)])
+    return torch.sort(r).values.to(torch.int32).to(device)
+
+
+def check_g1(torch, g1, E, N, d, dtype, part_dtype, kind, seed, large=False):
+    """The single-graph edge update, with and without the edge->node sum,
+    against its plain version.  bf16 rows: h within one bf16 ulp at the
+    largest magnitude; f32 rows: within 1e-5 of it (f32 sums in another
+    order); agg: within 1e-5 x the mean in-degree of the f32 sum of the
+    kernel's own rounded h.  No single PyTorch call computes LN, product,
+    gather and adds, so ``library_ms`` is null."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
+    ef = rnd(E, d)
+    ef[:3] = 0.0  # var == 0 rows
+    ef = ef.to(dtype)
+    ln = {"scale": 1 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    w0 = (rnd(d, d) * d ** -0.5).to(dtype)
+    src, tr, gb = rnd(E, d).to(part_dtype), rnd(N, d).to(part_dtype), rnd(d)
+    rl = sorted_receivers(torch, E, N, kind, gen, "cuda")
+    args = (ef, ln, w0, src, tr, rl, gb)
+    pargs = (ef, ln["scale"], ln["bias"], w0, src, tr, rl, gb)
+    es, ps = ef.element_size(), src.element_size()
+    name = lambda t: str(t).replace("torch.", "")
+    shape = (f"E={E} N={N} d={d} {name(dtype)} partials {name(part_dtype)} "
+             f"{kind} receivers")
+    cases = []
+    with torch.no_grad():
+        before = (g1.LAUNCHES, g1.LAUNCHES_NO_AGG)
+        h, agg = g1.fused_g1_edge_update_agg(*args)
+        h2 = g1.fused_g1_edge_update(*args)
+        h_ref = g1.g1_edge_update_plain(*pargs)
+        torch.cuda.synchronize()
+        if (g1.LAUNCHES, g1.LAUNCHES_NO_AGG) != (before[0] + 1,
+                                                  before[1] + 1):
+            raise SystemExit(f"fused_g1_edge_update did not launch: {shape}")
+        own = torch.zeros_like(agg).index_add_(0, rl.long(), h.float())
+        err_agg = max_err(agg, own)
+        tol_agg = 1e-5 * float(own.abs().max()) * max(1, E // N)
+        tol = (2.0 ** -7 if es == 2 else 1e-5) * float(h_ref.float().abs().max())
+        # Each input read once: of tr only the rows that some edge names.
+        tr_rows = int(torch.unique(rl[(rl >= 0) & (rl < N)]).numel())
+        nbytes = (2 * E * d * es + d * d * es + E * d * ps
+                  + tr_rows * d * ps + E * 4 + d * 4 + 2 * d * 4)
+        flops = 2 * E * d * d
+        for with_agg, out in ((True, h), (False, h2)):
+            kernel = (lambda: g1.fused_g1_edge_update_agg(*args)) if with_agg \
+                else (lambda: g1.fused_g1_edge_update(*args))
+            plain = (lambda: g1.g1_edge_update_agg_plain(*pargs)) if with_agg \
+                else (lambda: g1.g1_edge_update_plain(*pargs))
+            bms, by = bound_ms(nbytes + (N * d * 4 if with_agg else 0),
+                               flops if es == 2 else 0,
+                               flops_f32=0 if es == 2 else flops)
+            err = max_err(out, h_ref)
+            ok = err <= tol and bool(torch.isfinite(out.float()).all())
+            case = {"shape": shape + (" +agg" if with_agg else ""),
+                    "max_err": err, "tol": tol, "tr_rows_read": tr_rows}
+            if with_agg:
+                ok = ok and err_agg <= tol_agg
+                case.update(agg_max_err=err_agg, agg_tol=tol_agg)
+            cases.append({**case, "ok": ok,
+                          **timed(torch, kernel, plain, large=large),
+                          "bound_ms": bms, "bound_by": by})
+    return cases
+
+
+def check_ffn_backward(torch, ffn, T, d, seed, large=False):
+    """The fused LN->FFN->residual backward at T bf16 rows of width d
+    against its plain version: dx within 2^-6 of its largest magnitude; the
+    six parameter gradients within 1e-2 of theirs (f32 sums of products of
+    bf16 values in another order, and a relu mask that may flip where the
+    f32 pre-activation is within rounding of 0).  No single PyTorch call
+    computes it, so ``library_ms`` is null."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
+    bf = torch.bfloat16
+    x = rnd(T, d)
+    x[:3] = 0.0  # var == 0 rows
+    args = (x.to(bf), 1 + 0.1 * rnd(d), 0.1 * rnd(d),
+            (rnd(d, 4 * d) * d ** -0.5).to(bf), (0.1 * rnd(4 * d)).to(bf),
+            (rnd(4 * d, d) * (4 * d) ** -0.5).to(bf), rnd(T, d).to(bf))
+    kernel = lambda: ffn.ln_ffn_backward(*args)
+    plain = lambda: ffn.ln_ffn_backward_plain(*args)
+    with torch.no_grad():
+        before = ffn.BWD_LAUNCHES
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if ffn.BWD_LAUNCHES != before + 1:
+            raise SystemExit("ln_ffn_backward did not launch its kernel")
+        names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+        rel = {n: max_err(o, r) / max(float(r.float().abs().max()), 1e-30)
+               for n, o, r in zip(names, out, ref)}
+        tols = dict(zip(names, (2.0 ** -6,) + (1e-2,) * 6))
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in out)
+        err = max(max_err(o, r) for o, r in zip(out, ref))
+        del out, ref
+        times = timed(torch, kernel, plain, large=large)
+    # x, g in, dx out; both weights in (bf16), their gradients out (f32).
+    nbytes = 3 * T * d * 2 + 2 * d * 4 * d * (2 + 4) + 8 * d * 4
+    # The five products the function needs: hp, dh, dW2, dW1, dxn.
+    bms, by = bound_ms(nbytes, 10 * T * d * 4 * d)
+    return {"shape": f"T={T} d={d} bf16", "max_err": err, "rel_err": rel,
+            "tol": tols,
+            "ok": finite and all(rel[n] <= tols[n] for n in names),
+            **times, "bound_ms": bms, "bound_by": by}
+
+
+def check_random_gather(torch, rg, N, d, E, seed):
+    """``random_gather`` of E random rows of an [N, d] bf16 table: bit-equal
+    to its plain version.  ``library_ms``: ``index_select``.  The bound
+    counts each table row once; the ids are uniform, so nearly every row is
+    read."""
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn(N, d, generator=gen).to(torch.bfloat16).cuda()
+    idx = torch.randint(0, N, (E,), generator=gen).to(torch.int32).cuda()
+    idx_long = idx.long()
+    kernel = lambda: rg.random_gather(table, idx)
+    plain = lambda: rg.random_gather_plain(table, idx)
+    with torch.no_grad():
+        before = rg.LAUNCHES
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if rg.LAUNCHES != before + 1:
+            raise SystemExit("random_gather did not launch its kernel")
+        ok = bool(torch.equal(out, ref))
+        err = max_err(out, ref)
+        del out, ref
+        times = timed(torch, kernel, plain,
+                      lambda: table.index_select(0, idx_long), large=True)
+    rows_read = int(torch.unique(idx).numel())
+    nbytes = rows_read * d * 2 + E * 4 + E * d * 2
+    bms, by = bound_ms(nbytes, 0)
+    return {"shape": f"table [{N}, {d}] bf16 -> {E} random rows",
+            "max_err": err, "tol": 0.0, "ok": ok, **times, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes}
+
+
+def large_graph(torch, pt):
+    """``benchmarks/bench_large_graph.py``'s batch from seed 0: one graph,
+    N = 65,536 nodes, E = 1,048,576 edges with sorted random receivers and
+    random senders, bf16 features of width 256 on all three sets."""
+    rng = np.random.default_rng(0)
+    N, E, d = LG_N, LG_E, LG_D
+    senders = rng.integers(0, N, size=E).astype(np.int32)
+    receivers = np.sort(rng.integers(0, N, size=E)).astype(np.int32)
+    dev = "cuda"
+    t = lambda a: torch.from_numpy(a).to(dev)
+    feat = lambda *s: t(rng.normal(size=s).astype(np.float32)).to(
+        torch.bfloat16)
+    return pt.GraphsTuple(
+        senders=t(senders), receivers=t(receivers),
+        node_graph=torch.zeros(N, dtype=torch.int32, device=dev),
+        edge_graph=torch.zeros(E, dtype=torch.int32, device=dev),
+        n_node=torch.tensor([N], dtype=torch.int32, device=dev),
+        n_edge=torch.tensor([E], dtype=torch.int32, device=dev),
+        node_mask=torch.ones(N, dtype=torch.bool, device=dev),
+        edge_mask=torch.ones(E, dtype=torch.bool, device=dev),
+        graph_mask=torch.ones(1, dtype=torch.bool, device=dev),
+        ef=feat(E, d), nf=feat(N, d), gf=feat(1, d))
+
+
+def want_counts(launches, expect, what):
+    want = {k: 0 for k in launches}
+    want.update(expect)
+    if launches != want:
+        raise SystemExit(f"{what} did not take the kernels as expected "
+                         f"({want}): {launches}")
+
+
+def large_forward_phase(torch, pt, g, zero_counts, read_counts):
+    """Phase C, forward: 3 GNCores at (256, 256, 256) with seeded bf16
+    params on the large graph; counters set to 0 just before and read just
+    after; the output against the pure route on the card within 5e-2 of
+    each feature set's largest magnitude; eager and CUDA-graph times."""
+    d = LG_D
+    gen = torch.Generator().manual_seed(0)
+    model = pt.GNCoreList([pt.GNCore((d, d, d), generator=gen)
+                           for _ in range(LG_CORES)]).to(torch.bfloat16)
+    pt.enable_kernels(True)
+    with torch.no_grad():
+        zero_counts()
+        y = model(g)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        log(f"large-graph forward launches: {launches}")
+        want_counts(launches, dict(edge_g1_agg=LG_CORES, ffn=2 * LG_CORES),
+                    "large-graph forward")
+        fwd_ms = cuda_ms(torch, lambda: model(g), iters=LARGE_ITERS, warmup=1)
+        fwd_graph_ms = graph_ms(torch, lambda: model(g), iters=3)
+        prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: model(g))
+        pt.enable_kernels(False)
+        y_pure = model(g)
+        pure_ms = cuda_ms(torch, lambda: model(g), iters=3, warmup=1)
+        pt.enable_kernels(True)
+        path_err = {}
+        for key in ("ef", "nf", "gf"):
+            a, r = getattr(y, key).float(), getattr(y_pure, key).float()
+            if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                raise SystemExit(f"large-graph forward {key}: bad shape or "
+                                 f"non-finite")
+            path_err[key] = float((a - r).abs().max() / r.abs().max())
+    log(f"large-graph forward vs pure route (max err / max |ref|): "
+        f"{path_err}, tolerance 5e-2")
+    if max(path_err.values()) > 5e-2:
+        raise SystemExit("large-graph forward disagrees with the pure route")
+    return {"launches": launches, "fwd_ms": fwd_ms,
+            "fwd_graph_ms": fwd_graph_ms, "pure_ms": pure_ms,
+            "prof_rows": prof_rows, "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "path_err": path_err}
+
+
+def remat_grads(torch, pt, model, x, y, compute_dtype=None):
+    """Loss and parameter gradients of ``graph_loss_nf_ef(model(x), y)``
+    for a GNCoreList ``model`` with every core under activation
+    checkpointing: the same function and gradients as the plain backward,
+    with one core's activations alive at a time.  The pure-route twins of
+    the large-graph step run so, since their saved [E, 4d] activations
+    would not fit beside each other in f32.  The parameters are cast to
+    ``compute_dtype`` for the forward, as ``make_train_step`` casts them."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    g = x
+    for name, core in model.named_children():
+        names = [n for n in params if n.startswith(name + ".")]
+        cast = [params[n] if compute_dtype is None
+                else params[n].to(compute_dtype) for n in names]
+
+        def run(ef, nf, gf, *ps, core=core, names=names, g=g, cut=len(name) + 1):
+            out = functional_call(
+                core, {n[cut:]: p for n, p in zip(names, ps)},
+                (g.with_features(ef=ef, nf=nf, gf=gf),), {"training": True})
+            return out.ef, out.nf, out.gf
+
+        ef, nf, gf = checkpoint(run, g.ef, g.nf, g.gf, *cast,
+                                use_reentrant=False)
+        g = g.with_features(ef=ef, nf=nf, gf=gf)
+    loss = pt.graph_loss_nf_ef(g, y)
+    loss.backward()
+    return float(loss.detach()), {n: (torch.zeros_like(p) if p.grad is None
+                             else p.grad) for n, p in params.items()}
+
+
+def large_train_phase(torch, pt, g, zero_counts, read_counts):
+    """Phase C, training: ``benchmarks/bench_large_graph.py --mode train``
+    (f32 masters, bf16 compute, random bf16 node and edge targets,
+    ``graph_loss_nf_ef``, AdamW(3e-4)) through ``make_train_step``.  Loss
+    and gradients against the pure route's f32 twin; 3 finite losses; then one step with ``g1_agg_fusion_training`` off (the
+    benchmark's ``--g1-agg 0``), which takes the kernel without the sum."""
+    import copy
+    from graphnets_tpu_torch.utils.config import get_config
+    d, E, N = LG_D, LG_E, LG_N
+    rng = np.random.default_rng(1)
+    target = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(device=g.device, dtype=torch.bfloat16)
+    y = g.with_features(ef=target(E, d), nf=target(N, d), gf=None)
+    gen = torch.Generator().manual_seed(0)
+    model = pt.GNCoreList([pt.GNCore((d, d, d), generator=gen)
+                           for _ in range(LG_CORES)])
+    twin = copy.deepcopy(model)
+    step = pt.make_train_step(model, pt.adamw(model.parameters(), 3e-4),
+                              compute_dtype=torch.bfloat16)
+    pt.enable_kernels(True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    m = step(g, y)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"large-graph train step launches: {launches}")
+    want_counts(launches, dict(edge_g1_agg=LG_CORES, ffn=2 * LG_CORES,
+                               ffn_backward=2 * LG_CORES,
+                               ln_backward=LG_CORES,
+                               segment_sum=2 * LG_CORES, gather=LG_CORES),
+                "large-graph train step")
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    pt.enable_kernels(False)
+    pure_loss, pure = remat_grads(torch, pt, twin, g, y, torch.bfloat16)
+    pure = {n: t.clone() for n, t in pure.items()}
+    f32 = lambda t: t.float()
+    f32_loss, grads32 = remat_grads(
+        torch, pt, twin,
+        g.with_features(ef=f32(g.ef), nf=f32(g.nf), gf=f32(g.gf)),
+        y.with_features(ef=f32(y.ef), nf=f32(y.nf)))
+    torch.cuda.synchronize()
+    pt.enable_kernels(True)
+    loss = float(m["loss"])
+    # Phase 4b holds the kernel route to the pure bf16 route, by the largest
+    # element of the difference, within the larger of 5e-2 of the tensor's
+    # largest magnitude and the pure route's own bf16-vs-f32 distance.  Here
+    # that rule fails (its worst share is logged below): the largest of up
+    # to 262,144 differences, each a sum over 1,048,576 rows rounded in
+    # other places on the two routes, is a tail value, up to 1.9 times as
+    # far from f32 on one route as on the other where the tensors as wholes
+    # are equally far.  So the f32 twin is the reference and the distance is
+    # the 2-norm over the tensor: the kernel route may be no further from
+    # the twin than 5e-2 of the twin's norm or G1_F32_SLACK times the pure
+    # bf16 route's distance from it.  The loss likewise (its targets are
+    # random normals, so it is a sum with heavy cancellation: about -2.4
+    # from terms of order 100).
+    share = lambda e, b: e / b if b > 0 else float(e > 0)
+    rows = []
+    for n, p in pure.items():
+        ref, k = grads32[n], grads[n]
+        dist, pure_dist = float((k - ref).norm()), float((p - ref).norm())
+        bound = max(5e-2 * float(ref.norm()), G1_F32_SLACK * pure_dist)
+        top, pure_top = (float((t - ref).abs().max()) for t in (k, p))
+        bound_4b = max(5e-2 * float(p.abs().max()), pure_top)
+        rows.append((share(dist, bound), n, dist, pure_dist,
+                     share(top, pure_top),
+                     share(float((k - p).abs().max()), bound_4b)))
+    rows.sort(reverse=True)
+    worst = rows[0][:2]
+    worst_top = max((r[4], r[1]) for r in rows)
+    worst_4b = max((r[5], r[1]) for r in rows)
+    log(f"large-graph train step: loss {loss:.6f}, pure route "
+        f"{pure_loss:.6f} in bf16 and {f32_loss:.6f} in f32; gradients "
+        f"furthest from the f32 twin (share of bound, tensor, |kernel - "
+        f"f32|_2, |pure bf16 - f32|_2): "
+        f"{[(round(r[0], 4), r[1], r[2], r[3]) for r in rows[:6]]}; by the "
+        f"largest element the kernel route is at most {worst_top[0]:.4f} "
+        f"times as far from f32 as the pure bf16 route ({worst_top[1]}); "
+        f"under phase 4b's rule against the pure bf16 route the worst share "
+        f"would be {worst_4b[0]:.4f} ({worst_4b[1]}) and the loss "
+        f"{abs(loss - pure_loss) / abs(pure_loss):.4f} relative")
+    loss_bound = max(1e-2 * abs(f32_loss),
+                     G1_F32_SLACK * abs(pure_loss - f32_loss))
+    if (abs(loss - f32_loss) > loss_bound or worst[0] > 1.0
+            or not all(bool(torch.isfinite(t).all()) for t in grads.values())):
+        raise SystemExit(f"large-graph train step disagrees with the f32 "
+                         f"twin: loss {loss} vs {f32_loss} (pure bf16 "
+                         f"{pure_loss}), worst gradient {worst}")
+    del grads, grads32, pure
+    losses = [loss] + [float(step(g, y)["loss"]) for _ in range(2)]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"non-finite large-graph train loss: {losses}")
+    step_ms = cuda_ms(torch, lambda: step(g, y), iters=3, warmup=0)
+    prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: step(g, y))
+    pt.enable_kernels(False)
+    pure_step_ms = cuda_ms(
+        torch, lambda: remat_grads(torch, pt, twin, g, y, torch.bfloat16),
+        iters=2, warmup=0)
+    pt.enable_kernels(True)
+    # The same step with the fused edge->node sum off under training.
+    cfg = get_config()
+    cfg.g1_agg_fusion_training = False
+    try:
+        zero_counts()
+        m_off = step(g, y)
+        torch.cuda.synchronize()
+        off_launches = read_counts()
+        log(f"large-graph train step launches, fused sum off: {off_launches}")
+        want_counts(off_launches,
+                    dict(edge_g1=LG_CORES, ffn=2 * LG_CORES,
+                         ffn_backward=2 * LG_CORES, ln_backward=LG_CORES,
+                         segment_sum=3 * LG_CORES, gather=LG_CORES),
+                    "large-graph train step with the fused sum off")
+        if not np.isfinite(float(m_off["loss"])):
+            raise SystemExit("non-finite loss with the fused sum off")
+        off_step_ms = cuda_ms(torch, lambda: step(g, y), iters=3, warmup=0)
+    finally:
+        cfg.g1_agg_fusion_training = True
+    return {"launches": launches, "off_launches": off_launches, "loss": loss,
+            "pure_loss": pure_loss, "f32_loss": f32_loss, "worst_grad": worst,
+            "worst_grad_4b": worst_4b, "worst_grad_top": worst_top,
+            "losses": losses,
+            "step_ms": step_ms, "pure_step_ms": pure_step_ms,
+            "off_step_ms": off_step_ms, "prof_rows": prof_rows,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "peak_gb": peak_gb}
+
+
+def arxiv_shaped_graph(pt, seed=0):
+    """``benchmarks/bench_arxiv.py``'s synthetic graph: 169,343 nodes,
+    1,166,243 directed edges with power-law in-degree over shuffled ranks,
+    128-d features correlated with 40 classes."""
+    rng = np.random.default_rng(seed)
+    N, E = AX_N, AX_E
+    ranks = rng.permutation(N).astype(np.int32)
+    p = 1.0 / (np.arange(N) + 10.0)
+    cdf = np.cumsum(p / p.sum())
+    receivers = ranks[np.searchsorted(
+        cdf, rng.random(E), side="right").clip(0, N - 1)]
+    senders = rng.integers(0, N, size=E, dtype=np.int32)
+    labels = rng.integers(0, AX_CLASSES, size=N)
+    feat = rng.normal(size=(N, AX_FEAT)).astype(np.float32)
+    feat[:, :AX_CLASSES] += 2.0 * np.eye(AX_CLASSES, dtype=np.float32)[labels]
+    return pt.LargeGraph.from_coo(senders, receivers, feat,
+                                  labels.astype(np.int64))
+
+
+def sampled_phase(torch, pt, zero_counts, read_counts):
+    """Phase D: sampled training on the arxiv-shaped graph
+    (``benchmarks/bench_arxiv.py``): ``NeighborSampler((10, 10), batch 512,
+    emit_node_ids)`` -> ``EncodeProcessDecode((0, 128, 0) -> (256,) * 3 ->
+    (1, 40, 0))`` with 2 cores, bf16 compute with f32 masters, Adam(1e-3),
+    through ``make_node_classification_step``: 1 + 10 steps.  The first
+    step's loss against the pure route (the same init and batch) within
+    2e-2 relative and its gradients under phase 4b's rule; every loss
+    finite, with the pure route's losses on the same batches beside them; the single-graph kernel launched
+    twice a step."""
+    import copy
+    t0 = time.perf_counter()
+    graph = arxiv_shaped_graph(pt)
+    build_s = time.perf_counter() - t0
+    sampler = pt.NeighborSampler(graph, fanouts=AX_FANOUTS,
+                                 batch_size=AX_BATCH, seed=1,
+                                 emit_node_ids=True)
+    feat = pt.device_feature_table(graph, torch.bfloat16)
+    model = pt.EncodeProcessDecode(
+        (0, AX_FEAT, 0), (AX_HIDDEN,) * 3, (1, AX_CLASSES, 0),
+        n_cores=AX_CORES, generator=torch.Generator().manual_seed(0))
+    twin, twin32 = copy.deepcopy(model), copy.deepcopy(model)
+    adam = lambda m: torch.optim.Adam(m.parameters(), lr=1e-3, eps=1e-8)
+    step = pt.make_node_classification_step(
+        model, adam(model), AX_CLASSES, compute_dtype=torch.bfloat16)
+    pure_step = pt.make_node_classification_step(
+        twin, adam(twin), AX_CLASSES, compute_dtype=torch.bfloat16)
+    f32_step = pt.make_node_classification_step(twin32, adam(twin32),
+                                                AX_CLASSES)
+    it = sampler.epoch(np.arange(graph.num_nodes))
+    batches, sample_s = [], []
+    for _ in range(1 + AX_STEPS):
+        t0 = time.perf_counter()
+        batches.append(next(it))
+        sample_s.append(time.perf_counter() - t0)
+    b0 = batches[0]
+    shape = (b0.graph.num_node_slots, b0.graph.num_edge_slots,
+             int(b0.graph.n_node[0]), int(b0.graph.n_edge[0]))
+    log(f"sampled subgraph: {shape[0]} node slots ({shape[2]} real), "
+        f"{shape[1]} edge slots ({shape[3]} real); graph build "
+        f"{build_s:.4f} s")
+    if shape[:2] != (56960, 56320):
+        raise SystemExit(f"unexpected sampled capacities: {shape}")
+    run = lambda fn, b: fn(b.graph, b.node_ids, b.labels, b.label_mask,
+                           b.seed_local_idx, feat)
+    pt.enable_kernels(True)
+    zero_counts()
+    loss0 = float(run(step, b0))
+    first_launches = read_counts()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    pt.enable_kernels(False)
+    pure0 = float(run(pure_step, b0))
+    f32_0 = float(f32_step(b0.graph, b0.node_ids, b0.labels, b0.label_mask,
+                           b0.seed_local_idx, feat.float()))
+    pt.enable_kernels(True)
+    # The backward of this route (the single-graph kernel's with f32
+    # partials, the chunked sorted sum over the pad node's segment): the
+    # first step's gradients under phase 4b's rule.
+    grads32 = dict(twin32.named_parameters())
+    ratios = {}
+    for n, p in twin.named_parameters():
+        if p.numel() == 0:  # the encoder's parts for the width-0 sets
+            continue
+        bound = max(5e-2 * float(p.grad.abs().max()),
+                    float((p.grad - grads32[n].grad).abs().max()))
+        err = float((grads[n] - p.grad).abs().max())
+        ratios[n] = err / bound if bound > 0 else float(err > 0)
+    worst = max((r, n) for n, r in ratios.items())
+    log(f"sampled step 1 launches: {first_launches}; loss {loss0:.6f} vs "
+        f"pure route {pure0:.6f} (tolerance 2e-2 relative; f32 twin "
+        f"{f32_0:.6f}); worst gradient {worst[1]} at {worst[0]:.4f} of its "
+        f"bound (max of 5e-2 x its largest magnitude and the pure route's "
+        f"bf16-vs-f32 distance)")
+    if (not np.isfinite(loss0) or abs(loss0 - pure0) > 2e-2 * abs(pure0)
+            or worst[0] > 1.0
+            or not all(bool(torch.isfinite(t).all()) for t in grads.values())):
+        raise SystemExit("sampled step disagrees with the pure route")
+    del grads
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [run(step, b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / AX_STEPS * 1e3
+    launches = read_counts()
+    losses = [loss0] + [float(v) for v in losses]
+    # The pure route's trajectory on the same batches, for the record: the
+    # two routes' parameters part after Adam's first (sign-like) update, so
+    # the later losses are printed side by side and not held to each other.
+    pt.enable_kernels(False)
+    pure_losses = [pure0] + [float(run(pure_step, b)) for b in batches[1:]]
+    pt.enable_kernels(True)
+    log(f"sampled train launches over {AX_STEPS} steps: {launches}; losses "
+        f"{losses}; pure route on the same batches {pure_losses}")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"non-finite sampled train loss: {losses}")
+    if (first_launches["edge_g1_agg"] != AX_CORES
+            or launches["edge_g1_agg"] != AX_CORES * AX_STEPS
+            or any(launches[k] != first_launches[k] * AX_STEPS
+                   for k in launches)):
+        raise SystemExit("sampled training did not launch the single-graph "
+                         f"kernel twice a step: {launches}")
+    prof_rows, busy_ms, wall_ms = profile_forward(
+        torch, lambda: run(step, batches[-1]))
+    pt.enable_kernels(False)
+    pure_ms = cuda_ms(torch, lambda: run(pure_step, batches[-1]), iters=5,
+                      warmup=1)
+    pt.enable_kernels(True)
+    return {"launches": launches, "first_launches": first_launches,
+            "losses": losses, "pure_losses": pure_losses,
+            "worst_grad": worst, "step_ms": step_ms,
+            "sample_ms": float(np.mean(sample_s[1:]) * 1e3),
+            "pure_step_ms": pure_ms, "prof_rows": prof_rows,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "shape": shape,
+            "graph_build_s": build_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -810,9 +1416,11 @@ def main() -> int:
     from graphnets_tpu_torch.ops.kernels import _build
     from graphnets_tpu_torch.ops import ln_linear as lnp
     from graphnets_tpu_torch.ops.kernels import edge_update as eu
+    from graphnets_tpu_torch.ops.kernels import edge_update_g1 as g1
     from graphnets_tpu_torch.ops.kernels import fused_ffn as ffn
     from graphnets_tpu_torch.ops.kernels import gather as ga
     from graphnets_tpu_torch.ops.kernels import ln_linear as ll
+    from graphnets_tpu_torch.ops.kernels import random_gather as rg
     from graphnets_tpu_torch.ops.kernels import segment_sum as ss
 
     # Every wrapper's launch count, set to 0 before and read after a path.
@@ -822,7 +1430,11 @@ def main() -> int:
                 "windowed": (ss, "WINDOWED_LAUNCHES"),
                 "gather": (ga, "LAUNCHES"), "ln_backward": (ll, "LAUNCHES"),
                 "ln_matmul": (ll, "FWD_LAUNCHES"),
-                "gather_add": (ga, "ADD_LAUNCHES")}
+                "gather_add": (ga, "ADD_LAUNCHES"),
+                "edge_g1_agg": (g1, "LAUNCHES"),
+                "edge_g1": (g1, "LAUNCHES_NO_AGG"),
+                "ffn_backward": (ffn, "BWD_LAUNCHES"),
+                "random_gather": (rg, "LAUNCHES")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -898,6 +1510,7 @@ def main() -> int:
     gather_cases = [check_gather(torch, ga, g_exact, 31),
                     check_gather(torch, ga, g_bucket, 41)]
     ln_cases = [check_ln_backward(torch, ll, lnp, T_E, 32),
+                check_ln_backward(torch, ll, lnp, T_E, 32, two_step=True),
                 check_ln_backward(torch, ll, lnp, T_SORT, 34,
                                   torch.float32)]
     bf, f32 = torch.bfloat16, torch.float32
@@ -905,10 +1518,46 @@ def main() -> int:
                  check_ln_matmul(torch, ll, lnp, T_E, 36, bf, None),
                  check_ln_matmul(torch, ll, lnp, T_SORT, 37, f32, f32)]
     gather_add_case = check_gather_add(torch, ga, g_bucket, 38)
+    # The single-graph route's kernels: the large graph's shapes (bf16
+    # partials, since its 1,048,576 gathered rows pass the bf16 gate), the
+    # sampled subgraph's (f32 partials, power-law receivers, a hub, empty
+    # nodes and pad edges on the last node) and f32 rows.
+    g_large = large_graph(torch, pt)
+    g1_cases = (check_g1(torch, g1, LG_E, LG_N, LG_D, bf, bf, "uniform", 50,
+                         large=True)
+                + check_g1(torch, g1, 56320, 56960, LG_D, bf, f32, "power",
+                           51)
+                + check_g1(torch, g1, 65536, 4096, LG_D, f32, f32, "power",
+                           52))
+    g1_agg_cases, g1_h_cases = g1_cases[0::2], g1_cases[1::2]
+    ffn_bwd_cases = [check_ffn_backward(torch, ffn, LG_E, LG_D, 53,
+                                        large=True),
+                     check_ffn_backward(torch, ffn, LG_N, LG_D, 54),
+                     check_ffn_backward(torch, ffn, LG_N, 128, 55)]
+    rg_case = check_random_gather(torch, rg, LG_N, LG_D, LG_E, 56)
+    # The earlier kernels at the shapes this route gives them.
+    ffn_cases += [check_ffn(torch, ffn, LG_E, 57, D=LG_D, large=True),
+                  check_ffn(torch, ffn, LG_N, 58, D=LG_D)]
+    ln_cases.append(check_ln_backward(torch, ll, lnp, LG_E, 59, D=LG_D,
+                                      large=True))
+    seg_large = check_segment_sums(torch, ss, g_large, 60, which=("sorted",),
+                                   D=LG_D, large=True)
+    gather_cases.append(check_gather(torch, ga, g_large, 61, D=LG_D,
+                                     large=True))
+    # The repaired wide rows of ln_matmul and its backward: d = dout = 512
+    # and 1024 in bf16, 640 in f32.
+    lnm_cases += [check_ln_matmul(torch, ll, lnp, T_E, 62, bf, f32, D=512),
+                  check_ln_matmul(torch, ll, lnp, T_E, 63, bf, bf, D=1024),
+                  check_ln_matmul(torch, ll, lnp, T_E, 64, f32, f32, D=640)]
+    ln_cases += [check_ln_backward(torch, ll, lnp, T_E, 65, D=512),
+                 check_ln_backward(torch, ll, lnp, T_E, 66, D=1024),
+                 check_ln_backward(torch, ll, lnp, T_E, 67, f32, D=640)]
     checks = (edge_cases + ffn_cases + edge_h_cases
               + list(seg_cases.values()) + list(seg_bucket.values())
               + list(seg_bucket32.values()) + list(seg_sort32.values())
-              + gather_cases + ln_cases + lnm_cases + [gather_add_case])
+              + list(seg_large.values())
+              + gather_cases + ln_cases + lnm_cases + [gather_add_case]
+              + g1_cases + ffn_bwd_cases + [rg_case])
     for c in checks:
         log("check: " + json.dumps(c))
     failed = [c["shape"] for c in checks if not c["ok"]]
@@ -962,11 +1611,89 @@ def main() -> int:
         zero_counts, read_counts, "bucketed train step")
     log_train("bucketed train step", btrain, n_edges, where)
 
+    # C. The single large graph: forward and train step.
+    lfwd = large_forward_phase(torch, pt, g_large, zero_counts, read_counts)
+    log(f"large-graph forward (N={LG_N} E={LG_E} D={LG_D}, {LG_CORES} "
+        f"cores, bf16): {lfwd['fwd_ms']:.4f} ms eager "
+        f"({LG_E / lfwd['fwd_ms'] * 1e3:.4e} edges/s), "
+        f"{lfwd['fwd_graph_ms']:.4f} ms as a CUDA graph, kernel route; pure "
+        f"route {lfwd['pure_ms']:.4f} ms eager; profile of one forward: "
+        f"{sum(r[1] for r in lfwd['prof_rows'])} kernels, "
+        f"{lfwd['busy_ms']:.4f} ms of {lfwd['wall_ms']:.4f} ms wall; {where}")
+    for dev_ms, count, name in lfwd["prof_rows"][:10]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    ltrain = large_train_phase(torch, pt, g_large, zero_counts, read_counts)
+    log(f"large-graph train step vs its f32 twin: loss {ltrain['loss']:.6f} "
+        f"vs {ltrain['f32_loss']:.6f} (pure bf16 route "
+        f"{ltrain['pure_loss']:.6f}; tolerance: the larger of 1e-2 relative "
+        f"and {G1_F32_SLACK} x the pure bf16 route's distance from f32); "
+        f"worst gradient {ltrain['worst_grad'][1]} at "
+        f"{ltrain['worst_grad'][0]:.4f} of its bound (2-norms: max of 5e-2 "
+        f"x the twin's and {G1_F32_SLACK} x that distance); by the largest "
+        f"element at most {ltrain['worst_grad_top'][0]:.4f} x the pure "
+        f"route's distance; under phase 4b's rule against the pure bf16 "
+        f"route: {ltrain['worst_grad_4b'][0]:.4f}; losses "
+        f"{ltrain['losses']}")
+    log(f"large-graph train step: {ltrain['step_ms']:.4f} ms eager "
+        f"({LG_E / ltrain['step_ms'] * 1e3:.4e} edges/s), kernel route; "
+        f"with the fused edge->node sum off under training "
+        f"{ltrain['off_step_ms']:.4f} ms; pure route forward and backward "
+        f"under per-core activation checkpointing, no optimizer, "
+        f"{ltrain['pure_step_ms']:.4f} ms; profile of one step: "
+        f"{sum(r[1] for r in ltrain['prof_rows'])} kernels, "
+        f"{ltrain['busy_ms']:.4f} ms of {ltrain['wall_ms']:.4f} ms wall, "
+        f"busy share {ltrain['busy_ms'] / ltrain['wall_ms']:.3f}; peak "
+        f"device memory of the first step {ltrain['peak_gb']:.4f} GiB; "
+        f"{where}")
+    for dev_ms, count, name in ltrain["prof_rows"][:15]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    del g_large
+
+    # D. Sampled training on the arxiv-shaped graph.
+    samp = sampled_phase(torch, pt, zero_counts, read_counts)
+    log(f"sampled training: {samp['step_ms']:.4f} ms a step on the device "
+        f"path alone (batches sampled beforehand), "
+        f"{samp['step_ms'] + samp['sample_ms']:.4f} ms with the host "
+        f"sampler ({samp['sample_ms']:.4f} ms a batch, numpy, not "
+        f"overlapped): {AX_BATCH / (samp['step_ms'] + samp['sample_ms']) * 1e3:.4e} "
+        f"seeds/s; pure route {samp['pure_step_ms']:.4f} ms a step; losses "
+        f"{samp['losses']}; profile of one step: "
+        f"{sum(r[1] for r in samp['prof_rows'])} kernels, "
+        f"{samp['busy_ms']:.4f} ms of {samp['wall_ms']:.4f} ms wall; {where}")
+    for dev_ms, count, name in samp["prof_rows"][:12]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+
+    # R. random_gather through its entry point, against index_select.
+    from graphnets_tpu_torch.ops.kernels.random_gather import random_gather
+    gen = torch.Generator().manual_seed(70)
+    table = torch.randn(LG_N, LG_D, generator=gen).to(bf).cuda()
+    idx = torch.randint(0, LG_N, (LG_E,), generator=gen).to(
+        torch.int32).cuda()
+    zero_counts()
+    rows = random_gather(table, idx)
+    torch.cuda.synchronize()
+    rg_launches = read_counts()
+    want_counts(rg_launches, dict(random_gather=1), "random_gather")
+    if not torch.equal(rows, table.index_select(0, idx.long())):
+        raise SystemExit("random_gather disagrees with index_select")
+    del rows, table, idx
+    log(f"random_gather [{LG_N}, {LG_D}] bf16 -> {LG_E} rows: "
+        f"{rg_case['kernel_ms']:.4f} ms "
+        f"({rg_case['bytes'] / rg_case['kernel_ms'] / 1e6:.4f} GB/s), "
+        f"index_select {rg_case['library_ms']:.4f} ms "
+        f"({rg_case['bytes'] / rg_case['library_ms'] / 1e6:.4f} GB/s), "
+        f"bound {rg_case['bound_ms']:.4f} ms; {where}")
+
     # 5. Results.
     paths = {"forward": fwd["launches"], "train_step": train["launches"],
              "sort_train_step": sort["first_launches"],
              "bucketed_forward": bfwd["launches"],
-             "bucketed_train_step": btrain["launches"]}
+             "bucketed_train_step": btrain["launches"],
+             "large_forward": lfwd["launches"],
+             "large_train_step": ltrain["launches"],
+             "large_train_step_no_agg": ltrain["off_launches"],
+             "sampled_train_step": samp["first_launches"],
+             "random_gather": rg_launches}
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src, ref = "graphnets_tpu_torch/csrc/", "graphnets_tpu/ops/pallas/"
     kernels = [
@@ -981,7 +1708,7 @@ def main() -> int:
         kernel_entry("sorted_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("segment_sum"),
                      [seg_cases["sorted"], seg_bucket["sorted"],
-                      seg_bucket32["sorted"]]),
+                      seg_bucket32["sorted"], seg_large["sorted"]]),
         kernel_entry("windowed_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("windowed"),
                      [seg_cases["windowed"], seg_bucket["windowed"],
@@ -998,7 +1725,22 @@ def main() -> int:
         kernel_entry("sorted_gather_add", src + "gather.cu",
                      ref + "gather.py:226", by_path("gather_add"),
                      [gather_add_case]),
+        kernel_entry("fused_g1_edge_update_agg", src + "edge_update_g1.cu",
+                     ref + "edge_update_g1.py:338", by_path("edge_g1_agg"),
+                     g1_agg_cases),
+        kernel_entry("fused_g1_edge_update", src + "edge_update_g1.cu",
+                     ref + "edge_update_g1.py:338", by_path("edge_g1"),
+                     g1_h_cases),
+        kernel_entry("ln_ffn_backward", src + "fused_ffn_bwd.cu",
+                     ref + "fused_ffn.py:240", by_path("ffn_backward"),
+                     ffn_bwd_cases),
+        kernel_entry("random_gather", src + "random_gather.cu",
+                     ref + "random_gather.py:99", by_path("random_gather"),
+                     [rg_case]),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise SystemExit(f"kernels launched on no path: {idle}")
     slim = lambda d: {k: v for k, v in d.items()
                       if k not in ("prof_rows", "host_rows")}
     log(json.dumps({"kernels": kernels, "forward_ms": fwd["fwd_ms"],
@@ -1023,6 +1765,9 @@ def main() -> int:
                     "train_worst_grad_err": train["worst_grad"],
                     "sort": slim(sort), "bucketed_forward": slim(bfwd),
                     "bucketed_train_step": slim(btrain),
+                    "large_forward": slim(lfwd),
+                    "large_train_step": slim(ltrain),
+                    "sampled_train": slim(samp),
                     "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

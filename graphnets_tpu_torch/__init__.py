@@ -12,9 +12,14 @@ kernels' own backward kernels, AdamW), with f32 master parameters and bf16
 compute on the kernel routes; the non-uniform route (``PadSpec.bucketed``
 batches through ``ln_matmul`` and ``sorted_gather_add``); and the sort
 task: ``EncodeProcessDecode``, the host data generator, ``train_sort`` and
-``sort_accuracy``.
+``sort_accuracy``; and the single large graph (G = 1): the one-pass
+single-graph edge update with its edge->node sum, training through the
+fused LN->FFN->residual kernel's own backward, the host neighbour sampler
+(``LargeGraph``, ``NeighborSampler``) and the node-classification step.
 """
 
+from .data.large_graph import (LargeGraph, NeighborSampler, SampledBatch,
+                               csc_from_coo, device_feature_table)
 from .data.sort_task import (SortTaskConfig, gen_sample, get_batch,
                              sort_pad_spec)
 from .graph import GraphsTuple, PadSpec, adjacency_matrices, batch, unbatch
@@ -42,7 +47,8 @@ from .training.losses import (graph_accuracy, graph_loss_nf_ef,
                               masked_accuracy, masked_logit_crossentropy,
                               per_graph_correct)
 from .training.evaluate import sort_accuracy
-from .training.train import (SortTrainResult, adamw, make_train_step,
+from .training.train import (SortTrainResult, adamw,
+                             make_node_classification_step, make_train_step,
                              train_sort)
 from .utils.config import enable_kernels, use_kernels
 
@@ -60,5 +66,6 @@ __all__ = [
     "per_graph_correct", "graph_accuracy", "adamw", "make_train_step",
     "EncodeProcessDecode", "GNModel", "SortTaskConfig", "gen_sample",
     "get_batch", "sort_pad_spec", "train_sort", "SortTrainResult",
-    "sort_accuracy",
+    "sort_accuracy", "LargeGraph", "NeighborSampler", "SampledBatch",
+    "csc_from_coo", "device_feature_table", "make_node_classification_step",
 ]

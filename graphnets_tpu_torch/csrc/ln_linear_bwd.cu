@@ -37,13 +37,24 @@
 //
 // A wgmma/TMA pipeline and a fused reduction are later work.
 //
-// f32 rows (the sort task trains in f32) take the same three passes with
-// every product on the CUDA cores in plain f32 multiply-adds, never TF32:
-// the row pass keeps x, g and a 32-column slice of W^T in shared memory
-// and gives each thread a 4-row x (d / 32)-column tile of dxn; the dW pass
-// takes 64 x 64 tiles, 4 x 4 a thread.  At the sort task's shape (T = 512,
-// d = dout = 384) that is 0.4 GFLOP of f32 work (~6 us at 67 TFLOP/s)
-// against 3.7 MB, so operations bound it.
+// Pass 1 in two steps.  The row pass above keeps a block's x and g rows, a
+// W^T ring and the f32 dxn rows in shared memory and its accumulators in
+// registers sized by d, so it is built for d = 128 .. 512 in bf16.  Any
+// other width of the JAX package's gate (and a dout whose g rows outgrow
+// shared memory) takes pass 1 in two steps whose shared memory does not
+// depend on the widths: a tiled product dxn = g @ W^T into an f32 [T, d]
+// scratch in device memory, then a pullback pass (one warp a row) that
+// reads x and dxn, writes dx and the statistics and adds the block's column
+// sums.  Passes 2 and 3 are the same.  The scratch costs one extra write
+// and read of T * d * 4 bytes, which is why bf16 rows keep the one-step row
+// pass where it fits.
+//
+// f32 rows (the sort task trains in f32) take every product on the CUDA
+// cores in plain f32 multiply-adds, never TF32: pass 1 always in two steps
+// (32 x 128 tiles of dxn, 4 x 4 a thread; the scratch is no wider than the
+// rows themselves), the dW pass in 64 x 64 tiles, 4 x 4 a thread.  At the
+// sort task's shape (T = 512, d = dout = 384) that is 0.4 GFLOP of f32 work
+// (~6 us at 67 TFLOP/s) against 3.7 MB, so operations bound it.
 
 #include <mma.h>
 
@@ -394,158 +405,8 @@ int launch_rows(const void* x, const void* g, const void* w,
 
 // ---- f32 rows ------------------------------------------------------------
 
-constexpr int kWkF = 32;           // W^T rows (dout) per slice, f32 row pass
-constexpr int kLdwF = kWkF + 1;    // odd stride: lanes read distinct banks
 constexpr int kTileF = 64;         // dW tile (both dims), f32 dW pass
 constexpr int kLdtF = kTileF + 4;
-
-__host__ __device__ constexpr size_t rows_ring_bytes_f32(int d) {
-  return (size_t)d * kLdwF * 4 > (size_t)kRows * (d + 4) * 4
-             ? (size_t)d * kLdwF * 4
-             : (size_t)kRows * (d + 4) * 4;
-}
-__host__ __device__ constexpr size_t rows_smem_bytes_f32(int d, int dout) {
-  return (size_t)kRows * (d + 4) * 4 + (size_t)kRows * (dout + 4) * 4 +
-         rows_ring_bytes_f32(d) + (size_t)kRows * 3 * 4;
-}
-
-// The row pass for f32 rows: as ln_bwd_rows_kernel, with dxn = g @ W^T in
-// f32 on the CUDA cores.  Warp w takes rows 4w .. 4w + 3; lane l takes the
-// columns l, l + 32, ...
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_rows_f32_kernel(const float* __restrict__ x,
-                       const float* __restrict__ g,
-                       const float* __restrict__ w,
-                       const float* __restrict__ scale,
-                       float* __restrict__ dx, float* __restrict__ stats,
-                       float* __restrict__ part_ds,
-                       float* __restrict__ part_db, int T, int dout) {
-  constexpr int kLdx = D + 4;
-  constexpr int kLdd = D + 4;
-  constexpr int NC = D / 32;  // dxn columns a lane
-  const int ldg = dout + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Xs = reinterpret_cast<float*>(smem);
-  float* Gs = Xs + kRows * kLdx;
-  float* Wt = Gs + kRows * ldg;   // [D][kLdwF]: W[n][k0 + kk] at n, kk
-  float* Ds = Wt;                 // after the product
-  float* st = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(Wt) + rows_ring_bytes_f32(D));
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, T - row0);
-
-  for (int i = tid; i < kRows * (D / 4); i += kThreads) {
-    const int r = i / (D / 4), v = (i % (D / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) val = gn::load4(x + ((size_t)row0 + r) * D + v);
-    *reinterpret_cast<float4*>(Xs + r * kLdx + v) = val;
-  }
-  for (int i = tid; i < kRows * (dout / 4); i += kThreads) {
-    const int r = i / (dout / 4), v = (i % (dout / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) val = gn::load4(g + ((size_t)row0 + r) * dout + v);
-    *reinterpret_cast<float4*>(Gs + r * ldg + v) = val;
-  }
-  __syncthreads();
-
-  // Statistics, one warp a row.
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const float* xr = Xs + r * kLdx;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += xr[c];
-    const float mean = gn::warp_sum(s) / D;
-    float q = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = xr[c] - mean;
-      q += v * v;
-    }
-    const float var = gn::warp_sum(q) / D;
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-    if (lane == 0) {
-      st[r * 3] = mean;
-      st[r * 3 + 1] = sd + gn::kLnEps;
-      st[r * 3 + 2] = var > 0.f ? sd : 1.f;
-      if (r < rows) {
-        stats[(size_t)(row0 + r) * 2] = mean;
-        stats[(size_t)(row0 + r) * 2 + 1] = sd + gn::kLnEps;
-      }
-    }
-  }
-
-  // dxn[r][n] = sum over k of g[r][k] * W[n][k].
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < dout; k0 += kWkF) {
-    for (int i = tid; i < D * kWkF; i += kThreads) {
-      const int n = i / kWkF, kk = i % kWkF;
-      Wt[n * kLdwF + kk] = w[(size_t)n * dout + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kWkF; ++kk) {
-      float gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = Gs[(warp * 4 + i) * ldg + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float wv = Wt[(lane + 32 * j) * kLdwF + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(gv[i], wv, acc[i][j]);
-      }
-    }
-    // The next slice overwrites Wt (and Ds reuses it after the last).
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      Ds[(warp * 4 + i) * kLdd + lane + 32 * j] = acc[i][j];
-  __syncthreads();
-
-  // dx, one warp a row.
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const float mean = st[r * 3], s = st[r * 3 + 1], sigma = st[r * 3 + 2];
-    const float* xr = Xs + r * kLdx;
-    const float* dr = Ds + r * kLdd;
-    float sdz = 0.f, sdzz = 0.f, sz = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float z = (xr[c] - mean) / s;
-      const float dz = dr[c] * scale[c];
-      sdz += dz;
-      sdzz += dz * z;
-      sz += z;
-    }
-    const float mean_dz = gn::warp_sum(sdz) / D;
-    const float mean_dzz = gn::warp_sum(sdzz) / D;
-    const float mean_z = gn::warp_sum(sz) / D;
-    float* out = dx + (size_t)(row0 + r) * D;
-    for (int c = lane; c < D; c += 32) {
-      const float z = (xr[c] - mean) / s;
-      const float dz = dr[c] * scale[c];
-      out[c] = (dz - mean_dz) / s - (z - mean_z) * (mean_dzz / sigma);
-    }
-  }
-
-  // This block's column sums of dxn * z and dxn, rows in order.
-  for (int c = tid; c < D; c += kThreads) {
-    float sds = 0.f, sdb = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float z = (Xs[r * kLdx + c] - st[r * 3]) / st[r * 3 + 1];
-      const float d = Ds[r * kLdd + c];
-      sds += d * z;
-      sdb += d;
-    }
-    part_ds[(size_t)blockIdx.x * D + c] = sds;
-    part_db[(size_t)blockIdx.x * D + c] = sdb;
-  }
-}
 
 // Partial dW tile for f32 rows: xn[rows]^T @ g[rows] for one 64 x 64 tile
 // and one range of rows; thread (ty, tx) takes a 4 x 4 piece.
@@ -612,19 +473,228 @@ ln_bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
-template <int D>
-int launch_rows_f32(const void* x, const void* g, const void* w,
-                    const void* scale, void* dx, void* stats, void* part_ds,
-                    void* part_db, int T, int dout, cudaStream_t stream) {
-  const size_t smem = rows_smem_bytes_f32(D, dout);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_bwd_rows_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// ---- pass 1 in two steps ------------------------------------------------
+
+constexpr int kGr = 64;          // rows per block, bf16 product
+constexpr int kGc = 128;         // dxn columns per block
+constexpr int kGk = 64;          // k-chunk (over dout), bf16 product
+constexpr int kLdgk = kGk + 8;
+constexpr int kLdgc = kGc + 4;
+
+// dxn[T, d] (f32) = g[T, dout] @ w[d, dout]^T, bf16 in, f32 accumulate.
+__global__ void __launch_bounds__(kThreads)
+gemm_nt_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                    const __nv_bfloat16* __restrict__ w,
+                    float* __restrict__ dxn, int T, int d, int dout) {
+  // g chunk [64][kLdgk] and W chunk [n][k], then (after the product) the
+  // f32 tile over the same bytes.
+  __shared__ __align__(128) unsigned char buf[kGr * kLdgc * 4];
+  static_assert((kGr + kGc) * kLdgk * 2 <= kGr * kLdgc * 4, "chunks fit");
+  __nv_bfloat16* Gs = reinterpret_cast<__nv_bfloat16*>(buf);
+  __nv_bfloat16* Ws = Gs + kGr * kLdgk;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int row0 = blockIdx.x * kGr, n0 = blockIdx.y * kGc;
+  const int rows = min(kGr, T - row0);
+  const int rb = warp & 3, ch = warp >> 2;  // 16 rows x 64 columns a warp
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int k0 = 0; k0 < dout; k0 += kGk) {
+    for (int i = tid; i < kGr * (kGk / 8); i += kThreads) {
+      const int r = i / (kGk / 8), v = (i % (kGk / 8)) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows)
+        val = *reinterpret_cast<const uint4*>(
+            g + (size_t)(row0 + r) * dout + k0 + v);
+      *reinterpret_cast<uint4*>(Gs + r * kLdgk + v) = val;
+    }
+    for (int i = tid; i < kGc * (kGk / 8); i += kThreads) {
+      const int n = i / (kGk / 8), v = (i % (kGk / 8)) * 8;
+      *reinterpret_cast<uint4*>(Ws + n * kLdgk + v) =
+          *reinterpret_cast<const uint4*>(w + (size_t)(n0 + n) * dout + k0 + v);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGk; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, Gs + rb * 16 * kLdgk + kk, kLdgk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fb;
+        wmma::load_matrix_sync(fb, Ws + (ch * 64 + j * 16) * kLdgk + kk,
+                               kLdgk);
+        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      }
+    }
+    __syncthreads();
+  }
+  // Through shared memory, so that a ragged last tile writes its rows only.
+  float* Cs = reinterpret_cast<float*>(buf);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wmma::store_matrix_sync(Cs + rb * 16 * kLdgc + ch * 64 + j * 16, acc[j],
+                            kLdgc, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < rows * (kGc / 4); i += kThreads) {
+    const int r = i / (kGc / 4), c = (i % (kGc / 4)) * 4;
+    *reinterpret_cast<float4*>(dxn + (size_t)(row0 + r) * d + n0 + c) =
+        *reinterpret_cast<const float4*>(Cs + r * kLdgc + c);
+  }
+}
+
+// The same in f32 on the CUDA cores: 32 rows x 128 columns a block, chunks
+// of 32, a 4 x 4 piece a thread, multiply-adds in order of k.
+__global__ void __launch_bounds__(kThreads)
+gemm_nt_f32_kernel(const float* __restrict__ g, const float* __restrict__ w,
+                   float* __restrict__ dxn, int T, int d, int dout) {
+  constexpr int kR = 32, kK = 32, kLdg = kK + 1, kLdw = kGc + 4;
+  __shared__ float Gs[kR * kLdg];
+  __shared__ __align__(16) float Wt[kK * kLdw];  // [k][n]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * kR, n0 = blockIdx.y * kGc;
+  const int rows = min(kR, T - row0);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < dout; k0 += kK) {
+    for (int i = tid; i < kR * kK; i += kThreads) {
+      const int r = i / kK, kk = i % kK;
+      Gs[r * kLdg + kk] =
+          r < rows ? g[(size_t)(row0 + r) * dout + k0 + kk] : 0.f;
+    }
+    for (int i = tid; i < kGc * kK; i += kThreads) {
+      const int n = i / kK, kk = i % kK;
+      Wt[kk * kLdw + n] = w[(size_t)(n0 + n) * dout + k0 + kk];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kK; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(Wt + kk * kLdw + lane * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = Gs[(warp * 4 + i) * kLdg + kk];
+        acc[i][0] = fmaf(a, b.x, acc[i][0]);
+        acc[i][1] = fmaf(a, b.y, acc[i][1]);
+        acc[i][2] = fmaf(a, b.z, acc[i][2]);
+        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 4 + i;
+    if (r < rows)
+      gn::store4(dxn + (size_t)(row0 + r) * d + n0 + lane * 4,
+                 make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+}
+
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The LN pullback of kRows rows from dxn in device memory: statistics, dx,
+// and the block's column sums of dxn * z and dxn (rows in order).
+template <typename TX>
+__global__ void __launch_bounds__(kThreads)
+ln_pullback_kernel(const TX* __restrict__ x, const float* __restrict__ dxn,
+                   const float* __restrict__ scale, TX* __restrict__ dx,
+                   float* __restrict__ stats, float* __restrict__ part_ds,
+                   float* __restrict__ part_db, int T, int d) {
+  __shared__ float st[kRows * 2];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * kRows;
+  const int rows = min(kRows, T - row0);
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    const TX* xr = x + (size_t)(row0 + r) * d;
+    const float* dr = dxn + (size_t)(row0 + r) * d;
+    float s = 0.f;
+    for (int c = lane; c < d; c += 32) s += as_f32(xr[c]);
+    const float mean = gn::warp_sum(s) / d;
+    float q = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float v = as_f32(xr[c]) - mean;
+      q += v * v;
+    }
+    const float var = gn::warp_sum(q) / d;
+    const float sd = var > 0.f ? sqrtf(var) : 0.f;
+    const float sv = sd + gn::kLnEps, sigma = var > 0.f ? sd : 1.f;
+    if (lane == 0) {
+      st[r * 2] = mean;
+      st[r * 2 + 1] = sv;
+      stats[(size_t)(row0 + r) * 2] = mean;
+      stats[(size_t)(row0 + r) * 2 + 1] = sv;
+    }
+    float sdz = 0.f, sdzz = 0.f, sz = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float z = (as_f32(xr[c]) - mean) / sv;
+      const float dz = dr[c] * scale[c];
+      sdz += dz;
+      sdzz += dz * z;
+      sz += z;
+    }
+    const float mean_dz = gn::warp_sum(sdz) / d;
+    const float mean_dzz = gn::warp_sum(sdzz) / d;
+    const float mean_z = gn::warp_sum(sz) / d;
+    TX* out = dx + (size_t)(row0 + r) * d;
+    for (int c = lane; c < d; c += 32) {
+      const float z = (as_f32(xr[c]) - mean) / sv;
+      const float dz = dr[c] * scale[c];
+      put(out + c, (dz - mean_dz) / sv - (z - mean_z) * (mean_dzz / sigma));
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < d; c += kThreads) {
+    float sds = 0.f, sdb = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float z =
+          (as_f32(x[(size_t)(row0 + r) * d + c]) - st[r * 2]) / st[r * 2 + 1];
+      const float dv = dxn[(size_t)(row0 + r) * d + c];
+      sds += dv * z;
+      sdb += dv;
+    }
+    part_ds[(size_t)blockIdx.x * d + c] = sds;
+    part_db[(size_t)blockIdx.x * d + c] = sdb;
+  }
+}
+
+// Pass 1 in two steps: the product into `dxn`, then the pullback.
+int launch_rows_wide(const void* x, const void* g, const void* w,
+                     const void* scale, void* dx, void* stats, void* part_ds,
+                     void* part_db, void* dxn, int T, int d, int dout,
+                     bool is_f32, cudaStream_t stream) {
+  const int blocks = (T + kRows - 1) / kRows;
+  if (is_f32) {
+    const dim3 grid((T + 31) / 32, d / kGc);
+    gemm_nt_f32_kernel<<<grid, kThreads, 0, stream>>>(
+        (const float*)g, (const float*)w, (float*)dxn, T, d, dout);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ln_pullback_kernel<float><<<blocks, kThreads, 0, stream>>>(
+        (const float*)x, (const float*)dxn, (const float*)scale, (float*)dx,
+        (float*)stats, (float*)part_ds, (float*)part_db, T, d);
+    return cudaGetLastError();
+  }
+  const dim3 grid((T + kGr - 1) / kGr, d / kGc);
+  gemm_nt_bf16_kernel<<<grid, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)g, (const __nv_bfloat16*)w, (float*)dxn, T, d,
+      dout);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_rows_f32_kernel<D><<<(T + kRows - 1) / kRows, kThreads, smem,
-                              stream>>>(
-      (const float*)x, (const float*)g, (const float*)w, (const float*)scale,
-      (float*)dx, (float*)stats, (float*)part_ds, (float*)part_db, T, dout);
+  ln_pullback_kernel<__nv_bfloat16><<<blocks, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)x, (const float*)dxn, (const float*)scale,
+      (__nv_bfloat16*)dx, (float*)stats, (float*)part_ds, (float*)part_db, T,
+      d);
   return cudaGetLastError();
 }
 
@@ -640,19 +710,23 @@ int reduce(const void* part, int parts, int n, void* out,
 // Runs the three passes on `stream` and returns the first launch error.
 // Scratch, allocated by the Python wrapper: stats [T, 2], part_dw
 // [splits, d, dout], part_ds and part_db [ceil(T / 32), d], all f32, where
-// splits = ceil(T / rows_per_split).  Preconditions, checked there: bf16
-// x [T, d], g [T, dout], w [d, dout]; f32 scale, bias; contiguous; T >= 1;
-// d in {128, 256, 384, 512}; dout % 128 == 0; rows_per_split % 32 == 0.
+// splits = ceil(T / rows_per_split); with `wide` also dxn [T, d] f32 (else
+// null).  Preconditions, checked there: bf16 x [T, d], g [T, dout],
+// w [d, dout]; f32 scale, bias; contiguous; T >= 1; d % 128 == 0;
+// dout % 128 == 0; rows_per_split % 32 == 0; `wide` unless d is one of
+// 128, 256, 384, 512 and pass 1's block fits shared memory.
 extern "C" int gn_ln_linear_backward(const void* x, const void* g,
                                      const void* w, const void* scale,
                                      const void* bias, void* dx, void* dw,
                                      void* ds, void* db, void* stats,
                                      void* part_dw, void* part_ds,
-                                     void* part_db, int T, int d, int dout,
-                                     int rows_per_split, void* stream) {
+                                     void* part_db, void* dxn, int T, int d,
+                                     int dout, int rows_per_split, int wide,
+                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int err;
-  switch (d) {
+  if (wide) err = launch_rows_wide(x, g, w, scale, dx, stats, part_ds, part_db, dxn, T, d, dout, false, s);
+  else switch (d) {
     case 128: err = launch_rows<128>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
     case 256: err = launch_rows<256>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
     case 384: err = launch_rows<384>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
@@ -675,24 +749,20 @@ extern "C" int gn_ln_linear_backward(const void* x, const void* g,
 }
 
 // The same for f32 rows: x, g, w and dx are f32, the products run in f32 on
-// the CUDA cores.  Scratch and preconditions as above.
+// the CUDA cores, and pass 1 always takes its two steps (`wide` must be
+// set, dxn given).  Scratch and preconditions otherwise as above.
 extern "C" int gn_ln_linear_backward_f32(const void* x, const void* g,
                                          const void* w, const void* scale,
                                          const void* bias, void* dx, void* dw,
                                          void* ds, void* db, void* stats,
                                          void* part_dw, void* part_ds,
-                                         void* part_db, int T, int d,
-                                         int dout, int rows_per_split,
-                                         void* stream) {
+                                         void* part_db, void* dxn, int T,
+                                         int d, int dout, int rows_per_split,
+                                         int wide, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  switch (d) {
-    case 128: err = launch_rows_f32<128>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    case 256: err = launch_rows_f32<256>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    case 384: err = launch_rows_f32<384>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    case 512: err = launch_rows_f32<512>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    default: return cudaErrorInvalidValue;
-  }
+  if (!wide) return cudaErrorInvalidValue;
+  int err = launch_rows_wide(x, g, w, scale, dx, stats, part_ds, part_db, dxn,
+                             T, d, dout, true, s);
   if (err != cudaSuccess) return err;
   const int splits = (T + rows_per_split - 1) / rows_per_split;
   const dim3 grid(d / kTileF, dout / kTileF, splits);

@@ -17,7 +17,19 @@
 //
 // Sorted ids (receivers, ascending): one warp owns one segment, finds its
 // edge range by binary search and walks it in order, each lane holding up
-// to four 4-column f32 accumulators in registers.
+// to four 4-column f32 accumulators in registers.  A segment of more than
+// kLong rows (a hub node of a power-law graph; the pad node of a sampled
+// subgraph, which collects every pad edge) would leave one warp walking
+// tens of thousands of rows while the card idles, so its warp skips it and
+// blocks take it instead: the rows are cut into chunks of kLong, a block
+// per chunk (further blocks of the same launch) sums the part of a long
+// segment that lies in its chunk (a long segment always holds a chunk's
+// first or last row), and in a second small launch the block whose chunk
+// holds the segment's first row adds the parts in chunk order.  Still no
+// atomics, and the order of the sums depends only on the ids.  A chunk
+// block first reads two ids that a long segment would have to hold
+// (maybe_long) and ends there, before any search, if neither matches: with
+// no long segment the chunk blocks cost two loads each.
 //
 // Windowed ids (senders: unsorted within a graph but local to it, with
 // [G+1] node and edge offsets): a block owns a tile of kTile segments and
@@ -38,16 +50,101 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunks = 4;   // 128-column chunks a lane holds at once
+constexpr int kLong = 256;   // rows above which a segment leaves its warp
 
+// Whether the segment `n` that holds row r may have more than kLong rows:
+// such a segment holds row r - kLong / 2 or row r + kLong / 2 (if it starts
+// after the first it has kLong + 1 rows from there on, which reach past the
+// second).
+__device__ __forceinline__ bool maybe_long(const int* seg, int E, int r,
+                                           int n) {
+  constexpr int kHalf = kLong / 2;
+  return (r >= kHalf && seg[r - kHalf] == n) ||
+         (r + kHalf < E && seg[r + kHalf] == n);
+}
+
+// The rows [*r0, *r1) of chunk `b` that belong to the long segment holding
+// the chunk's first (which = 0) or last (which = 1) row, and that
+// segment's range [*e0, *e1); false if there is no such long segment (the
+// last row's is looked at only when it differs from the first row's).
+__device__ __forceinline__ bool long_part(const int* seg, int E, int S, int b,
+                                          int which, int* n, int* e0, int* e1,
+                                          int* r0, int* r1) {
+  const int begin = b * kLong, end = min(E, begin + kLong);
+  const int first = seg[begin], last = seg[end - 1];
+  if (which == 1 && last == first) return false;
+  *n = which == 0 ? first : last;
+  if (*n < 0 || *n >= S) return false;
+  if (!maybe_long(seg, E, which == 0 ? begin : end - 1, *n)) return false;
+  *e0 = gn::lower_bound(seg, E, *n);
+  *e1 = *e0 + gn::lower_bound(seg + *e0, E - *e0, *n + 1);
+  if (*e1 - *e0 <= kLong) return false;
+  *r0 = max(*e0, begin);
+  *r1 = min(*e1, end);
+  return true;
+}
+
+// part[(b * 2 + which) * D + c] = f32 sum of the long segment's rows in
+// chunk b.  The block's threads split into groups of D / 4 (4 columns a
+// thread); group j takes the rows r0 + j, r0 + j + groups, ..., and the
+// groups' sums are added in group order.
+template <typename T>
+__device__ void long_segment_parts(const T* __restrict__ x,
+                                   const int* __restrict__ seg,
+                                   float* __restrict__ part, int E, int S,
+                                   int D, int b) {
+  __shared__ float4 sums[kThreads];
+  const int tid = threadIdx.x;
+  const int per_row = D / 4;
+  const int groups = per_row >= kThreads ? 1 : kThreads / per_row;
+  const int group = tid / per_row, lane = tid % per_row;
+  for (int which = 0; which < 2; ++which) {
+    int n, e0, e1, r0, r1;
+    if (!long_part(seg, E, S, b, which, &n, &e0, &e1, &r0, &r1)) continue;
+    for (int c0 = 0; c0 < per_row; c0 += kThreads) {
+      const int c = (c0 + lane) * 4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (group < groups && c < D) {
+#pragma unroll 4
+        for (int r = r0 + group; r < r1; r += groups) {
+          const float4 v = gn::load4(x + (size_t)r * D + c);
+          acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+        }
+      }
+      if (groups > 1) {
+        sums[tid] = acc;
+        __syncthreads();
+        if (group == 0) {
+          for (int j = 1; j < groups; ++j) {
+            const float4 v = sums[j * per_row + lane];
+            acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+          }
+        }
+        __syncthreads();
+      }
+      if (group == 0 && c < D)
+        gn::store4(part + ((size_t)b * 2 + which) * D + c, acc);
+    }
+  }
+}
+
+// Blocks [0, seg_blocks) give a warp to each segment; the blocks after
+// them take a chunk of rows each for the long segments' parts.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sorted_segment_sum_kernel(const T* __restrict__ x, const int* __restrict__ seg,
-                          T* __restrict__ out, int E, int S, int D) {
+                          T* __restrict__ out, float* __restrict__ part,
+                          int E, int S, int D, int seg_blocks) {
+  if ((int)blockIdx.x >= seg_blocks) {
+    long_segment_parts(x, seg, part, E, S, D, (int)blockIdx.x - seg_blocks);
+    return;
+  }
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (n >= S) return;
   const int e0 = gn::lower_bound(seg, E, n);
   const int e1 = e0 + gn::lower_bound(seg + e0, E - e0, n + 1);
+  if (e1 - e0 > kLong) return;  // the long-segment kernels write this row
   for (int c0 = 0; c0 < D; c0 += 128 * kChunks) {
     float4 acc[kChunks];
 #pragma unroll
@@ -67,6 +164,32 @@ sorted_segment_sum_kernel(const T* __restrict__ x, const int* __restrict__ seg,
     for (int j = 0; j < kChunks; ++j) {
       const int c = c0 + j * 128 + lane * 4;
       if (c < D) gn::store4(out + (size_t)n * D + c, acc[j]);
+    }
+  }
+}
+
+// out[n] = the parts of long segment n, added in chunk order, rounded once;
+// by the block of the chunk that holds the segment's first row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+long_segment_combine_kernel(const int* __restrict__ seg,
+                            const float* __restrict__ part,
+                            T* __restrict__ out, int E, int S, int D) {
+  const int b = blockIdx.x;
+  for (int which = 0; which < 2; ++which) {
+    int n, e0, e1, r0, r1;
+    if (!long_part(seg, E, S, b, which, &n, &e0, &e1, &r0, &r1)) continue;
+    if (e0 / kLong != b) continue;  // an earlier chunk's block owns it
+    const int last_chunk = (e1 - 1) / kLong;
+    for (int c = threadIdx.x * 4; c < D; c += kThreads * 4) {
+      float4 acc = gn::load4(part + ((size_t)b * 2 + which) * D + c);
+      // Every later chunk holds the segment at its first row.
+#pragma unroll 4
+      for (int u = b + 1; u <= last_chunk; ++u) {
+        const float4 v = gn::load4(part + (size_t)u * 2 * D + c);
+        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+      }
+      gn::store4(out + (size_t)n * D + c, acc);
     }
   }
 }
@@ -155,12 +278,18 @@ windowed_segment_sum_kernel(const T* __restrict__ x,
 }
 
 template <typename T>
-int launch_sorted(const void* x, const void* seg, void* out, int E, int S,
-                  int D, cudaStream_t stream) {
+int launch_sorted(const void* x, const void* seg, void* out, void* part,
+                  int E, int S, int D, cudaStream_t stream) {
   const int per_block = kThreads / 32;
-  sorted_segment_sum_kernel<T><<<(S + per_block - 1) / per_block, kThreads, 0,
-                                 stream>>>(
-      (const T*)x, (const int*)seg, (T*)out, E, S, D);
+  const int seg_blocks = (S + per_block - 1) / per_block;
+  const int chunks = E > kLong ? (E + kLong - 1) / kLong : 0;
+  sorted_segment_sum_kernel<T><<<seg_blocks + chunks, kThreads, 0, stream>>>(
+      (const T*)x, (const int*)seg, (T*)out, (float*)part, E, S, D,
+      seg_blocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 0) return err;
+  long_segment_combine_kernel<T><<<chunks, kThreads, 0, stream>>>(
+      (const int*)seg, (const float*)part, (T*)out, E, S, D);
   return cudaGetLastError();
 }
 
@@ -184,15 +313,20 @@ int launch_windowed(const void* x, const void* seg, const void* node_off,
 // Both entry points launch on `stream` and return cudaGetLastError().
 // Preconditions, checked by the Python wrapper: x [E, D] contiguous, bf16
 // (is_bf16 = 1) or f32, D % 4 == 0; int32 ids; out [S or N, D] of x's type.
-// Sorted: ids ascending (rows with ids outside [0, S) are dropped).
+// Sorted: ids ascending (rows with ids outside [0, S) are dropped); part is
+// f32 scratch of 2 * ceil(E / long_rows) * D values (unused, and may be
+// null, when E <= long_rows).
 // Windowed: node_off / edge_off [G + 1] ascending, and every edge of
 // edge_off[b]:edge_off[b+1] has its id in node_off[b]:node_off[b+1].
+extern "C" int gn_sorted_segment_sum_long_rows() { return kLong; }
+
 extern "C" int gn_sorted_segment_sum(const void* x, const void* seg,
-                                     void* out, int E, int S, int D,
-                                     int is_bf16, void* stream) {
+                                     void* out, void* part, int E, int S,
+                                     int D, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_sorted<__nv_bfloat16>(x, seg, out, E, S, D, s)
-                 : launch_sorted<float>(x, seg, out, E, S, D, s);
+  return is_bf16
+             ? launch_sorted<__nv_bfloat16>(x, seg, out, part, E, S, D, s)
+             : launch_sorted<float>(x, seg, out, part, E, S, D, s);
 }
 
 extern "C" int gn_windowed_segment_sum(const void* x, const void* seg,

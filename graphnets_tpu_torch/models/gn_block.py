@@ -22,8 +22,12 @@ sort task's pad) takes the split-linear path (``gn_block.py:123-229,
 with kernels on the first sorted term deferred to ``sorted_gather_add``
 and the row completed inside ``ln_matmul`` with the f32 sum as its addend,
 so the LN of ``ef`` and the f32 partial sum never reach device memory.
-The G = 1 kernel of the JAX package is not ported yet: a single graph
-takes the same split-linear path.
+A single graph (G = 1, the large-graph and sampled-subgraph batches) whose
+shape the JAX package's gate admits takes the single-graph kernel
+(``ops/kernels/edge_update_g1``, ``gn_block.py:377-433``): the receiver
+gather, ``LN(ef) @ W0`` and the sender / graph / bias addends in one pass,
+with the edge->node sum in the same pass in inference and, by default,
+under training.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from ..graph import GraphsTuple
 from ..nn.core import Linear, layer_norm
 from ..ops import scatter
 from ..ops.ln_linear import matmul_f32
-from ..utils.config import (bf16_gather_partials, use_kernels,
-                            use_split_linear)
+from ..utils.config import (bf16_gather_partials, g1_agg_fusion_training,
+                            use_kernels, use_split_linear)
 
 __all__ = [
     "GNBlock",
@@ -271,12 +275,14 @@ class GNBlock(nn.Module):
     def _edge_update_split(self, g: GraphsTuple, ef, nf, gf, ef_ln, dtype,
                            training: bool):
         """Split-linear edge update: the fused kernel on a uniform layout
-        with kernels on, else gather-after-transform partial sums (with
-        kernels on completed by ``sorted_gather_add`` and ``ln_matmul``).
-        Returns ``(h_ef, agg)``; ``agg`` is the kernel's f32 edge->node sum
-        or ``None``.  Under training the kernel writes ``h`` alone: the
-        JAX package measured the fused sum's backward slower than a
-        separate aggregation there."""
+        with kernels on, the single-graph kernel for G = 1, else
+        gather-after-transform partial sums (with kernels on completed by
+        ``sorted_gather_add`` and ``ln_matmul``).  Returns ``(h_ef, agg)``;
+        ``agg`` is a kernel's f32 edge->node sum or ``None``.  Under
+        training the uniform kernel writes ``h`` alone (the JAX package
+        measured the fused sum's backward slower than a separate
+        aggregation there); the single-graph kernel keeps the sum unless
+        ``g1_agg_fusion_training`` is off."""
         from ..ops.kernels.edge_update import (fused_edge_update,
                                                fused_edge_update_agg,
                                                supports_fused_edge_update)
@@ -298,6 +304,37 @@ class GNBlock(nn.Module):
                                            g.senders, g.receivers,
                                            *g.slot_shape)
             return h.to(dtype), agg
+        if use_kernels() and G == 1 and de > 0 and dn > 0:
+            from ..ops.kernels.edge_update_g1 import (
+                fused_g1_edge_update, fused_g1_edge_update_agg,
+                supports_g1_edge_update)
+            de_o = self.out_dims[0]
+            bf16_parts = (ef.dtype == torch.bfloat16
+                          and bf16_gather_partials(E))
+            part_itemsize = 2 if bf16_parts else 4
+            itemsize = ef.element_size()
+            if supports_g1_edge_update(E, N, de, de_o, itemsize,
+                                       part_itemsize=part_itemsize):
+                pdt = ef.dtype if bf16_parts else torch.float32
+                ts = matmul_f32(nf, w[de:de + dn]).to(pdt)
+                tr = matmul_f32(nf, w[de + dn:de + 2 * dn]).to(pdt)
+                # The senders are in no order: the one random-access
+                # stream of the path; its backward sorts once.
+                src = scatter.take_rows_sorted_grad(ts, g.senders)
+                gb = torch.zeros(de_o, dtype=torch.float32, device=w.device)
+                if dg > 0:
+                    gb = gb + matmul_f32(gf, w[de + 2 * dn:])[0]
+                if b is not None:
+                    gb = gb + b.float()
+                if ((not training or g1_agg_fusion_training())
+                        and supports_g1_edge_update(
+                            E, N, de, de_o, itemsize, with_agg=True,
+                            part_itemsize=part_itemsize)):
+                    h, agg = fused_g1_edge_update_agg(
+                        ef, ef_ln, w[:de], src, tr, g.receivers, gb)
+                    return h.to(dtype), agg
+                return fused_g1_edge_update(ef, ef_ln, w[:de], src, tr,
+                                            g.receivers, gb).to(dtype), None
         # The senders are unsorted within each graph but local to it: with
         # many small graphs their backward scatter takes per-graph windows
         # (the windowed kernel) instead of a sort.

@@ -14,10 +14,9 @@ With kernels on, the pre-block edge LN is handed to the fused edge update,
 and the second branch plus both residuals run in the fused LN->FFN->residual
 kernel (``ops/kernels/fused_ffn``), one call per feature set.  Under
 training the JAX package's gates hold (``gn_core.py:168-213``): above
-d = 256 the second branch is composed from plain ops, and a feature set
-under 65,536 rows takes the composed reference.  The one case left, the
-fused FFN's own backward (d <= 256 and >= 65,536 rows), is not ported and
-raises ``NotImplementedError``.
+d = 256 the second branch is composed from plain ops, a feature set under
+65,536 rows takes the composed reference, and a larger one trains through
+the fused kernel and its recomputing backward kernel.
 """
 
 from __future__ import annotations
@@ -173,12 +172,6 @@ class GNCore(nn.Module):
                 # row counts under training, and the JAX kernel's own
                 # fallback for a feature set it does not take.
                 return ln_ffn_residual_reference(*args, extra=extra)
-            if training:
-                raise NotImplementedError(
-                    "training through the fused LN->FFN->residual kernel "
-                    "needs its backward (PERF.md kernel table row 3, "
-                    "fused_ffn.py:240 _fused_backward), which is not "
-                    "ported; train with enable_kernels(False)")
             return ln_ffn_residual(*args, extra=extra)
 
         return g.with_features(

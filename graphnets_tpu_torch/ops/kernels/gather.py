@@ -43,14 +43,45 @@ ADD_LAUNCHES = 0  # sorted_gather_add launches
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def supports_sorted_gather(num_out: int, num_rows: int, dim: int) -> bool:
-    """The shape conditions of the JAX package's gate (``gather.py:76-90``):
-    lane-aligned rows, an output row count divisible by 512, 256 or 128,
-    and a table of a multiple of 32 rows.  The CUDA kernels have no tile
-    whose size depends on the element type."""
-    tiled = any(num_out % t == 0 and num_out >= t for t in (512, 256, 128))
-    return (dim % 128 == 0 and tiled and num_rows % 32 == 0
-            and num_rows >= 32)
+def _pick(n: int, candidates):
+    """The first of ``candidates`` that divides ``n`` (``gather.py:53-57``)."""
+    for c in candidates:
+        if n % c == 0 and n >= c:
+            return c
+    return None
+
+
+def _pick_tn(num_rows: int, num_out: int, te: int) -> int:
+    """The JAX kernel's table chunk height (``gather.py:60-70``): about
+    twice a tile's expected id span, within [32, 512], dividing the table
+    height.  Only the gates read it; the CUDA kernels have no such chunk."""
+    span = max(32, 2 * te * num_rows // max(num_out, 1))
+    tn = 32
+    while tn * 2 <= min(span, 512):
+        tn *= 2
+    while tn > 32 and num_rows % tn != 0:
+        tn //= 2
+    return tn
+
+
+_VMEM_BUDGET = 12 << 20
+
+
+def supports_sorted_gather(num_out: int, num_rows: int, dim: int,
+                           itemsize: int = 4) -> bool:
+    """The JAX package's gate (``gather.py:76-90``), term for term:
+    lane-aligned rows, an output row count divisible by 512, 256 or 128, a
+    table of a multiple of 32 rows, and its kernel's tiles within its VMEM
+    budget (which refuses ``dim >= 2048`` or so).  The CUDA kernels need
+    none of this; the gate keeps both packages on the same route."""
+    te = _pick(num_out, (512, 256, 128))
+    if (dim % 128 != 0 or te is None or num_rows % 32 != 0
+            or num_rows < 32):
+        return False
+    tn = _pick_tn(num_rows, num_out, te)
+    vmem = (2 * tn * dim * itemsize + te * dim * 4 + te * dim * itemsize
+            + te * dim * 4)
+    return vmem <= _VMEM_BUDGET
 
 
 def _rows_or_zeros(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -30,17 +30,16 @@ cotangent cast to the addend's type (``ln_linear.py:275-292``).  Both take
 their plain versions (``ops.ln_linear``) for CPU tensors only; a CUDA
 tensor launches the kernel or raises.  A shape outside
 :func:`supports_ln_matmul` takes the plain composition on any device, as
-in the JAX package; the gate is the JAX package's shape conditions and the
-forward block's shared memory, nothing else.  Where that memory alone
-refuses rows on the card (bf16 at d >= 512) a warning says so once.  f32
-rows wider than the backward kernel takes (d > 512) run the forward kernel
-and raise in the backward on the card.
+in the JAX package; the gate is the JAX package's (``ln_linear.py:81-85``),
+for bf16 and f32 rows.  The forward's shared memory does not depend on the
+widths; the backward's row pass runs as one kernel on bf16 rows of d = 128
+/ 256 / 384 / 512 and in two steps, whose shared memory does not depend on
+the widths either, everywhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 from typing import Optional
 
 import torch
@@ -59,65 +58,40 @@ _SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
 _ROWS = 32              # rows per block of the row pass
 
 
-def _smem_bytes(d: int, dout: int, dtype: torch.dtype) -> int:
-    """Shared memory of a row-pass block, as ``rows_smem_bytes`` and
-    ``rows_smem_bytes_f32``: x and g rows, the W ring or the f32 dxn rows,
-    and the row statistics."""
-    if dtype == torch.float32:
-        ring = max(d * 33 * 4, _ROWS * (d + 4) * 4)
-        return _ROWS * ((d + 4) * 4 + (dout + 4) * 4 + 3 * 4) + ring
+def _smem_bytes(d: int, dout: int) -> int:
+    """Shared memory of a bf16 row-pass block, as ``rows_smem_bytes``: x
+    and g rows, the W ring or the f32 dxn rows, and the row statistics."""
     ring = max(2 * d * 40 * 2, _ROWS * (d + 4) * 4)
     return _ROWS * ((d + 8) * 2 + (dout + 8) * 2 + 3 * 4) + ring
 
 
 def supports_ln_linear_backward(n_rows: int, d: int, dout: int,
                                 dtype: torch.dtype) -> bool:
-    """Shapes the kernel takes: bf16 or f32 rows, ``d`` in 128 / 256 / 384
-    / 512, ``dout`` a multiple of 128 whose g rows fit in shared memory."""
-    return (dtype in _DTYPES and d in _DIMS and n_rows >= 1
-            and dout >= 128 and dout % 128 == 0
-            and _smem_bytes(d, dout, dtype) <= _SMEM_LIMIT)
+    """Shapes the kernel takes: bf16 or f32 rows, ``d`` and ``dout``
+    multiples of 128 (every shape of :func:`supports_ln_matmul`)."""
+    return (dtype in _DTYPES and n_rows >= 1 and d >= 128 and d % 128 == 0
+            and dout >= 128 and dout % 128 == 0)
 
 
-def _fwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
-    """Shared memory of a forward block, as ``gn_ln_matmul_smem``."""
-    if dtype == torch.float32:
-        return 32 * (d + 4) * 4 + 32 * 132 * 4
-    return d * 136 * 2 + 64 * (d + 8) * 2 + 64 * 132 * 4
+def _one_step_rows(d: int, dout: int, dtype: torch.dtype) -> bool:
+    """Whether the row pass runs as one kernel that keeps its rows in
+    shared memory (bf16 rows at the widths it is built for) or in two steps
+    through an f32 ``[T, d]`` scratch (every other width, and f32 rows)."""
+    return (dtype == torch.bfloat16 and d in _DIMS
+            and _smem_bytes(d, dout) <= _SMEM_LIMIT)
+
+
+_VMEM_BUDGET = 12 << 20
 
 
 def supports_ln_matmul(n_rows: int, d: int, dout: int,
                        dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The JAX package's shape gate (``ln_linear.py:81-85``: lane-aligned
-    ``d`` and ``dout``, whole 8-row tiles) for bf16 or f32 rows, within
-    the forward block's shared memory (in place of the TPU kernel's VMEM
-    term): bf16 rows up to d = 384, f32 rows of any such width."""
-    return (_jax_shape_gate(n_rows, d, dout) and dtype in _DTYPES
-            and _fwd_smem_bytes(d, dtype) <= _SMEM_LIMIT)
-
-
-def _jax_shape_gate(n_rows: int, d: int, dout: int) -> bool:
+    """The JAX package's gate (``ln_linear.py:81-85``: lane-aligned ``d``
+    and ``dout``, whole 8-row tiles, its kernel's VMEM term) for bf16 or
+    f32 rows.  The CUDA kernels add no term of their own."""
+    fits = d * dout * 6 + 256 * (d * 14 + dout * 6) <= _VMEM_BUDGET
     return (d % 128 == 0 and dout % 128 == 0 and n_rows % 8 == 0
-            and n_rows >= 8)
-
-
-_lost_route_logged = False
-
-
-def _warn_lost_route(x: torch.Tensor, dout: int) -> None:
-    """Say once that rows on the card compose plain ops only because the
-    forward block's shared memory cannot hold them."""
-    global _lost_route_logged
-    if (_lost_route_logged or x.device.type != "cuda"
-            or x.dtype not in _DTYPES
-            or not _jax_shape_gate(x.shape[0], x.shape[1], dout)):
-        return
-    _lost_route_logged = True
-    logging.getLogger("graphnets_tpu_torch").warning(
-        "ln_matmul: x %s %s does not fit the kernel's shared memory "
-        "(%d > %d bytes); these rows take the plain composition.",
-        tuple(x.shape), x.dtype, _fwd_smem_bytes(x.shape[1], x.dtype),
-        _SMEM_LIMIT)
+            and n_rows >= 8 and fits and dtype in _DTYPES)
 
 
 def _rows_per_split(T: int, d: int, dout: int, tile: int, device) -> int:
@@ -130,7 +104,7 @@ def _rows_per_split(T: int, d: int, dout: int, tile: int, device) -> int:
 
 
 def _backward_args():
-    return [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -159,7 +133,7 @@ def _launch(x, scale, bias, w, g):
     if not supports_ln_linear_backward(T, d, dout, x.dtype):
         raise ValueError(f"ln_linear_backward: unsupported x "
                          f"{tuple(x.shape)} {x.dtype}, dout={dout} (bf16 or "
-                         f"f32, d in {_DIMS}, dout % 128 == 0)")
+                         f"f32, d % 128 == 0, dout % 128 == 0)")
     shapes = {"w": (w, (d, dout)), "g": (g, (T, dout)),
               "scale": (scale, (d,)), "bias": (bias, (d,))}
     for name, (t, shape) in shapes.items():
@@ -186,13 +160,16 @@ def _launch(x, scale, bias, w, g):
     db = torch.empty(d, **f32)
     scratch = [torch.empty(T, 2, **f32), torch.empty(splits, d, dout, **f32),
                torch.empty(blocks, d, **f32), torch.empty(blocks, d, **f32)]
+    wide = not _one_step_rows(d, dout, x.dtype)
+    dxn = torch.empty(T, d, **f32) if wide else None
     lib = _lib()
     entry = (lib.gn_ln_linear_backward_f32 if is_f32
              else lib.gn_ln_linear_backward)
     with torch.cuda.device(x.device):
         err = entry(
             *[t.data_ptr() for t in (*args, dx, dw, ds, db, *scratch)],
-            T, d, dout, rows_per_split,
+            None if dxn is None else dxn.data_ptr(),
+            T, d, dout, rows_per_split, int(wide),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "ln_linear_backward")
     LAUNCHES += 1
@@ -279,6 +256,5 @@ def ln_matmul(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     (``[T, dout]``, f32 or bf16) the completed row in ``x.dtype``, rounded
     once.  Differentiable in every tensor argument."""
     if not supports_ln_matmul(x.shape[0], x.shape[1], w.shape[1], x.dtype):
-        _warn_lost_route(x, w.shape[1])
         return ln_matmul_reference(x, scale, bias, w, addend)
     return _LnMatmul.apply(x, scale, bias, w, addend)

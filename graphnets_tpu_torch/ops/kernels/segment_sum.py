@@ -9,7 +9,9 @@ Kernel: ``csrc/segment_sum.cu``.  It replaces the Pallas kernel of
 On the H100 both are bound by memory (~13.4 MB at E = 16384, d = 384 into
 1024 segments, ~4 us), so each edge row is read once and summed on the
 CUDA cores in a fixed order, with no atomics: a warp owns a sorted segment
-(binary search over the ascending ids), and a windowed tile of 128
+(binary search over the ascending ids; a segment of more than 256 rows,
+such as the pad node of a sampled subgraph, is cut into chunks summed by a
+block each and added in chunk order), and a windowed tile of 128
 segments walks its graphs' edge window in per-warp parts whose
 accumulators are added in warp order.  The source note in the ``.cu``
 file has the details.
@@ -75,8 +77,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("segment_sum")
     if lib.gn_sorted_segment_sum.argtypes is None:
         lib.gn_sorted_segment_sum.argtypes = \
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.gn_sorted_segment_sum.restype = ctypes.c_int
+        lib.gn_sorted_segment_sum_long_rows.argtypes = []
+        lib.gn_sorted_segment_sum_long_rows.restype = ctypes.c_int
         lib.gn_windowed_segment_sum.argtypes = \
             [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -107,9 +111,15 @@ def _launch_sorted(x, seg, num_segments: int) -> torch.Tensor:
     E, D = x.shape
     out = torch.empty(num_segments, D, dtype=x.dtype, device=x.device)
     lib = _lib()
+    # Scratch for the segments too long for one warp: two partial rows per
+    # chunk of rows.
+    long_rows = lib.gn_sorted_segment_sum_long_rows()
+    part = (torch.empty(2 * -(-E // long_rows), D, dtype=torch.float32,
+                        device=x.device) if E > long_rows else None)
     with torch.cuda.device(x.device):
         err = lib.gn_sorted_segment_sum(
-            x.data_ptr(), seg.data_ptr(), out.data_ptr(), E, num_segments, D,
+            x.data_ptr(), seg.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), E, num_segments, D,
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sorted_segment_sum")

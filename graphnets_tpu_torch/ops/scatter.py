@@ -55,7 +55,7 @@ class _TakeRows(torch.autograd.Function):
             # package's kernel takes the shape.
             from .kernels import gather
             if gather.supports_sorted_gather(idx.shape[0], x.shape[0],
-                                             x.shape[1]):
+                                             x.shape[1], x.element_size()):
                 return gather.sorted_gather(x, idx)
         return x.index_select(0, idx)
 
@@ -140,6 +140,11 @@ def segment_sum(x: torch.Tensor, segment_ids: torch.Tensor,
         if supports_sorted_segment_sum(x.shape[0], num_segments,
                                        x.shape[-1]):
             return sorted_segment_sum(x, segment_ids, num_segments)
+    if num_segments == 1:
+        # A single graph's pools: a column sum (an ``index_add_`` of a
+        # million rows into one would serialise on its atomics).
+        return _mask_rows(x, mask).sum(0, keepdim=True,
+                                       dtype=torch.float32).to(x.dtype)
     acc = torch.zeros((num_segments,) + tuple(x.shape[1:]),
                       dtype=torch.float32, device=x.device)
     acc.index_add_(0, segment_ids, _mask_rows(x, mask).float())

@@ -14,6 +14,10 @@ by returning new arrays.
 numpy generator, one step each.  The JAX package's loops that generate the
 data inside the compiled step (``train_sort_device``, ``evaluate_sort``)
 are not ported.
+
+:func:`make_node_classification_step` is the step of sampled training on a
+large graph (``data/large_graph``): a device gather of the node features,
+the seed nodes' masked cross-entropy, and the optimizer step.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ from ..data.sort_task import SortTaskConfig, get_batch, sort_pad_spec
 from ..graph import GraphsTuple
 from ..models.encode_process_decode import EncodeProcessDecode
 from ..utils.config import resolve_device
-from .losses import graph_accuracy, graph_loss_nf_ef, masked_accuracy
+from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
+                     masked_logit_crossentropy)
 
-__all__ = ["adamw", "make_train_step", "train_sort", "SortTrainResult"]
+__all__ = ["adamw", "make_train_step", "make_node_classification_step",
+           "train_sort", "SortTrainResult"]
 
 
 def adamw(params: Iterable[torch.Tensor], lr: float = 3e-4
@@ -87,6 +93,47 @@ def make_train_step(
                 "edge_acc": masked_accuracy(pred.ef, y.ef, x.edge_mask),
                 "graph_acc": graph_accuracy(pred, y),
             }
+
+    return step
+
+
+def make_node_classification_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    n_classes: int,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[..., torch.Tensor]:
+    """Build ``step(graph, node_ids, labels, label_mask, seed_idx, feat) ->
+    loss`` for sampled mini-batches of a large graph (the step of
+    ``examples/node_classification.py`` and ``benchmarks/bench_arxiv.py``
+    in the JAX package): the node features are gathered on the device from
+    the resident table ``feat [N + 1, D]`` by the batch's ``node_ids``, the
+    model runs under training, the logits of the seed nodes go through the
+    masked cross-entropy against the one-hot ``labels``, and ``optimizer``
+    takes one step on the model's parameters.
+
+    ``compute_dtype`` casts the (f32 master) parameters for the forward,
+    as in :func:`make_train_step`; ``feat`` is used in the type it has.
+    The loss is a 0-d tensor on the model's device (no host sync)."""
+    params = dict(model.named_parameters())
+
+    def step(graph: GraphsTuple, node_ids: torch.Tensor,
+             labels: torch.Tensor, label_mask: torch.Tensor,
+             seed_idx: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        graph = graph.with_features(nf=feat.index_select(0, node_ids))
+        run = params if compute_dtype is None else {
+            n: p.to(compute_dtype) for n, p in params.items()}
+        pred = functional_call(model, run, (graph,), {"training": True})
+        logits = pred.nf.index_select(0, seed_idx)
+        onehot = torch.nn.functional.one_hot(labels.long(), n_classes)
+        loss = masked_logit_crossentropy(logits, onehot, label_mask)
+        loss.backward()
+        for p in params.values():
+            if p.grad is None:  # as in make_train_step
+                p.grad = torch.zeros_like(p)
+        optimizer.step()
+        return loss.detach()
 
     return step
 

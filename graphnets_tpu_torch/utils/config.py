@@ -7,7 +7,9 @@ decided on first query.  ``GRAPHNETS_TPU_TORCH_KERNELS=0/1`` forces either
 mode, as ``GRAPHNETS_TPU_PALLAS`` does for the JAX package.
 ``bf16_gather_partials(rows)`` is the JAX package's gate for rounding the
 gathered split-linear partials to bf16 (``GRAPHNETS_TPU_TORCH_BF16_GATHER``
-pins it).
+pins it).  ``g1_agg_fusion_training()`` says whether the single-graph edge
+update keeps its fused edge->node sum under training
+(``GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN=0/1``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,12 @@ class Config:
     # ``bf16_gather_rows`` rows.
     bf16_gather_partials: Optional[bool] = None
     bf16_gather_rows: int = 1 << 17
+    # Keep the single-graph edge update's fused edge->node sum under
+    # training too (models/gn_block._edge_update_split): its backward adds a
+    # sorted gather and an add, against the saved re-read of the [E, dout]
+    # output.  The JAX package's default, from its measurements; off, the
+    # training step takes the kernel without the sum and aggregates after.
+    g1_agg_fusion_training: bool = True
 
 
 def _env_tristate(name: str) -> Optional[bool]:
@@ -52,7 +60,9 @@ def _env_tristate(name: str) -> Optional[bool]:
 
 _config = Config(
     use_kernels=_env_tristate("GRAPHNETS_TPU_TORCH_KERNELS"),
-    bf16_gather_partials=_env_tristate("GRAPHNETS_TPU_TORCH_BF16_GATHER"))
+    bf16_gather_partials=_env_tristate("GRAPHNETS_TPU_TORCH_BF16_GATHER"),
+    g1_agg_fusion_training=os.environ.get(
+        "GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN", "1") == "1")
 
 
 def get_config() -> Config:
@@ -92,6 +102,10 @@ def bf16_gather_partials(rows: int) -> bool:
             "set GRAPHNETS_TPU_TORCH_BF16_GATHER=0/1 to pin.",
             rows, _config.bf16_gather_rows)
     return on
+
+
+def g1_agg_fusion_training() -> bool:
+    return _config.g1_agg_fusion_training
 
 
 def resolve_device(device=None) -> torch.device:

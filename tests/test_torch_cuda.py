@@ -18,17 +18,25 @@ partial at 1e-3 and the completed bf16 row at one bf16 ulp of the largest
 magnitude (the normalised row may round the other way after a differently
 ordered f32 sum); with f32 rows, forward and backward at 1e-4 (f32 sums in
 another order).  ``sorted_gather_add`` is one f32 add of the same two
-values and one rounding: bit-equal.
+values and one rounding: bit-equal.  The single-graph edge update: ``h``
+one bf16 ulp (f32: 1e-5), ``agg`` 1e-5 against an f32 sum of the kernel's
+own ``h``, gradients 5e-2 (f32: 1e-4).  The fused FFN backward: dx 2^-6,
+the parameter gradients 1e-2 (a relu mask may flip where the f32
+pre-activation is within rounding of 0).  ``random_gather`` is a copy:
+bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from graphnets_tpu_torch.ops import ln_linear as lnp
 from graphnets_tpu_torch.ops.kernels import edge_update as eu
+from graphnets_tpu_torch.ops.kernels import edge_update_g1 as g1
 from graphnets_tpu_torch.ops.kernels import fused_ffn as ffn
 from graphnets_tpu_torch.ops.kernels import gather as ga
 from graphnets_tpu_torch.ops.kernels import ln_linear as ll
+from graphnets_tpu_torch.ops.kernels import random_gather as rg
 from graphnets_tpu_torch.ops.kernels import segment_sum as ss
 
 
@@ -301,10 +309,9 @@ def test_ln_matmul_gradients_match_plain(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [512, 640])
 def test_ln_matmul_f32_wide_rows_launch_or_raise(cuda, d):
-    """f32 rows wider than 384 take the forward kernel (the gate is the JAX
-    package's shape conditions and the block's shared memory); the
-    backward launches its kernel at d = 512 and raises beyond, and never
-    composes plain ops on the card."""
+    """f32 rows wider than 384 take the forward kernel, and the backward
+    launches its kernel too (at d = 640 its two-step wide form): nothing
+    composes plain ops on the card and nothing raises."""
     T, dout = 256, 128
     rng = np.random.default_rng(18)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -319,10 +326,6 @@ def test_ln_matmul_f32_wide_rows_launch_or_raise(cuda, d):
     torch.cuda.synchronize()
     assert ll.FWD_LAUNCHES == before[0] + 1
     _close_max(out, ref, 1e-4)
-    if d > 512:
-        with pytest.raises(ValueError):
-            out.backward(ct.to(cuda))
-        return
     out.backward(ct.to(cuda))
     torch.cuda.synchronize()
     assert ll.LAUNCHES == before[1] + 1
@@ -332,21 +335,215 @@ def test_ln_matmul_f32_wide_rows_launch_or_raise(cuda, d):
 
 @pytest.mark.cuda
 def test_ln_matmul_bf16_rows_past_shared_memory_warn_once(cuda, caplog):
-    """bf16 rows at d = 512 pass the shape conditions but not the forward
-    block's shared memory: the plain composition runs and a warning says
-    so."""
+    """bf16 rows at d = 512: the kernel's shared memory does not depend on
+    the width, so it runs (no plain composition on the card) and nothing
+    is logged."""
     T, d = 64, 512
     x = torch.randn(T, d, device=cuda).bfloat16()
     v = torch.ones(d, device=cuda)
     w = torch.randn(d, 128, device=cuda) * d ** -0.5
-    assert not ll.supports_ln_matmul(T, d, 128, torch.bfloat16)
-    ll._lost_route_logged = False
+    assert ll.supports_ln_matmul(T, d, 128, torch.bfloat16)
     before = ll.FWD_LAUNCHES
     with caplog.at_level("WARNING", logger="graphnets_tpu_torch"):
+        out = ll.ln_matmul(x, v, v, w)
         ll.ln_matmul(x, v, v, w)
-        ll.ln_matmul(x, v, v, w)
-    assert ll.FWD_LAUNCHES == before
-    assert sum("shared memory" in r.message for r in caplog.records) == 1
+    torch.cuda.synchronize()
+    assert ll.FWD_LAUNCHES == before + 2
+    assert not caplog.records
+    _close_max(out, lnp.ln_matmul_reference(x, v, v, w), 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,dout,dtype", [
+    (4096, 512, 512, torch.bfloat16), (1000, 1024, 1024, torch.bfloat16),
+    (1000, 640, 640, torch.float32), (264, 2816, 128, torch.bfloat16),
+    (264, 128, 5248, torch.bfloat16), (264, 1792, 128, torch.float32)])
+@pytest.mark.parametrize("addend", [False, True])
+def test_ln_matmul_wide_rows_match_plain(cuda, T, d, dout, dtype, addend):
+    """The wide end of the JAX package's gate (d = dout = 512 and 1024 in
+    bf16, 640 in f32, and the widest d and dout of the gate; the backward's
+    row pass in two steps): forward and backward kernels against the plain
+    versions."""
+    assert ll.supports_ln_matmul(T, d, dout, dtype)
+    rng = np.random.default_rng(19)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x = f(T, d)
+    x[:2] = 0.0
+    args = [x.to(dtype), 1 + 0.1 * f(d), 0.1 * f(d),
+            (f(d, dout) * d ** -0.5).to(dtype)]
+    add = f(T, dout) if addend else None
+    g = f(T, dout).to(dtype)
+    ref = lnp.ln_matmul_reference(*args, addend=add)
+    bref = lnp.ln_linear_backward_plain(*args, g)
+    dev = [t.to(cuda) for t in args]
+    before = (ll.FWD_LAUNCHES, ll.LAUNCHES)
+    out = ll.ln_matmul(*dev, addend=None if add is None else add.to(cuda))
+    bw = ll.ln_linear_backward(*dev, g.to(cuda))
+    torch.cuda.synchronize()
+    assert (ll.FWD_LAUNCHES, ll.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    if dtype == torch.float32:
+        tol, tols = 1e-4, (1e-4,) * 4
+    else:
+        tol, tols = (2.0 ** -7 if addend else 1e-3), (2.0 ** -6, 1e-3, 1e-3,
+                                                      1e-3)
+    _close_max(out, ref, tol)
+    for o, r, t in zip(bw, bref, tols):
+        _close_max(o, r, t)
+
+
+def _sorted_receivers(rng, E, N, pads):
+    """Ascending ids; with ``pads`` two fifths of the slots are real edges
+    (one node a hub spanning several 64-row tiles, many nodes empty) and
+    the rest pad edges on the last node."""
+    if not pads:
+        return torch.from_numpy(np.sort(rng.integers(0, N, E)).astype(
+            np.int32))
+    real = E * 2 // 5
+    r = rng.integers(0, N - 1, real)
+    r[:E // 8] = 5
+    r[r % 3 == 1] = 9
+    return torch.from_numpy(np.sort(np.concatenate(
+        [r, np.full(E - real, N - 1)])).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pads", [False, True])
+@pytest.mark.parametrize("has_ln", [True, False])
+@pytest.mark.parametrize("dtype,parts", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+def test_g1_edge_update_matches_plain(cuda, dtype, parts, has_ln, pads):
+    """The single-graph edge update, with and without the edge->node sum,
+    and all its gradients, against the plain version on the CPU."""
+    E, N, de, dout = 2048, 256, 256, 128
+    rng = np.random.default_rng(20)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    ef = f(E, de)
+    ef[:2] = 0.0
+    base = dict(ef=ef.to(dtype), w0=(f(de, dout) * de ** -0.5).to(dtype),
+                src=f(E, dout).to(parts), tr=f(N, dout).to(parts),
+                gb=f(dout), scale=1 + 0.1 * f(de), bias=0.1 * f(de))
+    rl = _sorted_receivers(rng, E, N, pads)
+    ct_h, ct_a = f(E, dout).to(dtype), f(N, dout)
+    assert g1.supports_g1_edge_update(E, N, de, dout, ef.to(dtype)
+                                      .element_size(), with_agg=True,
+                                      part_itemsize=base["src"].element_size())
+
+    def run(device, with_agg):
+        t = {k: v.detach().clone().to(device).requires_grad_()
+             for k, v in base.items()}
+        ln = {"scale": t["scale"], "bias": t["bias"]} if has_ln else None
+        args = (t["ef"], ln, t["w0"], t["src"], t["tr"], rl.to(device),
+                t["gb"])
+        if with_agg:
+            h, agg = g1.fused_g1_edge_update_agg(*args)
+            torch.autograd.backward([h, agg], [ct_h.to(device),
+                                               ct_a.to(device)])
+            return h, agg, t
+        h = g1.fused_g1_edge_update(*args)
+        h.backward(ct_h.to(device))
+        return h, None, t
+
+    bf = dtype == torch.bfloat16
+    for with_agg in (True, False):
+        h_ref, agg_ref, t_ref = run("cpu", with_agg)
+        before = (g1.LAUNCHES, g1.LAUNCHES_NO_AGG)
+        h, agg, t = run(cuda, with_agg)
+        torch.cuda.synchronize()
+        assert (g1.LAUNCHES, g1.LAUNCHES_NO_AGG) == (
+            before[0] + with_agg, before[1] + (not with_agg))
+        _close_max(h, h_ref, 2.0 ** -7 if bf else 1e-5)
+        if with_agg:
+            own = torch.zeros(N, dout).index_add_(0, rl.long(),
+                                                  h.detach().float().cpu())
+            _close_max(agg, own, 1e-5)
+            empty = torch.bincount(rl.long(), minlength=N) == 0
+            assert not agg.detach().cpu()[empty].any()
+        for k in base:
+            if not has_ln and k in ("scale", "bias"):
+                continue
+            _close_max(t[k].grad, t_ref[k].grad, 5e-2 if bf else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 1000, 8192])
+@pytest.mark.parametrize("d", [128, 256])
+def test_ln_ffn_backward_matches_plain(cuda, d, T):
+    rng = np.random.default_rng(21)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    bf = torch.bfloat16
+    x = f(T, d)
+    x[:2] = 0.0
+    args = [x.to(bf), 1 + 0.1 * f(d), 0.1 * f(d),
+            (f(d, 4 * d) * d ** -0.5).to(bf), (0.1 * f(4 * d)).to(bf),
+            (f(4 * d, d) * (4 * d) ** -0.5).to(bf), f(T, d).to(bf)]
+    ref = ffn.ln_ffn_backward_plain(*args)
+    before = ffn.BWD_LAUNCHES
+    out = ffn.ln_ffn_backward(*[t.to(cuda) for t in args])
+    torch.cuda.synchronize()
+    assert ffn.BWD_LAUNCHES == before + 1
+    for o, r, tol in zip(out, ref, (2.0 ** -6,) + (1e-2,) * 6):
+        assert o.dtype == r.dtype
+        _close_max(o, r, tol)
+
+
+@pytest.mark.cuda
+def test_ln_ffn_residual_trains_through_its_backward_kernel(cuda):
+    """Autograd through the fused forward reaches the backward kernel, with
+    ``extra``'s gradient the cotangent itself; d = 384 raises, naming the
+    width."""
+    T, d = 512, 256
+    rng = np.random.default_rng(22)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    bf = torch.bfloat16
+    base = [f(T, d).to(bf), 1 + 0.1 * f(d), 0.1 * f(d),
+            (f(d, 4 * d) * d ** -0.5).to(bf), (0.1 * f(4 * d)).to(bf),
+            (f(4 * d, d) * (4 * d) ** -0.5).to(bf), (0.1 * f(d)).to(bf),
+            f(T, d).to(bf)]
+    ct = f(T, d).to(bf)
+    cpu = [t.clone().requires_grad_() for t in base]
+    ffn.ln_ffn_residual(*cpu[:7], extra=cpu[7]).backward(ct)
+    dev = [t.to(cuda).requires_grad_() for t in base]
+    before = (ffn.LAUNCHES, ffn.BWD_LAUNCHES)
+    ffn.ln_ffn_residual(*dev[:7], extra=dev[7]).backward(ct.to(cuda))
+    torch.cuda.synchronize()
+    assert (ffn.LAUNCHES, ffn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(dev[7].grad.cpu(), ct)
+    for a, b, tol in zip(dev[:7], cpu[:7], (2.0 ** -6,) + (1e-2,) * 6):
+        _close_max(a.grad, b.grad, tol)
+    wide = [torch.zeros(8, 384, device=cuda, dtype=bf).requires_grad_()] + [
+        torch.zeros(*s, device=cuda) for s in
+        ((384,), (384,), (384, 1536), (1536,), (1536, 384), (384,))]
+    y = ffn.ln_ffn_residual(*wide)
+    with pytest.raises(ValueError, match="384"):
+        y.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_random_gather_is_bit_equal(cuda, dtype):
+    rng = np.random.default_rng(23)
+    N, d, E = 1000, 256, 4096
+    table = torch.from_numpy(rng.normal(size=(N, d)).astype(
+        np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, N, E).astype(np.int32))
+    ct = torch.from_numpy(rng.normal(size=(E, d)).astype(np.float32)).to(dtype)
+    assert rg.supports_random_gather(E, N, d)
+    t_cpu = table.clone().requires_grad_()
+    rg.random_gather(t_cpu, idx).backward(ct)
+    t_dev = table.to(cuda).requires_grad_()
+    before = (rg.LAUNCHES, ss.LAUNCHES)
+    out = rg.random_gather(t_dev, idx.to(cuda))
+    out.backward(ct.to(cuda))
+    torch.cuda.synchronize()
+    assert (rg.LAUNCHES, ss.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out.detach().cpu(), table[idx.long()])
+    _close_max(t_dev.grad, t_cpu.grad,
+               2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    # Outside the gate (E not a multiple of 512): index_select, no launch.
+    out = rg.random_gather(t_dev, idx[:100].to(cuda))
+    assert rg.LAUNCHES == before[0] + 1
+    assert torch.equal(out.detach().cpu(), table[idx[:100].long()])
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ import torch
 from graphnets_tpu.utils.config import enable_pallas, get_config
 from graphnets_tpu_torch.ops.kernels import edge_update as pt_eu
 from graphnets_tpu_torch.ops.kernels import fused_ffn as pt_ffn
+from graphnets_tpu_torch.ops.kernels import random_gather as pt_rg
 
 
 @pytest.fixture
@@ -200,3 +201,65 @@ def test_kernel_gates():
     assert not pt_ffn.supports_fused_ffn(0, 384, bf)
     assert not pt_ffn.supports_fused_ffn(64, 512, bf)
     assert not pt_ffn.supports_fused_ffn(64, 384, torch.float32)
+
+
+# -- random_gather --------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_random_gather_matches_pallas(interpret_mode, dtype):
+    """The plain version and its gradient (one sort, then the sorted f32
+    segment sum) against the JAX package's kernel in interpret mode: the
+    rows bit-equal, the table gradient at 1e-5 in f32 and one bf16 ulp of
+    the largest magnitude in bf16 (an f32 sum in another order)."""
+    from graphnets_tpu.ops.pallas import random_gather as j_rg
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                else (torch.bfloat16, jnp.bfloat16))
+    rng = np.random.default_rng(8)
+    N, d, E = 96, 128, 1024
+    table = rng.normal(size=(N, d)).astype(np.float32)
+    idx = rng.integers(0, N, E).astype(np.int32)
+    ct = rng.normal(size=(E, d)).astype(np.float32)
+    assert j_rg.supports_random_gather(E, N, d)
+    out_j, vjp = jax.vjp(lambda t: j_rg.random_gather(t, jnp.asarray(idx)),
+                         jnp.asarray(table, jdt))
+    (grad_j,) = vjp(jnp.asarray(ct, jdt))
+    t = _t(table, tdt).requires_grad_()
+    before = pt_rg.LAUNCHES
+    out_p = pt_rg.random_gather(t, torch.from_numpy(idx))
+    out_p.backward(_t(ct, tdt))
+    assert pt_rg.LAUNCHES == before            # CPU: no launch
+    np.testing.assert_array_equal(out_p.detach().float().numpy(),
+                                  np.asarray(out_j, np.float32))
+    assert t.grad.dtype == tdt
+    ref = np.asarray(grad_j, np.float32)
+    tol = (1e-5 if dtype == "f32" else 2.0 ** -7) * np.abs(ref).max()
+    assert np.abs(t.grad.float().numpy() - ref).max() <= tol
+
+
+@pytest.mark.parametrize("shape", [
+    (1048576, 65536, 256), (512, 1, 128), (1024, 96, 384), (768, 96, 128),
+    (256, 96, 128), (1000, 96, 128), (512, 96, 100), (2048, 7, 128)])
+def test_supports_random_gather_matches_jax(shape):
+    from graphnets_tpu.ops.pallas import random_gather as j_rg
+    assert pt_rg.supports_random_gather(*shape) == \
+        j_rg.supports_random_gather(*shape)
+
+
+def test_random_gather_outside_its_gate_takes_index_select():
+    """E not a multiple of 512: both packages take the library gather, and
+    the gradient is autograd's."""
+    from graphnets_tpu.ops.pallas import random_gather as j_rg
+    rng = np.random.default_rng(9)
+    table = rng.normal(size=(40, 128)).astype(np.float32)
+    idx = rng.integers(0, 40, 100).astype(np.int32)
+    assert not pt_rg.supports_random_gather(100, 40, 128)
+    t = _t(table).requires_grad_()
+    out = pt_rg.random_gather(t, torch.from_numpy(idx))
+    out.sum().backward()
+    np.testing.assert_array_equal(
+        out.detach().numpy(),
+        np.asarray(j_rg.random_gather(jnp.asarray(table), jnp.asarray(idx))))
+    np.testing.assert_allclose(
+        t.grad.numpy()[:, 0], np.bincount(idx, minlength=40).astype(
+            np.float32))

@@ -143,22 +143,37 @@ def test_ln_matmul_matches_jax(kernels_on, dtype, addend):
     (64, 640, 640), (8, 1024, 1024), (64, 128, 256), (12, 128, 128),
     (16, 100, 128), (16, 128, 200), (4, 128, 128), (0, 128, 128)])
 def test_supports_ln_matmul_matches_jax(shape):
-    """f32 rows: the port's gate is the JAX package's on every shape whose
-    forward block fits in shared memory (any width here).  bf16 rows: the
-    same up to d = 384; from d = 512 the block does not fit and the gate
-    refuses, which the wrapper reports once on the card.  The backward
-    kernel takes what the bf16 gate admits, and f32 rows up to d = 512."""
+    """The port's gate is the JAX package's on every shape, for bf16 and
+    for f32 rows (the kernels' shared memory no longer refuses a width),
+    and the backward kernel takes whatever the gate admits."""
     want = j_ll.supports_ln_matmul(*shape)
-    assert pt_ll.supports_ln_matmul(*shape, torch.float32) == want
-    fits = pt_ll._fwd_smem_bytes(shape[1], torch.bfloat16) \
-        <= pt_ll._SMEM_LIMIT
-    assert fits == (shape[1] <= 384)
-    assert pt_ll.supports_ln_matmul(*shape, torch.bfloat16) == \
-        (want and fits)
-    if want and fits:
-        assert pt_ll.supports_ln_linear_backward(*shape, torch.bfloat16)
-    if want and shape[1] <= 512 and shape[2] <= 512:
-        assert pt_ll.supports_ln_linear_backward(*shape, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert pt_ll.supports_ln_matmul(*shape, dtype) == want
+        if want:
+            assert pt_ll.supports_ln_linear_backward(*shape, dtype)
+    assert not pt_ll.supports_ln_matmul(*shape, torch.float16)
+
+
+@pytest.mark.parametrize("rows", [8, 512, 16384])
+def test_supports_ln_matmul_grid_matches_jax(rows):
+    """d and dout over 128 .. 1152 in steps of 128, and the widest d and
+    dout the JAX gate admits: the two gates agree everywhere, and so does
+    the backward's."""
+    widths = list(range(128, 1153, 128))
+    pairs = [(d, dout) for d in widths for dout in widths] + [
+        (2816, 128), (2944, 128), (128, 5248), (128, 5376), (96, 128)]
+    admitted = 0
+    for d, dout in pairs:
+        want = j_ll.supports_ln_matmul(rows, d, dout)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert pt_ll.supports_ln_matmul(rows, d, dout, dtype) == want, \
+                (rows, d, dout, dtype)
+            assert pt_ll.supports_ln_linear_backward(rows, d, dout,
+                                                     dtype) or not want
+        admitted += want
+    assert j_ll.supports_ln_matmul(rows, 1024, 1024)
+    assert not j_ll.supports_ln_matmul(rows, 1152, 1024)
+    assert 0 < admitted < len(pairs)
 
 
 def test_ln_matmul_f32_at_d512_matches_jax(kernels_on):
@@ -201,7 +216,8 @@ def test_ln_matmul_takes_the_reference_outside_its_gate():
     assert not j_ll.supports_ln_matmul(12, 128, 128)
     assert not pt_ll.supports_ln_matmul(12, 128, 128, torch.float32)
     assert not pt_ll.supports_ln_matmul(16, 128, 128, torch.float16)
-    assert not pt_ll.supports_ln_matmul(16, 512, 128, torch.bfloat16)
+    assert not pt_ll.supports_ln_matmul(16, 1152, 1024, torch.bfloat16)
+    assert not j_ll.supports_ln_matmul(16, 1152, 1024)
     ref = j_ll.ln_matmul(jnp.asarray(x), jnp.asarray(scale),
                          jnp.asarray(bias), jnp.asarray(w))
     out = pt_ll.ln_matmul(_t(x), _t(scale), _t(bias), _t(w))
@@ -264,6 +280,30 @@ def test_supports_sorted_gather_matches_jax(shape):
     assert pt_ga.supports_sorted_gather(*shape) == \
         j_ga.supports_sorted_gather(*shape) == \
         j_ga.supports_sorted_gather(*shape, 2)
+
+
+@pytest.mark.parametrize("dim", [128, 1024, 1920, 2048, 2176, 3072, 4096])
+def test_supports_sorted_gather_vmem_term_matches_jax(dim):
+    """The JAX gate's VMEM term refuses wide rows (from about 2048 values a
+    row with 512-row tiles): the port's gate carries the same term, for
+    both element sizes, so the two routes agree there too."""
+    seen = set()
+    for num_out, num_rows in ((16384, 1056), (512, 64), (1048576, 65536),
+                              (256, 32), (128, 4096)):
+        for itemsize in (2, 4):
+            want = j_ga.supports_sorted_gather(num_out, num_rows, dim,
+                                               itemsize)
+            assert pt_ga.supports_sorted_gather(num_out, num_rows, dim,
+                                                itemsize) == want
+            seen.add(want)
+        assert pt_ga.supports_sorted_gather(num_out, num_rows, dim) == \
+            j_ga.supports_sorted_gather(num_out, num_rows, dim)
+        assert pt_ga._pick_tn(num_rows, num_out, 512) == \
+            j_ga._pick_tn(num_rows, num_out, 512)
+    if dim == 128:
+        assert seen == {True}
+    if dim >= 3072:
+        assert False in seen    # the 512-row tiles no longer fit
 
 
 # -- take_rows_sorted_grad ----------------------------------------------

@@ -278,10 +278,10 @@ def test_train_step_takes_the_training_kernels(kernels_on, monkeypatch, d):
 
 
 def test_fused_ffn_training_gates_match_jax(kernels_on):
-    """The gate constants are the JAX package's, and the one case the JAX
+    """The gate constants are the JAX package's, and the case the JAX
     package sends to the fused FFN backward (d <= 256 and a feature set of
     >= 65,536 rows; the row bound is lowered here to reach it at a test
-    size) still raises, naming the kernel table row."""
+    size) trains through the fused function's own backward."""
     assert pt.GNCore._FUSED_FFN_TRAIN_MAX_DIM == \
         gn.GNCore._FUSED_FFN_TRAIN_MAX_DIM
     assert pt.GNCore._FUSED_FFN_TRAIN_MIN_ROWS == \
@@ -289,12 +289,22 @@ def test_fused_ffn_training_gates_match_jax(kernels_on):
     d = 128
     _, _, gp, _ = _batches(5, d, False, bf16=True)
     core = pt.GNCore((d, d, d), device="cpu", dtype=torch.bfloat16)
-    core._FUSED_FFN_TRAIN_MIN_ROWS = gp.num_edge_slots
-    with pytest.raises(NotImplementedError, match="row 3"):
-        core(gp, training=True)
-    core._FUSED_FFN_TRAIN_MIN_ROWS = gp.num_edge_slots + 1
-    out = core(gp, training=True).ef.detach().float().numpy()
-    assert np.isfinite(out).all()
+    calls = []
+    real = pt_ffn.ln_ffn_backward_plain
+    try:
+        pt_ffn.ln_ffn_backward_plain = \
+            lambda *a: calls.append(a[0].shape[0]) or real(*a)
+        core._FUSED_FFN_TRAIN_MIN_ROWS = gp.num_edge_slots
+        core(gp, training=True).ef.float().sum().backward()
+        assert calls == [gp.num_edge_slots]   # the edge set alone
+        assert np.isfinite(core.ffwd.eff[0].w.grad.float().numpy()).all()
+        core._FUSED_FFN_TRAIN_MIN_ROWS = gp.num_edge_slots + 1
+        out = core(gp, training=True).ef
+        out.float().sum().backward()
+        assert calls == [gp.num_edge_slots]   # below the bound: composed
+    finally:
+        pt_ffn.ln_ffn_backward_plain = real
+    assert np.isfinite(out.detach().float().numpy()).all()
 
 
 def test_losses_match_jax():
