@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``graphnets_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run below
+    python3 chip_smoke.py --gates    # only the training-gate timings
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
 (4b drives the training step; A and B drive the non-uniform route; C and D
@@ -110,8 +111,12 @@ C. run the single large graph (``benchmarks/bench_large_graph.py``: one
    d = 128; the FFN forward, the LN backward, the sorted sum and the sorted
    gather at the shapes this route gives them; and the wide rows of
    ``ln_matmul`` and its backward (d = dout = 512 and 1024 in bf16, 640 in
-   f32).  The million-row cases are timed by 5 eager calls between CUDA
-   events, not by a CUDA graph;
+   f32).  The rest of the fused FFN's gate: its forward at T = 16384 in
+   bf16 at d = 512 and in f32 at d = 384, its backward at T = 65,536 in
+   bf16 at d = 384 and 512 and in f32 at d = 256.  The FFN backward and
+   both segment sums also launch twice on the same inputs and must be
+   bit-equal (a fixed summation order).  The million-row cases are timed by
+   5 eager calls between CUDA events, not by a CUDA graph;
 D. run sampled training (``benchmarks/bench_arxiv.py``: a synthetic graph
    of 169,343 nodes and 1,166,243 edges with power-law in-degree, 128-d
    features, 40 classes; ``NeighborSampler((10, 10), batch 512)`` with
@@ -308,31 +313,36 @@ def check_edge_update(torch, eu, g, seed):
             "bound_by": by}
 
 
-def check_ffn(torch, ffn, T, seed, D=D, large=False):
-    """Kernel 2 against its plain version at T rows of width D."""
+def check_ffn(torch, ffn, T, seed, D=D, large=False, dtype=None):
+    """Kernel 2 against its plain version at T rows of width D, bf16 (or
+    ``dtype``) rows."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    bf = torch.bfloat16
-    x, extra = rnd(T, D).to(bf), rnd(T, D).to(bf)
+    dt = dtype or torch.bfloat16
+    es = 2 if dt == torch.bfloat16 else 4
+    x, extra = rnd(T, D).to(dt), rnd(T, D).to(dt)
     w = (1 + 0.1 * rnd(D), 0.1 * rnd(D),
-         (rnd(D, 4 * D) * D ** -0.5).to(bf), (0.1 * rnd(4 * D)).to(bf),
-         (rnd(4 * D, D) * (4 * D) ** -0.5).to(bf), (0.1 * rnd(D)).to(bf))
+         (rnd(D, 4 * D) * D ** -0.5).to(dt), (0.1 * rnd(4 * D)).to(dt),
+         (rnd(4 * D, D) * (4 * D) ** -0.5).to(dt), (0.1 * rnd(D)).to(dt))
     with torch.no_grad():
         y = ffn.ln_ffn_residual(x, *w, extra=extra)
         ref = ffn.ln_ffn_residual_plain(x, *w, extra=extra)
     torch.cuda.synchronize()
     err = float((y.float() - ref.float()).abs().max())
-    # Two bf16 ulps at the largest magnitude: the final rounding, plus a
-    # hidden value that rounds the other way after a differently ordered
-    # f32 sum.
-    tol = 2.0 ** -6 * float(ref.float().abs().max())
+    # bf16: two bf16 ulps at the largest magnitude (the final rounding,
+    # plus a hidden value that rounds the other way after a differently
+    # ordered f32 sum); f32: 1e-5 of it (f32 sums in another order).
+    tol = (2.0 ** -6 if es == 2 else 1e-5) * float(ref.float().abs().max())
     kernel = lambda: ffn.ln_ffn_residual(x, *w, extra=extra)
     plain = lambda: ffn.ln_ffn_residual_plain(x, *w, extra=extra)
     with torch.no_grad():
         times = timed(torch, kernel, plain, large=large)
-    nbytes = 3 * T * D * 2 + 2 * D * 4 * D * 2 + (2 * D + 4 * D + D) * 4
-    bms, by = bound_ms(nbytes, 4 * T * D * 4 * D)
-    return {"shape": f"T={T} d={D}", "max_err": err, "tol": tol,
+    nbytes = 3 * T * D * es + 2 * D * 4 * D * es + (2 * D + 4 * D + D) * 4
+    flops = 4 * T * D * 4 * D
+    bms, by = (bound_ms(nbytes, flops) if es == 2
+               else bound_ms(nbytes, 0, flops_f32=flops))
+    return {"shape": f"T={T} d={D}" + ("" if es == 2 else " f32"),
+            "max_err": err, "tol": tol,
             "ok": err <= tol and bool(torch.isfinite(y.float()).all()),
             **times, "bound_ms": bms, "bound_by": by}
 
@@ -433,10 +443,12 @@ def check_segment_sums(torch, ss, g, seed, dtype=None,
             0, ids_long, xf)
         with torch.no_grad():
             before = getattr(ss, counts[name])
-            out, ref = kernel(), plain()
+            out, ref, again = kernel(), plain(), kernel()
         torch.cuda.synchronize()
-        if getattr(ss, counts[name]) != before + 1:
+        if getattr(ss, counts[name]) != before + 2:
             raise SystemExit(f"{name}_segment_sum did not launch its kernel")
+        # A fixed summation order: a second launch is bit-equal.
+        same = torch.equal(out, again)
         err = max_err(out, ref)
         tol = (2.0 ** -7 if es == 2 else 1e-5) * float(ref.float().abs().max())
         nbytes = E * D * es + E * 4 + N * D * es + (
@@ -445,7 +457,8 @@ def check_segment_sums(torch, ss, g, seed, dtype=None,
         cases[name] = {"shape": f"{name} E={E} N={N} G={G} d={D} "
                                 f"{'bf16' if es == 2 else 'f32'}",
                        "max_err": err, "tol": tol,
-                       "ok": (err <= tol and out.dtype == ref.dtype
+                       "bit_equal_relaunch": same,
+                       "ok": (err <= tol and out.dtype == ref.dtype and same
                               and bool(torch.isfinite(out.float()).all())),
                        **timed(torch, kernel, plain, library, large),
                        "bound_ms": bms, "bound_by": by}
@@ -963,21 +976,23 @@ def check_g1(torch, g1, E, N, d, dtype, part_dtype, kind, seed, large=False):
     return cases
 
 
-def check_ffn_backward(torch, ffn, T, d, seed, large=False):
-    """The fused LN->FFN->residual backward at T bf16 rows of width d
-    against its plain version: dx within 2^-6 of its largest magnitude; the
-    six parameter gradients within 1e-2 of theirs (f32 sums of products of
-    bf16 values in another order, and a relu mask that may flip where the
-    f32 pre-activation is within rounding of 0).  No single PyTorch call
-    computes it, so ``library_ms`` is null."""
+def check_ffn_backward(torch, ffn, T, d, seed, large=False, dtype=None):
+    """The fused LN->FFN->residual backward at T bf16 (or ``dtype``) rows
+    of width d against its plain version: dx within 2^-6 (f32: 1e-4) of
+    its largest magnitude; the six parameter gradients within 1e-2 of
+    theirs (f32 sums of products in another order, and a relu mask that may
+    flip where the f32 pre-activation is within rounding of 0, in f32 too);
+    and two launches bit-equal.  No single PyTorch call computes it, so
+    ``library_ms`` is null."""
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
-    bf = torch.bfloat16
+    dt = dtype or torch.bfloat16
+    es = 2 if dt == torch.bfloat16 else 4
     x = rnd(T, d)
     x[:3] = 0.0  # var == 0 rows
-    args = (x.to(bf), 1 + 0.1 * rnd(d), 0.1 * rnd(d),
-            (rnd(d, 4 * d) * d ** -0.5).to(bf), (0.1 * rnd(4 * d)).to(bf),
-            (rnd(4 * d, d) * (4 * d) ** -0.5).to(bf), rnd(T, d).to(bf))
+    args = (x.to(dt), 1 + 0.1 * rnd(d), 0.1 * rnd(d),
+            (rnd(d, 4 * d) * d ** -0.5).to(dt), (0.1 * rnd(4 * d)).to(dt),
+            (rnd(4 * d, d) * (4 * d) ** -0.5).to(dt), rnd(T, d).to(dt))
     kernel = lambda: ffn.ln_ffn_backward(*args)
     plain = lambda: ffn.ln_ffn_backward_plain(*args)
     with torch.no_grad():
@@ -989,18 +1004,25 @@ def check_ffn_backward(torch, ffn, T, d, seed, large=False):
         names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
         rel = {n: max_err(o, r) / max(float(r.float().abs().max()), 1e-30)
                for n, o, r in zip(names, out, ref)}
-        tols = dict(zip(names, (2.0 ** -6,) + (1e-2,) * 6))
+        tols = dict(zip(names, (2.0 ** -6 if es == 2 else 1e-4,)
+                        + (1e-2,) * 6))
         finite = all(bool(torch.isfinite(o.float()).all()) for o in out)
         err = max(max_err(o, r) for o, r in zip(out, ref))
-        del out, ref
+        del ref
+        again = kernel()
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        del out, again
         times = timed(torch, kernel, plain, large=large)
-    # x, g in, dx out; both weights in (bf16), their gradients out (f32).
-    nbytes = 3 * T * d * 2 + 2 * d * 4 * d * (2 + 4) + 8 * d * 4
+    # x, g in, dx out; both weights in, their gradients out (f32).
+    nbytes = 3 * T * d * es + 2 * d * 4 * d * (es + 4) + 8 * d * 4
     # The five products the function needs: hp, dh, dW2, dW1, dxn.
-    bms, by = bound_ms(nbytes, 10 * T * d * 4 * d)
-    return {"shape": f"T={T} d={d} bf16", "max_err": err, "rel_err": rel,
-            "tol": tols,
-            "ok": finite and all(rel[n] <= tols[n] for n in names),
+    flops = 10 * T * d * 4 * d
+    bms, by = (bound_ms(nbytes, flops) if es == 2
+               else bound_ms(nbytes, 0, flops_f32=flops))
+    return {"shape": f"T={T} d={d} {'bf16' if es == 2 else 'f32'}",
+            "max_err": err, "rel_err": rel, "tol": tols,
+            "bit_equal_relaunch": same,
+            "ok": finite and same and all(rel[n] <= tols[n] for n in names),
             **times, "bound_ms": bms, "bound_by": by}
 
 
@@ -1406,6 +1428,93 @@ def sampled_phase(torch, pt, zero_counts, read_counts):
             "graph_build_s": build_s}
 
 
+# The GNCore training gates re-measured by ``--gates``: JAX's settings
+# (the port's constants) and one change each.
+GATE_SETTINGS = (
+    ("jax", {}),
+    ("max_dim_384", {"max_dim": 384}),
+    ("min_rows_8192", {"min_rows": 8192}),
+    ("agg_off", {"agg": False}),
+)
+
+
+def gates_phase(torch, pt):
+    """``python3 chip_smoke.py --gates``: the phase C train step (the large
+    graph, d = 256) and the phase D sampled step under JAX's training gates
+    and under one change each: ``_FUSED_FFN_TRAIN_MAX_DIM`` 384,
+    ``_FUSED_FFN_TRAIN_MIN_ROWS`` 8,192 (D's 56,320 / 56,960-row sets then
+    train fused) and ``g1_agg_fusion_training`` off.  Each setting runs
+    twice, the second pass in reverse order; a time is the mean of a few
+    steps between CUDA events after one warm-up step, with the summed
+    kernel time of one profiled step (the sampled step is host-bound, so
+    its eager times spread) and the FFN forward / backward launches of one
+    step beside it."""
+    from graphnets_tpu_torch.ops.kernels import fused_ffn as ffn
+    from graphnets_tpu_torch.utils.config import get_config
+    cfg = get_config()
+    base = (pt.GNCore._FUSED_FFN_TRAIN_MAX_DIM,
+            pt.GNCore._FUSED_FFN_TRAIN_MIN_ROWS, cfg.g1_agg_fusion_training)
+
+    def apply(st):
+        pt.GNCore._FUSED_FFN_TRAIN_MAX_DIM = st.get("max_dim", base[0])
+        pt.GNCore._FUSED_FFN_TRAIN_MIN_ROWS = st.get("min_rows", base[1])
+        cfg.g1_agg_fusion_training = st.get("agg", base[2])
+
+    pt.enable_kernels(True)
+    g = large_graph(torch, pt)
+    rng = np.random.default_rng(1)
+    target = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(device=g.device, dtype=torch.bfloat16)
+    y = g.with_features(ef=target(LG_E, LG_D), nf=target(LG_N, LG_D),
+                        gf=None)
+    model_c = pt.GNCoreList([pt.GNCore((LG_D,) * 3,
+                                       generator=torch.Generator()
+                                       .manual_seed(0))
+                             for _ in range(LG_CORES)])
+    step_c = pt.make_train_step(model_c, pt.adamw(model_c.parameters(), 3e-4),
+                                compute_dtype=torch.bfloat16)
+    graph = arxiv_shaped_graph(pt)
+    sampler = pt.NeighborSampler(graph, fanouts=AX_FANOUTS,
+                                 batch_size=AX_BATCH, seed=1,
+                                 emit_node_ids=True)
+    feat = pt.device_feature_table(graph, torch.bfloat16)
+    model_d = pt.EncodeProcessDecode(
+        (0, AX_FEAT, 0), (AX_HIDDEN,) * 3, (1, AX_CLASSES, 0),
+        n_cores=AX_CORES, generator=torch.Generator().manual_seed(0))
+    step_d = pt.make_node_classification_step(
+        model_d, torch.optim.Adam(model_d.parameters(), lr=1e-3),
+        AX_CLASSES, compute_dtype=torch.bfloat16)
+    b = next(sampler.epoch(np.arange(graph.num_nodes)))
+    run_d = lambda: step_d(b.graph, b.node_ids, b.labels, b.label_mask,
+                           b.seed_local_idx, feat)
+    results = {}
+    order = list(GATE_SETTINGS) + list(reversed(GATE_SETTINGS))
+    try:
+        for name, st in order:
+            apply(st)
+            row = {}
+            for key, fn, iters in (("c", lambda: step_c(g, y), 3),
+                                   ("d", run_d, 10)):
+                fn()
+                torch.cuda.synchronize()
+                before = (ffn.LAUNCHES, ffn.BWD_LAUNCHES)
+                fn()
+                torch.cuda.synchronize()
+                row[key + "_ffn"] = (ffn.LAUNCHES - before[0],
+                                     ffn.BWD_LAUNCHES - before[1])
+                row[key + "_ms"] = cuda_ms(torch, fn, iters=iters, warmup=0)
+                row[key + "_device_ms"] = profile_forward(torch, fn)[1]
+            results.setdefault(name, []).append(row)
+            log(f"gates {name}: C step {row['c_ms']:.4f} ms eager, "
+                f"{row['c_device_ms']:.4f} ms of kernels (FFN fwd/bwd "
+                f"launches {row['c_ffn']}); D step {row['d_ms']:.4f} ms "
+                f"eager, {row['d_device_ms']:.4f} ms of kernels "
+                f"({row['d_ffn']})")
+    finally:
+        apply({})
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1454,6 +1563,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     where = f"{kind}, {card.split(',')[-1].strip()}"
     log(f"card: {card}")
+
+    if "--gates" in sys.argv[1:]:
+        _build.build()
+        log(json.dumps({"gates": gates_phase(torch, pt), "card": card}))
+        return 0
 
     # 2. Build every kernel.
     t0 = time.perf_counter()
@@ -1533,11 +1647,19 @@ def main() -> int:
     ffn_bwd_cases = [check_ffn_backward(torch, ffn, LG_E, LG_D, 53,
                                         large=True),
                      check_ffn_backward(torch, ffn, LG_N, LG_D, 54),
-                     check_ffn_backward(torch, ffn, LG_N, 128, 55)]
+                     check_ffn_backward(torch, ffn, LG_N, 128, 55),
+                     # The rest of the JAX gate: d = 384 and 512, f32 rows.
+                     check_ffn_backward(torch, ffn, LG_N, 384, 71),
+                     check_ffn_backward(torch, ffn, LG_N, 512, 72),
+                     check_ffn_backward(torch, ffn, LG_N, LG_D, 73,
+                                        dtype=torch.float32)]
     rg_case = check_random_gather(torch, rg, LG_N, LG_D, LG_E, 56)
     # The earlier kernels at the shapes this route gives them.
     ffn_cases += [check_ffn(torch, ffn, LG_E, 57, D=LG_D, large=True),
-                  check_ffn(torch, ffn, LG_N, 58, D=LG_D)]
+                  check_ffn(torch, ffn, LG_N, 58, D=LG_D),
+                  # The rest of the JAX gate: d = 512, and f32 rows.
+                  check_ffn(torch, ffn, T_E, 74, D=512),
+                  check_ffn(torch, ffn, T_E, 75, D=384, dtype=torch.float32)]
     ln_cases.append(check_ln_backward(torch, ll, lnp, LG_E, 59, D=LG_D,
                                       large=True))
     seg_large = check_segment_sums(torch, ss, g_large, 60, which=("sorted",),

@@ -6,637 +6,1018 @@
 //
 // Replaces the Pallas kernel of `_fused_backward`
 // (graphnets_tpu/ops/pallas/fused_ffn.py, `_bwd_kernel`), with its
-// arithmetic: only x is kept from the forward; per row tile the LN
-// statistics (Flux convention, std = 0 and sigma = 1 where var == 0), the
-// normalised rows xn = bf16(z * scale + bias) and the hidden activation are
-// recomputed, and
+// arithmetic: only x is kept from the forward; the LN statistics (Flux
+// convention, std = 0 and sigma = 1 where var == 0), the normalised rows
+// xn = T(z * scale + bias) and the hidden activation are recomputed, and
 //
-//   hp  = xn @ W1 + b1 (f32),   h = bf16(relu(hp))
+//   hp  = xn @ W1 + b1 (f32),   h = T(relu(hp))
 //   db2 = sum_rows f32(g),      dW2 = h^T @ g
 //   dh  = g @ W2^T,             dhp = dh where hp > 0 else 0 (mask from f32)
-//   db1 = sum_rows dhp,         dW1 = xn^T @ bf16(dhp)
-//   dxn = bf16(dhp) @ W1^T,     dscale = sum_rows dxn * z,  dbias = sum_rows dxn
+//   db1 = sum_rows dhp,         dW1 = xn^T @ T(dhp)
+//   dxn = T(dhp) @ W1^T,        dscale = sum_rows dxn * z,
+//                               dbias = sum_rows dxn
 //   dz  = dxn * scale
-//   dx  = bf16( (dz - mean(dz)) / s - (z - mean(z)) * (mean(dz * z) / sigma)
-//               + f32(g) )
+//   dx  = T( (dz - mean(dz)) / s - (z - mean(z)) * (mean(dz * z) / sigma)
+//            + f32(g) )
 //
-// with every product accumulated in f32 on the tensor cores (WMMA, bf16 in).
+// for rows of type T (bf16 or f32), every product accumulated in f32.
 //
-// What bounds it on the H100: 12 * T * d * 4d operations in the TPU
-// kernel's count (3.3 TFLOP at T = 1,048,576, d = 256: ~3.3 ms at
-// 989 TFLOP/s) against 3 * T * d * 2 bytes (1.6 GB, ~0.5 ms): the tensor
-// cores bound it.
+// What bounds it on the H100: the five products of T x d x 4d that the
+// function needs, 10 * T * d * 4d operations (2.75 TFLOP at T = 1,048,576,
+// d = 256: ~2.8 ms at 989 TFLOP/s bf16) against 3 * T * d * 2 bytes of
+// rows (1.6 GB, ~0.5 ms): the tensor cores bound it.
 //
-// What the design does about it.  The [T, 4d] hidden activation never
-// reaches device memory.  The TPU kernel kept both weight gradients
-// (2 x d x 4d f32) resident across its sequential grid; a block here cannot
-// hold them, and blocks run in parallel, so the work is split in two passes
-// that each recompute hp and dh (14 products of T * d * 4d in all):
+// What the design does about it.  The TPU kernel kept both weight
+// gradients (2 x d x 4d f32) resident across its sequential grid and
+// recomputed hp and dh once.  On the H100 the five products run as three
+// tensor-core passes of one warp-specialised kernel, and the [T, 4d]
+// hidden activation and its cotangent make one round trip through device
+// memory in x's type instead of being recomputed by a second pass:
 //
-// 1. Row pass (dx and the three [d] sums).  A block walks 64-row tiles with
-//    a grid stride.  It keeps xn and g of the tile in shared memory, walks
-//    the hidden dimension in slices of 32 whose W1 and W2 pieces stream
-//    through a two-stage cp.async ring, forms hp and dh of the slice, masks,
-//    rounds, and adds bf16(dhp) @ W1[:, slice]^T into an f32 [64, d]
-//    accumulator in registers.  Then the LN pullback and the residual
-//    passthrough give dx.  Its column sums of dxn * z, dxn and g are added
-//    tile after tile (fixed order) and written once per block.
-// 2. Weight pass (dW1, dW2, db1).  A block owns one 32-wide hidden slice and
-//    one range of rows (split-K): W1[:, slice] and W2[slice, :] stay in
-//    shared memory, it walks its rows 32 at a time, rebuilds xn from x and
-//    the statistics of pass 1, forms h and bf16(dhp) of the chunk, and adds
-//    h^T @ g into an f32 [32, d] and xn^T @ bf16(dhp) into an f32 [d, 32]
-//    accumulator in registers.  Blocks of one row range run side by side
-//    (the slice is the fast grid dimension), so x and g come from L2.
-// 3. The partials of both passes are added in a fixed order: no atomics,
+// 0. prep: one warp a row writes xn and the row statistics.
+// 1. hidden pass (hp and dh, K = d): per [128 rows, 128 hidden] tile it
+//    forms hp = xn @ W1 and dh = g @ W2^T, writes h and T(dhp) and the
+//    tile's column sums of the f32 dhp (for db1).
+// 2. dxn pass (K = 4d): dxn = T(dhp) @ W1^T into f32 [T, d].
+// 3. post: one warp a row gives dx from dxn, x and the statistics; the
+//    column sums of dxn * z, dxn and g are added tile after tile.
+// 4. weight pass (K = T, split over row ranges): dW2 = h^T @ g and
+//    dW1 = xn^T @ T(dhp), the row dimension read MN-major.
+// 5. the partials of the passes are added in a fixed order: no atomics,
 //    deterministic.
 //
-// A wgmma/TMA pipeline and a single recompute are later work.
+// bf16 rows: each pass is a block of two consumer warpgroups (64 rows
+// each) and one producer warp.  The producer keeps a four-stage ring of
+// [128 x 64] operand tiles full with TMA loads (cp.async.bulk.tensor,
+// 128-byte swizzle, completion on an mbarrier per stage); the consumers run
+// wgmma.mma_async m64n128k16 on the stage that has arrived, keep one
+// group in flight, and hand the previous stage back through its "empty"
+// mbarrier.  Rows past T arrive as zeros (the tensor map's bounds) and are
+// never written.  f32 rows (no driven path trains through them): the same
+// passes with true-f32 products on the CUDA cores (64 x 64 tiles, every
+// thread a 4 x 4 piece, multiply-adds in order of k, never TF32).
+//
+// The rejected design (the first one): a row pass and a split-K weight
+// pass that each recomputed hp and dh with WMMA, loading, synchronising
+// and multiplying in turn (7 products; 60.7 ms at T = 1,048,576, d = 256
+// on an H100 80GB HBM3 at 700 W).
 
-#include <mma.h>
+#include <cuda.h>
+#include <dlfcn.h>
 
 #include "common.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;     // rows per tile, row pass
-constexpr int kSlice = 32;    // hidden columns per step
-constexpr int kChunk = 32;    // rows per step, weight pass
+constexpr int kBM = 128;                   // rows (M) of a tile
+constexpr int kBN = 128;                   // columns (N) of a tile
+constexpr int kBK = 64;                    // k of a stage: one 128-byte row
+constexpr int kStages = 4;
+constexpr int kTileBytes = kBM * kBK * 2;  // 16 KB: one operand of a stage
+constexpr int kStageBytes = 2 * kTileBytes;
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kGemmThreads = kConsumers + 32;
+// The hidden pass stages its bf16 h and dhp tiles here before writing
+// them out in whole rows (two [64, kBN + 8] tiles a consumer warpgroup).
+constexpr int kLdo = kBN + 8;
+constexpr int kOutBytes = 2 * 2 * 64 * kLdo * 2;
+constexpr size_t kGemmSmem = (size_t)kStages * kStageBytes + kOutBytes +
+                             1024 + (size_t)8 * kBN * 4 + 2 * kStages * 8;
 
-template <int D>
-struct RowLayout {
-  static constexpr int kLdx = D + 8;          // xn and g rows, bf16
-  static constexpr int kLdw1 = kSlice + 8;    // W1[:, slice], bf16
-  static constexpr int kLdw2 = D + 8;         // W2[slice, :], bf16
-  static constexpr int kLdhf = kSlice + 4;    // hp / dh slices, f32
-  static constexpr int kLdhs = kSlice + 8;    // bf16(dhp) slice
-  static constexpr int kLdd = D + 4;          // dxn spill, f32
-  static constexpr int kW1Stage = D * kLdw1;
-  static constexpr int kW2Stage = kSlice * kLdw2;
-  static constexpr size_t kX = 0;
-  static constexpr size_t kG = kX + (size_t)kRows * kLdx * 2;
-  static constexpr size_t kW1 = kG + (size_t)kRows * kLdx * 2;
-  static constexpr size_t kW2 = kW1 + (size_t)2 * kW1Stage * 2;
-  static constexpr size_t kHf = kW2 + (size_t)2 * kW2Stage * 2;
-  static constexpr size_t kDf = kHf + (size_t)kRows * kLdhf * 4;
-  static constexpr size_t kDs = kDf + (size_t)kRows * kLdhf * 4;
-  static constexpr size_t kSt = kDs + (size_t)kRows * kLdhs * 2;
-  static constexpr size_t kSums = kSt + (size_t)kRows * 3 * 4;
-  static constexpr size_t kBytes = kSums + (size_t)3 * D * 4;
-  // The dxn spill reuses the rings and the f32 slices.
-  static_assert((size_t)kRows * kLdd * 4 <= kDs - kW1, "dxn spill fits");
-};
+enum Mode { kHidden = 0, kDxn = 1, kWeights = 2 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-ffn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ g,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias,
-                    const __nv_bfloat16* __restrict__ w1,
-                    const float* __restrict__ b1,
-                    const __nv_bfloat16* __restrict__ w2,
-                    __nv_bfloat16* __restrict__ dx, float* __restrict__ stats,
-                    float* __restrict__ part_ds, float* __restrict__ part_db,
-                    float* __restrict__ part_db2, int T) {
-  using L = RowLayout<D>;
-  constexpr int DH = 4 * D;
-  constexpr int NY = D / 32;  // dxn fragments a warp
-  constexpr int kSteps = DH / kSlice;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem + L::kX);
-  __nv_bfloat16* Gs = reinterpret_cast<__nv_bfloat16*>(smem + L::kG);
-  __nv_bfloat16* W1s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW1);
-  __nv_bfloat16* W2s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW2);
-  float* Hf = reinterpret_cast<float*>(smem + L::kHf);
-  float* Df = reinterpret_cast<float*>(smem + L::kDf);
-  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + L::kDs);
-  float* st = reinterpret_cast<float*>(smem + L::kSt);
-  float* sums = reinterpret_cast<float*>(smem + L::kSums);
-  float* Dx = reinterpret_cast<float*>(smem + L::kW1);  // dxn spill
+// ---- PTX wrappers -----------------------------------------------------------
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rb = warp & 3, ch = warp >> 2;
-  for (int i = tid; i < 3 * D; i += kThreads) sums[i] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  auto load_slice = [&](int s) {
-    const int j0 = s * kSlice;
-    __nv_bfloat16* w1s = W1s + (s & 1) * L::kW1Stage;
-    __nv_bfloat16* w2s = W2s + (s & 1) * L::kW2Stage;
-    for (int i = tid; i < D * (kSlice / 8); i += kThreads) {
-      const int k = i / (kSlice / 8), v = i % (kSlice / 8);
-      gn::cp_async16(w1s + k * L::kLdw1 + v * 8,
-                     w1 + (size_t)k * DH + j0 + v * 8);
-    }
-    gn::cp_async_rows(w2s, L::kLdw2, w2 + (size_t)j0 * D, kSlice, D, tid,
-                      kThreads);
-    gn::cp_async_commit();
-  };
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
 
-  const int tiles = (T + kRows - 1) / kRows;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile * kRows;
-    const int rows = min(kRows, T - row0);
-    __syncthreads();  // the previous tile's readers of the buffers are done
-    gn::cp_async_rows(Xs, L::kLdx, x + (size_t)row0 * D, rows, D, tid,
-                      kThreads);
-    gn::cp_async_rows(Gs, L::kLdx, g + (size_t)row0 * D, rows, D, tid,
-                      kThreads);
-    gn::cp_async_commit();
-    load_slice(0);
-    for (int i = rows * D + tid; i < kRows * D; i += kThreads) {
-      Xs[(i / D) * L::kLdx + i % D] = __float2bfloat16_rn(0.f);
-      Gs[(i / D) * L::kLdx + i % D] = __float2bfloat16_rn(0.f);
-    }
-    gn::cp_async_wait<1>();
-    __syncthreads();
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
 
-    // Statistics, then xn in place; one warp a row.
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      __nv_bfloat16* xr = Xs + r * L::kLdx;
-      float s = 0.f;
-      for (int c = lane; c < D; c += 32) s += __bfloat162float(xr[c]);
-      const float mean = gn::warp_sum(s) / D;
-      float q = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float v = __bfloat162float(xr[c]) - mean;
-        q += v * v;
-      }
-      const float var = gn::warp_sum(q) / D;
-      const float sd = var > 0.f ? sqrtf(var) : 0.f;
-      const float sv = sd + gn::kLnEps;
-      if (lane == 0) {
-        st[r * 3] = mean;
-        st[r * 3 + 1] = sv;
-        st[r * 3 + 2] = var > 0.f ? sd : 1.f;
-        if (r < rows) {
-          stats[(size_t)(row0 + r) * 2] = mean;
-          stats[(size_t)(row0 + r) * 2 + 1] = sv;
-        }
-      }
-      if (r < rows)
-        for (int c = lane; c < D; c += 32)
-          xr[c] = __float2bfloat16_rn(__fadd_rn(
-              __fmul_rn((__bfloat162float(xr[c]) - mean) / sv, scale[c]),
-              bias[c]));
-    }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[NY];
-#pragma unroll
-    for (int f = 0; f < NY; ++f) wmma::fill_fragment(yacc[f], 0.f);
-
-    for (int s = 0; s < kSteps; ++s) {
-      if (s + 1 < kSteps) {
-        load_slice(s + 1);
-        gn::cp_async_wait<1>();
-      } else {
-        gn::cp_async_wait<0>();
-      }
-      __syncthreads();
-      const __nv_bfloat16* w1s = W1s + (s & 1) * L::kW1Stage;
-      const __nv_bfloat16* w2s = W2s + (s & 1) * L::kW2Stage;
-      const int j0 = s * kSlice;
-
-      // hp and dh of the slice, [64, 32] each: one fragment of each a warp
-      // (rows rb * 16, columns ch * 16), two chains each.
-      {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[2], dacc[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          wmma::fill_fragment(hacc[c], 0.f);
-          wmma::fill_fragment(dacc[c], 0.f);
-        }
-#pragma unroll
-        for (int k = 0; k < D; k += 32) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int kk = k + 16 * c;
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fb;
-            wmma::load_matrix_sync(fa, Xs + rb * 16 * L::kLdx + kk, L::kLdx);
-            wmma::load_matrix_sync(fb, w1s + kk * L::kLdw1 + ch * 16,
-                                   L::kLdw1);
-            wmma::mma_sync(hacc[c], fa, fb, hacc[c]);
-            // dh = g @ W2[slice, :]^T: B(k, n) = W2s[n][k].
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::col_major> ft;
-            wmma::load_matrix_sync(fa, Gs + rb * 16 * L::kLdx + kk, L::kLdx);
-            wmma::load_matrix_sync(ft, w2s + ch * 16 * L::kLdw2 + kk,
-                                   L::kLdw2);
-            wmma::mma_sync(dacc[c], fa, ft, dacc[c]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < hacc[0].num_elements; ++i) {
-          hacc[0].x[i] += hacc[1].x[i];
-          dacc[0].x[i] += dacc[1].x[i];
-        }
-        wmma::store_matrix_sync(Hf + rb * 16 * L::kLdhf + ch * 16, hacc[0],
-                                L::kLdhf, wmma::mem_row_major);
-        wmma::store_matrix_sync(Df + rb * 16 * L::kLdhf + ch * 16, dacc[0],
-                                L::kLdhf, wmma::mem_row_major);
-      }
-      __syncthreads();
-
-      for (int i = tid; i < kRows * kSlice; i += kThreads) {
-        const int r = i / kSlice, c = i % kSlice;
-        const float hp = Hf[r * L::kLdhf + c] + b1[j0 + c];
-        Ds[r * L::kLdhs + c] =
-            __float2bfloat16_rn(hp > 0.f ? Df[r * L::kLdhf + c] : 0.f);
-      }
-      __syncthreads();
-
-      // dxn[64, D] += bf16(dhp) @ W1[:, slice]^T: B(k, n) = W1s[n][k].
-#pragma unroll
-      for (int k = 0; k < kSlice; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Ds + rb * 16 * L::kLdhs + k, L::kLdhs);
-#pragma unroll
-        for (int f = 0; f < NY; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          wmma::load_matrix_sync(
-              fb, w1s + (ch * (D / 2) + f * 16) * L::kLdw1 + k, L::kLdw1);
-          wmma::mma_sync(yacc[f], fa, fb, yacc[f]);
-        }
-      }
-      // The next iteration refills the other stage and rewrites Hf, Df, Ds.
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int f = 0; f < NY; ++f)
-      wmma::store_matrix_sync(Dx + rb * 16 * L::kLdd + ch * (D / 2) + f * 16,
-                              yacc[f], L::kLdd, wmma::mem_row_major);
-    __syncthreads();
-
-    // dx, one warp a row; z from the raw x (re-read: Xs holds xn now).
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      const float mean = st[r * 3], sv = st[r * 3 + 1], sigma = st[r * 3 + 2];
-      const __nv_bfloat16* xr = x + (size_t)(row0 + r) * D;
-      const float* dr = Dx + r * L::kLdd;
-      float sdz = 0.f, sdzz = 0.f, sz = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float z = (__bfloat162float(xr[c]) - mean) / sv;
-        const float dz = dr[c] * scale[c];
-        sdz += dz;
-        sdzz += dz * z;
-        sz += z;
-      }
-      const float mean_dz = gn::warp_sum(sdz) / D;
-      const float mean_dzz = gn::warp_sum(sdzz) / D;
-      const float mean_z = gn::warp_sum(sz) / D;
-      __nv_bfloat16* out = dx + (size_t)(row0 + r) * D;
-      for (int c = lane; c < D; c += 32) {
-        const float z = (__bfloat162float(xr[c]) - mean) / sv;
-        const float dz = dr[c] * scale[c];
-        const float dxf = (dz - mean_dz) / sv -
-                          (z - mean_z) * (mean_dzz / sigma);
-        out[c] = __float2bfloat16_rn(
-            dxf + __bfloat162float(Gs[r * L::kLdx + c]));
-      }
-    }
-    // Column sums of dxn * z, dxn and g over this tile's rows, in order.
-    for (int c = tid; c < D; c += kThreads) {
-      float sds = sums[c], sdb = sums[D + c], sg = sums[2 * D + c];
-      for (int r = 0; r < rows; ++r) {
-        const float z =
-            (__bfloat162float(x[(size_t)(row0 + r) * D + c]) - st[r * 3]) /
-            st[r * 3 + 1];
-        const float dv = Dx[r * L::kLdd + c];
-        sds += dv * z;
-        sdb += dv;
-        sg += __bfloat162float(Gs[r * L::kLdx + c]);
-      }
-      sums[c] = sds;
-      sums[D + c] = sdb;
-      sums[2 * D + c] = sg;
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < D; c += kThreads) {
-    part_ds[(size_t)blockIdx.x * D + c] = sums[c];
-    part_db[(size_t)blockIdx.x * D + c] = sums[D + c];
-    part_db2[(size_t)blockIdx.x * D + c] = sums[2 * D + c];
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-template <int D>
-struct WeightLayout {
-  static constexpr int kLdx = D + 8;          // xn and g chunks, bf16
-  static constexpr int kLdw1 = kSlice + 8;
-  static constexpr int kLdw2 = D + 8;
-  static constexpr int kLdhf = kSlice + 4;
-  static constexpr int kLdhs = kSlice + 8;
-  static constexpr size_t kX = 0;
-  static constexpr size_t kG = kX + (size_t)kChunk * kLdx * 2;
-  static constexpr size_t kW1 = kG + (size_t)kChunk * kLdx * 2;
-  static constexpr size_t kW2 = kW1 + (size_t)D * kLdw1 * 2;
-  static constexpr size_t kHf = kW2 + (size_t)kSlice * kLdw2 * 2;
-  static constexpr size_t kDf = kHf + (size_t)kChunk * kLdhf * 4;
-  static constexpr size_t kHs = kDf + (size_t)kChunk * kLdhf * 4;
-  static constexpr size_t kDs = kHs + (size_t)kChunk * kLdhs * 2;
-  static constexpr size_t kBytes = kDs + (size_t)kChunk * kLdhs * 2;
+// One box of `map` at (c0 = column, c1 = row) into shared memory; its
+// bytes complete on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator registers across the
+// asynchronous products.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (SBO); the leading offset is
+// unused.  MN-major tiles: each k is a 128-byte row of 64 MN values, 8-k
+// groups 1024 bytes apart (SBO), the next 64 MN values `lbo` bytes on.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], both operands in shared memory
+// (128-byte swizzle), f32 accumulate.  TA / TB: 0 for a K-major operand,
+// 1 for an MN-major one.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// ---- the tensor-core passes (bf16 rows) ------------------------------------
+
+struct GemmArgs {
+  int T, d;
+  int nk;               // k-steps of the block (kWeights: of a full split)
+  int k_split;          // kWeights: rows of a split (a multiple of kBK)
+  int tiles0;           // kWeights: tiles of the first problem (dW2)
+  int tiles_n0, tiles_n1;  // column tiles (of each problem for kWeights)
+  int items;            // work items: output tiles (x splits for kWeights)
+  const float* b1;      // kHidden
+  __nv_bfloat16* h;     // kHidden: [T, 4d]
+  __nv_bfloat16* dhp;   // kHidden: [T, 4d]
+  float* part_db1;      // kHidden: [ceil(T / 128), 4d]
+  float* c;             // kDxn: dxn [T, d]
+  float* part_dw2;      // kWeights: [splits, 4d, d]
+  float* part_dw1;      // kWeights: [splits, d, 4d]
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-ffn_bwd_weights_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ g,
-                       const float* __restrict__ stats,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ bias,
-                       const __nv_bfloat16* __restrict__ w1,
-                       const float* __restrict__ b1,
-                       const __nv_bfloat16* __restrict__ w2,
-                       float* __restrict__ part_dw1,
-                       float* __restrict__ part_db1,
-                       float* __restrict__ part_dw2, int T,
-                       int rows_per_split) {
-  using L = WeightLayout<D>;
-  constexpr int DH = 4 * D;
-  constexpr int NW = D / 128;   // 16-column (dW2) / 16-row (dW1) groups a warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem + L::kX);
-  __nv_bfloat16* Gs = reinterpret_cast<__nv_bfloat16*>(smem + L::kG);
-  __nv_bfloat16* W1s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW1);
-  __nv_bfloat16* W2s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW2);
-  float* Hf = reinterpret_cast<float*>(smem + L::kHf);
-  float* Df = reinterpret_cast<float*>(smem + L::kDf);
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem + L::kHs);
-  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + L::kDs);
+// kHidden: A0 = xn, B0 = W1^T, A1 = g, B1 = W2 (all K-major, K = d).
+// kDxn:    A0 = T(dhp), B0 = W1 (K-major, K = 4d).
+// kWeights: A0 = h, B0 = g (dW2); A1 = xn, B1 = T(dhp) (dW1); MN-major,
+//           K = the rows.
+template <int MODE>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ffn_bwd_gemm_kernel(__grid_constant__ const CUtensorMap a0,
+                    __grid_constant__ const CUtensorMap b0,
+                    __grid_constant__ const CUtensorMap a1,
+                    __grid_constant__ const CUtensorMap b1,
+                    const GemmArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (base - raw);
+  __nv_bfloat16* outs =
+      reinterpret_cast<__nv_bfloat16*>(smem + kStages * kStageBytes);
+  float* red =
+      reinterpret_cast<float*>(smem + kStages * kStageBytes + kOutBytes);
+  const uint32_t full =
+      base + kStages * kStageBytes + kOutBytes + 8 * kBN * 4;
+  const uint32_t empty = full + kStages * 8;
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int j0 = blockIdx.x * kSlice;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(T, r_begin + rows_per_split);
-
-  for (int i = tid; i < D * (kSlice / 8); i += kThreads) {
-    const int k = i / (kSlice / 8), v = (i % (kSlice / 8)) * 8;
-    *reinterpret_cast<uint4*>(W1s + k * L::kLdw1 + v) =
-        *reinterpret_cast<const uint4*>(w1 + (size_t)k * DH + j0 + v);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < kSlice * (D / 8); i += kThreads) {
-    const int k = i / (D / 8), v = (i % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(W2s + k * L::kLdw2 + v) =
-        *reinterpret_cast<const uint4*>(w2 + (size_t)(j0 + k) * D + v);
-  }
+  __syncthreads();
 
-  // dW2[slice, :] (2 x NW fragments a warp: 32 hidden rows x D / 8
-  // columns) and dW1[:, slice] (NW x 2: D / 8 rows x 32 hidden columns).
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[2][NW];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc1[NW][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      wmma::fill_fragment(acc2[i][j], 0.f);
-      wmma::fill_fragment(acc1[j][i], 0.f);
+  // Work item -> output tile and k range.  Persistent blocks walk the
+  // items with a grid stride; the ring's stage and phase run on across
+  // items, so the producer loads the next tile while the consumers finish
+  // this one.
+  auto decode = [&](int item, int& m0, int& n0, int& k_begin, int& nk,
+                    int& prob) {
+    if (MODE == kWeights) {
+      const int per_split = 2 * p.tiles0;
+      int t = item % per_split;
+      prob = t >= p.tiles0;
+      if (prob) t -= p.tiles0;
+      const int tn = prob ? p.tiles_n1 : p.tiles_n0;
+      m0 = (t / tn) * kBM;
+      n0 = (t % tn) * kBN;
+      k_begin = (item / per_split) * p.k_split;
+      nk = max(0, min(p.nk, (p.T - k_begin + kBK - 1) / kBK));
+    } else {
+      n0 = (item % p.tiles_n0) * kBN;
+      m0 = (item / p.tiles_n0) * kBM;
+      k_begin = 0;
+      nk = p.nk;
+      prob = 0;
     }
-  float db1 = 0.f;  // threads 0..31: the column's sum of dhp
+  };
+  const int nk0 = MODE == kHidden ? p.d / kBK : p.nk;
 
-  for (int r0 = r_begin; r0 < r_end; r0 += kChunk) {
-    // xn and g rows of the chunk; rows past r_end are zeros.
-    for (int i = tid; i < kChunk * (D / 8); i += kThreads) {
-      const int rr = i / (D / 8), v = (i % (D / 8)) * 8;
-      const int row = r0 + rr;
-      uint4 xa = make_uint4(0u, 0u, 0u, 0u), ga = xa;
-      if (row < r_end) {
-        const float mean = stats[(size_t)row * 2];
-        const float sv = stats[(size_t)row * 2 + 1];
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(x + (size_t)row * D + v);
-        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&xa);
+  if (threadIdx.x >= kConsumers) {
+    // Producer warp: one thread issues every load.
+    if (threadIdx.x != kConsumers) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      int m0, n0, k_begin, nk, prob;
+      decode(item, m0, n0, k_begin, nk, prob);
+      const CUtensorMap* ma = prob ? &a1 : &a0;
+      const CUtensorMap* mb = prob ? &b1 : &b0;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        mbar_expect_tx(fb, kStageBytes);
+        const uint32_t sa = base + s * kStageBytes, sb = sa + kTileBytes;
+        if (MODE == kWeights) {
+          const int k0 = k_begin + kt * kBK;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float2 f = __bfloat1622float2(p[t]);
-          const int c = v + 2 * t;
-          q[t] = __floats2bfloat162_rn(
-              __fadd_rn(__fmul_rn((f.x - mean) / sv, scale[c]), bias[c]),
-              __fadd_rn(__fmul_rn((f.y - mean) / sv, scale[c + 1]),
-                        bias[c + 1]));
-        }
-        ga = *reinterpret_cast<const uint4*>(g + (size_t)row * D + v);
-      }
-      *reinterpret_cast<uint4*>(Xs + rr * L::kLdx + v) = xa;
-      *reinterpret_cast<uint4*>(Gs + rr * L::kLdx + v) = ga;
-    }
-    __syncthreads();
-
-    // Warps 0-3: hp = xn @ W1[:, slice]; warps 4-7: dh = g @ W2[slice, :]^T;
-    // [32, 32] each, one fragment a warp.
-    {
-      const int w = warp & 3, rb = w & 1, cb = w >> 1;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> a0, a1;
-      wmma::fill_fragment(a0, 0.f);
-      wmma::fill_fragment(a1, 0.f);
-      if (warp < 4) {
-#pragma unroll
-        for (int k = 0; k < D; k += 32) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, Xs + rb * 16 * L::kLdx + k, L::kLdx);
-          wmma::load_matrix_sync(fb, W1s + k * L::kLdw1 + cb * 16, L::kLdw1);
-          wmma::mma_sync(a0, fa, fb, a0);
-          wmma::load_matrix_sync(fa, Xs + rb * 16 * L::kLdx + k + 16, L::kLdx);
-          wmma::load_matrix_sync(fb, W1s + (k + 16) * L::kLdw1 + cb * 16,
-                                 L::kLdw1);
-          wmma::mma_sync(a1, fa, fb, a1);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < D; k += 32) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, Gs + rb * 16 * L::kLdx + k, L::kLdx);
-          wmma::load_matrix_sync(fb, W2s + cb * 16 * L::kLdw2 + k, L::kLdw2);
-          wmma::mma_sync(a0, fa, fb, a0);
-          wmma::load_matrix_sync(fa, Gs + rb * 16 * L::kLdx + k + 16, L::kLdx);
-          wmma::load_matrix_sync(fb, W2s + cb * 16 * L::kLdw2 + k + 16,
-                                 L::kLdw2);
-          wmma::mma_sync(a1, fa, fb, a1);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < a0.num_elements; ++i) a0.x[i] += a1.x[i];
-      wmma::store_matrix_sync((warp < 4 ? Hf : Df) + rb * 16 * L::kLdhf +
-                                  cb * 16,
-                              a0, L::kLdhf, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < kChunk * kSlice; i += kThreads) {
-      const int r = i / kSlice, c = i % kSlice;
-      const float hp = Hf[r * L::kLdhf + c] + b1[j0 + c];
-      const float dhp = hp > 0.f ? Df[r * L::kLdhf + c] : 0.f;
-      Hs[r * L::kLdhs + c] = __float2bfloat16_rn(hp > 0.f ? hp : 0.f);
-      Ds[r * L::kLdhs + c] = __float2bfloat16_rn(dhp);
-      Df[r * L::kLdhf + c] = dhp;
-    }
-    __syncthreads();
-    if (tid < kSlice)
-      for (int r = 0; r < kChunk; ++r) db1 += Df[r * L::kLdhf + tid];
-
-    // dW2[slice, :] += h^T @ g and dW1[:, slice] += xn^T @ bf16(dhp); the
-    // A operands are the chunks read column-major (k = the chunk's rows).
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fh[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fd[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fh[i], Hs + k * L::kLdhs + i * 16, L::kLdhs);
-        wmma::load_matrix_sync(fd[i], Ds + k * L::kLdhs + i * 16, L::kLdhs);
-      }
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        const int c = warp * (D / 8) + j * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fg;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fx;
-        wmma::load_matrix_sync(fg, Gs + k * L::kLdx + c, L::kLdx);
-        wmma::load_matrix_sync(fx, Xs + k * L::kLdx + c, L::kLdx);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(acc2[i][j], fh[i], fg, acc2[i][j]);
-          wmma::mma_sync(acc1[j][i], fx, fd[i], acc1[j][i]);
+          for (int b = 0; b < 2; ++b) {
+            tma_load(sa + b * (kTileBytes / 2), ma, fb, m0 + 64 * b, k0);
+            tma_load(sb + b * (kTileBytes / 2), mb, fb, n0 + 64 * b, k0);
+          }
+        } else {
+          const bool second = MODE == kHidden && kt >= nk0;
+          const int k0 = (second ? kt - nk0 : kt) * kBK;
+          tma_load(sa, second ? &a1 : ma, fb, k0, m0);
+          tma_load(sb, second ? &b1 : mb, fb, k0, n0);
         }
       }
     }
-    __syncthreads();  // the next chunk rewrites every buffer
+    return;
   }
 
-  float* o1 = part_dw1 + (size_t)blockIdx.y * D * DH;
-  float* o2 = part_dw2 + (size_t)blockIdx.y * DH * D;
+  // Consumers: warpgroup wg takes rows [64 wg, 64 wg + 64) of the tile.
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5,
+            lane = tid & 31;
+  constexpr int kMn = MODE == kWeights ? 1 : 0;
+  int it = 0;
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    int m0, n0, k_begin, nk, prob;
+    decode(item, m0, n0, k_begin, nk, prob);
+    float acc[64], acc2[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 64; ++i) acc[i] = acc2[i] = 0.f;
+    fence_regs(acc);
+    fence_regs(acc2);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      const uint32_t sa = base + s * kStageBytes, sb = sa + kTileBytes;
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const int c = warp * (D / 8) + j * 16;
-      wmma::store_matrix_sync(o2 + (size_t)(j0 + i * 16) * D + c, acc2[i][j],
-                              D, wmma::mem_row_major);
-      wmma::store_matrix_sync(o1 + (size_t)c * DH + j0 + i * 16, acc1[j][i],
-                              DH, wmma::mem_row_major);
+      for (int j = 0; j < kBK / 16; ++j) {
+        // K-major: a k16 step is 32 bytes along the row; MN-major: two 8-k
+        // groups of 1024 bytes.
+        const uint32_t koff = kMn ? j * 2048 : j * 32;
+        const uint64_t da = make_desc(sa + wg * (kTileBytes / 2) + koff,
+                                      kMn ? kTileBytes / 2 : 16);
+        const uint64_t db = make_desc(sb + koff, kMn ? kTileBytes / 2 : 16);
+        if (MODE == kHidden && kt >= nk0)
+          wgmma_m64n128k16<0, 0>(acc2, da, db);
+        else
+          wgmma_m64n128k16<kMn, kMn>(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-step's products are done
+      if (kt > 0 && (tid & 127) == 0)
+        mbar_arrive(empty + 8 * ((it - 1) % kStages));
     }
-  if (tid < kSlice) part_db1[(size_t)blockIdx.y * DH + j0 + tid] = db1;
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(acc2);
+    if (nk > 0 && (tid & 127) == 0)
+      mbar_arrive(empty + 8 * ((it - 1) % kStages));
+
+    // Accumulator layout (m64nNk16, f32): register i holds row
+    // 16 * warp + lane / 4 + 8 * ((i / 2) % 2) and column
+    // 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the warpgroup's 64 rows.
+    const int r_lo = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const int c_lo = n0 + 2 * (lane & 3);
+
+    if (MODE == kHidden) {
+      const int DH = 4 * p.d;
+      // This warpgroup's h and dhp tiles in shared memory.
+      __nv_bfloat16* hs = outs + wg * 2 * 64 * kLdo;
+      __nv_bfloat16* ds = hs + 64 * kLdo;
+      const int lr = 16 * (warp & 3) + (lane >> 2);  // local row
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = c_lo + 8 * j;
+        const float bb0 = p.b1[c], bb1 = p.b1[c + 1];
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r_lo + 8 * half;
+          const int i = 4 * j + 2 * half;
+          const float hp0 = acc[i] + bb0, hp1 = acc[i + 1] + bb1;
+          const float g0 = hp0 > 0.f ? acc2[i] : 0.f;
+          const float g1 = hp1 > 0.f ? acc2[i + 1] : 0.f;
+          const int o = (lr + 8 * half) * kLdo + c - n0;
+          *reinterpret_cast<__nv_bfloat162*>(hs + o) = __floats2bfloat162_rn(
+              hp0 > 0.f ? hp0 : 0.f, hp1 > 0.f ? hp1 : 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(ds + o) =
+              __floats2bfloat162_rn(g0, g1);
+          if (r < p.T) {
+            sum0 += g0;
+            sum1 += g1;
+          }
+        }
+        // Column sums over the warp's 16 rows, in a fixed order.
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+          sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+        }
+        if (lane < 4) {
+          red[warp * kBN + 8 * j + 2 * lane] = sum0;
+          red[warp * kBN + 8 * j + 2 * lane + 1] = sum1;
+        }
+      }
+      consumer_sync();
+      if (tid < kBN) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s += red[w * kBN + tid];
+        p.part_db1[(size_t)(m0 / kBM) * DH + n0 + tid] = s;
+      }
+      // Whole rows out: 16 threads a row, 16 bytes each.
+      const int t = tid & 127;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int lrow = 8 * q + t / 16, col = 8 * (t % 16);
+        const int row = m0 + 64 * wg + lrow;
+        if (row < p.T) {
+          const size_t o = (size_t)row * DH + n0 + col;
+          *reinterpret_cast<uint4*>(p.h + o) =
+              *reinterpret_cast<const uint4*>(hs + lrow * kLdo + col);
+          *reinterpret_cast<uint4*>(p.dhp + o) =
+              *reinterpret_cast<const uint4*>(ds + lrow * kLdo + col);
+        }
+      }
+      consumer_sync();  // red and the tiles are rewritten by the next item
+      continue;
+    }
+
+    // kDxn: dxn rows [T, d]; kWeights: this split's partial [M, N] tile.
+    float* out;
+    int ldc, rows;
+    if (MODE == kDxn) {
+      out = p.c;
+      ldc = p.d;
+      rows = p.T;
+    } else {
+      const size_t sz = (size_t)p.d * 4 * p.d;
+      out = (prob ? p.part_dw1 : p.part_dw2) + (k_begin / p.k_split) * sz;
+      ldc = prob ? 4 * p.d : p.d;
+      rows = prob ? p.d : 4 * p.d;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r_lo + 8 * half;
+        const int i = 4 * j + 2 * half;
+        if (r < rows)
+          *reinterpret_cast<float2*>(out + (size_t)r * ldc + c_lo + 8 * j) =
+              make_float2(acc[i], acc[i + 1]);
+      }
+    }
+  }  // items
+}
+
+// ---- the CUDA-core passes (f32 rows) ----------------------------------------
+
+constexpr int kFT = 64;      // tile rows and columns
+constexpr int kFK = 16;      // k of a step
+constexpr int kFThreads = 256;
+
+// acc[4][4] += A[m0 : m0 + 64, k0 : k1] @ B[k0 : k1, n0 : n0 + 64] for the
+// thread's 4 x 4 piece (rows 4 * (tid / 16), columns 4 * (tid % 16)).
+// A(m, k) = TA ? a[k * lda + m] : a[m * lda + k], B(k, n) likewise with
+// TB; rows m >= M and k >= k1 read as zeros.  Products in order of k.
+template <bool TA, bool TB>
+__device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
+                                           int lda,
+                                           const float* __restrict__ b,
+                                           int ldb, int m0, int n0, int k0,
+                                           int k1, int M, float (&acc)[4][4],
+                                           float* As, float* Bs) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int k = k0; k < k1; k += kFK) {
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kFT * kFK / kFThreads; ++q) {
+      const int i = tid + q * kFThreads;
+      const int am = TA ? i % kFT : i / kFK, ak = TA ? i / kFT : i % kFK;
+      const int bn = TB ? i / kFK : i % kFT, bk = TB ? i % kFK : i / kFT;
+      const bool aok = m0 + am < M && k + ak < k1;
+      const bool bok = k + bk < k1;
+      As[ak * (kFT + 4) + am] =
+          aok ? (TA ? a[(size_t)(k + ak) * lda + m0 + am]
+                    : a[(size_t)(m0 + am) * lda + k + ak])
+              : 0.f;
+      Bs[bk * (kFT + 4) + bn] =
+          bok ? (TB ? b[(size_t)(n0 + bn) * ldb + k + bk]
+                    : b[(size_t)(k + bk) * ldb + n0 + bn])
+              : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(As + kk * (kFT + 4) + 4 * ty);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(Bs + kk * (kFT + 4) + 4 * tx);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
+    }
+  }
+}
+
+// Hidden pass, f32: a [64 rows, 64 hidden] tile per block (grid: hidden
+// tiles x row tiles); h and dhp in f32, the tile's column sums of dhp.
+__global__ void __launch_bounds__(kFThreads)
+ffn_bwd_hidden_f32_kernel(const float* __restrict__ xn,
+                          const float* __restrict__ g,
+                          const float* __restrict__ w1,
+                          const float* __restrict__ b1,
+                          const float* __restrict__ w2, float* __restrict__ h,
+                          float* __restrict__ dhp,
+                          float* __restrict__ part_db1, int T, int d) {
+  __shared__ __align__(16) float As[kFK * (kFT + 4)];
+  __shared__ __align__(16) float Bs[kFK * (kFT + 4)];
+  __shared__ float red[16][kFT];
+  const int DH = 4 * d, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
+  float ah[4][4] = {}, ad[4][4] = {};
+  sgemm_tile<false, false>(xn, d, w1, DH, m0, n0, 0, d, T, ah, As, Bs);
+  sgemm_tile<false, true>(g, d, w2, d, m0, n0, 0, d, T, ad, As, Bs);
+  float sums[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = m0 + 4 * ty + r;
+    if (row >= T) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = n0 + 4 * tx + c;
+      const float hp = ah[r][c] + b1[col];
+      const float v = hp > 0.f ? ad[r][c] : 0.f;
+      h[(size_t)row * DH + col] = hp > 0.f ? hp : 0.f;
+      dhp[(size_t)row * DH + col] = v;
+      sums[c] += v;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) red[ty][4 * tx + c] = sums[c];
+  __syncthreads();
+  if (tid < kFT) {
+    float s = 0.f;
+    for (int q = 0; q < 16; ++q) s += red[q][tid];
+    part_db1[(size_t)blockIdx.y * DH + n0 + tid] = s;
+  }
+}
+
+// dxn pass (prob < 0) or weight pass (prob = 0: dW2, 1: dW1), f32.
+__global__ void __launch_bounds__(kFThreads)
+ffn_bwd_gemm_f32_kernel(const float* __restrict__ xn,
+                        const float* __restrict__ g,
+                        const float* __restrict__ w1,
+                        const float* __restrict__ h,
+                        const float* __restrict__ dhp, float* __restrict__ dxn,
+                        float* __restrict__ part_dw2,
+                        float* __restrict__ part_dw1, int T, int d,
+                        int k_split, int weights) {
+  __shared__ __align__(16) float As[kFK * (kFT + 4)];
+  __shared__ __align__(16) float Bs[kFK * (kFT + 4)];
+  const int DH = 4 * d, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  float* out;
+  int ldc, M;
+  if (!weights) {
+    // dxn[T, d] = dhp @ W1^T.
+    const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
+    sgemm_tile<false, true>(dhp, DH, w1, DH, m0, n0, 0, DH, T, acc, As, Bs);
+    out = dxn + (size_t)m0 * d + n0;
+    ldc = d;
+    M = T - m0;
+  } else {
+    const int tiles0 = (DH / kFT) * (d / kFT);
+    int t = blockIdx.x;
+    const int prob = t >= tiles0;
+    if (prob) t -= tiles0;
+    const int tn = prob ? DH / kFT : d / kFT;
+    const int m0 = (t / tn) * kFT, n0 = (t % tn) * kFT;
+    const int k0 = blockIdx.y * k_split, k1 = min(T, k0 + k_split);
+    if (prob)  // dW1[d, 4d] = xn^T @ dhp
+      sgemm_tile<true, false>(xn, d, dhp, DH, m0, n0, k0, k1, d, acc, As, Bs);
+    else       // dW2[4d, d] = h^T @ g
+      sgemm_tile<true, false>(h, DH, g, d, m0, n0, k0, k1, DH, acc, As, Bs);
+    const size_t sz = (size_t)d * DH;
+    ldc = prob ? DH : d;
+    out = (prob ? part_dw1 : part_dw2) + blockIdx.y * sz + (size_t)m0 * ldc +
+          n0;
+    M = kFT;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (4 * ty + r >= M) continue;
+    *reinterpret_cast<float4*>(out + (size_t)(4 * ty + r) * ldc + 4 * tx) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+}
+
+// ---- the row passes (both row types) ----------------------------------------
+
+constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+
+// xn = T(((x - mean) / s) * scale + bias) and the statistics (mean, s,
+// sigma) of every row, one warp a row, the row read once into registers
+// (kChunks = d / 128 chunks of 4 values a lane).
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kRowThreads)
+ffn_bwd_prep_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                    const float* __restrict__ bias, T* __restrict__ xn,
+                    float* __restrict__ stats, int rows, int d) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const T* xr = x + (size_t)r * d;
+  float4 v[kChunks];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = 4 * lane + 128 * k;
+    v[k] = c < d ? gn::load4(xr + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+  }
+  const float mean = gn::warp_sum(s) / d;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    if (4 * lane + 128 * k >= d) continue;
+    const float a = v[k].x - mean, b = v[k].y - mean, e = v[k].z - mean,
+                f = v[k].w - mean;
+    q += (a * a + b * b) + (e * e + f * f);
+  }
+  const float var = gn::warp_sum(q) / d;
+  const float sd = var > 0.f ? sqrtf(var) : 0.f;
+  const float sv = sd + gn::kLnEps;
+  if (lane == 0) {
+    stats[(size_t)r * 3] = mean;
+    stats[(size_t)r * 3 + 1] = sv;
+    stats[(size_t)r * 3 + 2] = var > 0.f ? sd : 1.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = 4 * lane + 128 * k;
+    if (c >= d) continue;
+    const float4 sc = *reinterpret_cast<const float4*>(scale + c);
+    const float4 bi = *reinterpret_cast<const float4*>(bias + c);
+    gn::store4(xn + (size_t)r * d + c,
+               make_float4(
+                   __fadd_rn(__fmul_rn((v[k].x - mean) / sv, sc.x), bi.x),
+                   __fadd_rn(__fmul_rn((v[k].y - mean) / sv, sc.y), bi.y),
+                   __fadd_rn(__fmul_rn((v[k].z - mean) / sv, sc.z), bi.z),
+                   __fadd_rn(__fmul_rn((v[k].w - mean) / sv, sc.w), bi.w)));
+  }
+}
+
+// dx from dxn (the LN pullback plus the residual passthrough), one warp a
+// row with the row's x, dxn and g in registers; each lane also adds the
+// column sums of dxn * z, dxn and g over the warp's rows (rows
+// blockIdx.x * 8 + warp, then a grid stride on), and the block's 8 warps'
+// sums are added in warp order into one partial row of each.
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kRowThreads)
+ffn_bwd_post_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ dxn,
+                    const float* __restrict__ stats,
+                    const float* __restrict__ scale, T* __restrict__ dx,
+                    float* __restrict__ part, int rows, int d) {
+  __shared__ float red[kRowWarps][kChunks * 128];
+  static_assert(kChunks >= 1 && kChunks <= 4, "d in 128 .. 512");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float4 sds[kChunks], sdb[kChunks], sg[kChunks];
+  float4 sc[kChunks];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    sds[k] = sdb[k] = sg[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int c = 4 * lane + 128 * k;
+    sc[k] = c < d ? *reinterpret_cast<const float4*>(scale + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int r = blockIdx.x * kRowWarps + warp; r < rows;
+       r += gridDim.x * kRowWarps) {
+    const size_t o = (size_t)r * d;
+    const float mean = stats[(size_t)r * 3], sv = stats[(size_t)r * 3 + 1],
+                sigma = stats[(size_t)r * 3 + 2];
+    float z[kChunks][4], dz[kChunks][4], dv[kChunks][4], gv[kChunks][4];
+    float sdz = 0.f, sdzz = 0.f, sz = 0.f;
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = 4 * lane + 128 * k;
+      float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), dd = xv, gg = xv;
+      if (c < d) {
+        xv = gn::load4(x + o + c);
+        dd = *reinterpret_cast<const float4*>(dxn + o + c);
+        gg = gn::load4(g + o + c);
+      }
+      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+      const float ss[4] = {sc[k].x, sc[k].y, sc[k].z, sc[k].w};
+      dv[k][0] = dd.x; dv[k][1] = dd.y; dv[k][2] = dd.z; dv[k][3] = dd.w;
+      gv[k][0] = gg.x; gv[k][1] = gg.y; gv[k][2] = gg.z; gv[k][3] = gg.w;
+      if (c >= d) continue;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        z[k][t] = (xs[t] - mean) / sv;
+        dz[k][t] = dv[k][t] * ss[t];
+        sdz += dz[k][t];
+        sdzz += dz[k][t] * z[k][t];
+        sz += z[k][t];
+      }
+    }
+    const float mean_dz = gn::warp_sum(sdz) / d;
+    const float mean_dzz = gn::warp_sum(sdzz) / d;
+    const float mean_z = gn::warp_sum(sz) / d;
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = 4 * lane + 128 * k;
+      if (c >= d) continue;
+      float out[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        out[t] = (dz[k][t] - mean_dz) / sv -
+                 (z[k][t] - mean_z) * (mean_dzz / sigma) + gv[k][t];
+      gn::store4(dx + o + c, make_float4(out[0], out[1], out[2], out[3]));
+      sds[k].x += dv[k][0] * z[k][0]; sds[k].y += dv[k][1] * z[k][1];
+      sds[k].z += dv[k][2] * z[k][2]; sds[k].w += dv[k][3] * z[k][3];
+      sdb[k].x += dv[k][0]; sdb[k].y += dv[k][1];
+      sdb[k].z += dv[k][2]; sdb[k].w += dv[k][3];
+      sg[k].x += gv[k][0]; sg[k].y += gv[k][1];
+      sg[k].z += gv[k][2]; sg[k].w += gv[k][3];
+    }
+  }
+  // The warps' sums, added in warp order: dscale, dbias, then db2.
+  for (int q = 0; q < 3; ++q) {
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const float4 v = q == 0 ? sds[k] : q == 1 ? sdb[k] : sg[k];
+      *reinterpret_cast<float4*>(&red[warp][4 * lane + 128 * k]) = v;
+    }
+    __syncthreads();
+    for (int c = tid; c < d; c += kRowThreads) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kRowWarps; ++w) t += red[w][c];
+      part[((size_t)q * gridDim.x + blockIdx.x) * d + c] = t;
+    }
+    __syncthreads();
+  }
 }
 
 // out[i] = sum over p of part[p * n + i], in a fixed order: lane group j
 // adds the partials p = j, j + 8, ... in turn, then the 8 sums are added in
 // order of j.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowThreads)
 reduce_partials_kernel(const float* __restrict__ part, int parts, int n,
                        float* __restrict__ out) {
-  __shared__ float sums[kThreads / 32][32];
+  __shared__ float sums[kRowThreads / 32][32];
   const int lane = threadIdx.x & 31, j = threadIdx.x >> 5;
   const int i = blockIdx.x * 32 + lane;
   float acc = 0.f;
   if (i < n)
-    for (int p = j; p < parts; p += kThreads / 32)
+    for (int p = j; p < parts; p += kRowThreads / 32)
       acc += part[(size_t)p * n + i];
   sums[j][lane] = acc;
   __syncthreads();
   if (j == 0 && i < n) {
     float t = sums[0][lane];
 #pragma unroll
-    for (int q = 1; q < kThreads / 32; ++q) t += sums[q][lane];
+    for (int q = 1; q < kRowThreads / 32; ++q) t += sums[q][lane];
     out[i] = t;
   }
 }
 
-int reduce(const void* part, int parts, int n, void* out,
+int reduce(const float* part, int parts, int n, float* out,
            cudaStream_t stream) {
-  reduce_partials_kernel<<<(n + 31) / 32, kThreads, 0, stream>>>(
-      (const float*)part, parts, n, (float*)out);
+  reduce_partials_kernel<<<(n + 31) / 32, kRowThreads, 0, stream>>>(
+      part, parts, n, out);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch(const void* x, const void* g, const void* scale, const void* bias,
-           const void* w1, const void* b1, const void* w2, void* dx, void* ds,
-           void* db, void* dw1, void* db1, void* dw2, void* db2, void* stats,
-           void* part_rows, void* part_dw1, void* part_db1, void* part_dw2,
-           int T, int row_blocks, int rows_per_split, cudaStream_t s) {
-  constexpr int DH = 4 * D;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)RowLayout<D>::kBytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      ffn_bwd_weights_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)WeightLayout<D>::kBytes);
-  if (err != cudaSuccess) return err;
-  float* pr = (float*)part_rows;
-  float* p_ds = pr;
-  float* p_db = pr + (size_t)row_blocks * D;
-  float* p_db2 = pr + (size_t)2 * row_blocks * D;
-  ffn_bwd_rows_kernel<D><<<row_blocks, kThreads, RowLayout<D>::kBytes, s>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const float*)scale,
-      (const float*)bias, (const __nv_bfloat16*)w1, (const float*)b1,
-      (const __nv_bfloat16*)w2, (__nv_bfloat16*)dx, (float*)stats, p_ds, p_db,
-      p_db2, T);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int splits = (T + rows_per_split - 1) / rows_per_split;
-  const dim3 grid(DH / kSlice, splits);
-  ffn_bwd_weights_kernel<D><<<grid, kThreads, WeightLayout<D>::kBytes, s>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const float*)stats,
-      (const float*)scale, (const float*)bias, (const __nv_bfloat16*)w1,
-      (const float*)b1, (const __nv_bfloat16*)w2, (float*)part_dw1,
-      (float*)part_db1, (float*)part_dw2, T, rows_per_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda.so.1 as the runtime has
+// loaded it (so the kernel library links against nothing but the runtime).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A tensor map of the row-major bf16 [rows, cols] matrix at `ptr` whose
+// boxes are [box_rows, 64] (128 bytes a row, 128-byte swizzle); reads past
+// the matrix return zeros.
+int make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+             int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+template <int MODE>
+int launch_gemm(const void* a0, int ra0, int ca0, const void* b0,
+                int rb0, int cb0, const void* a1, int ra1, int ca1,
+                const void* b1, int rb1, int cb1, const GemmArgs& args,
+                cudaStream_t s) {
+  // K-major operands load [128, 64] boxes; MN-major ones [64, 64] boxes.
+  const int box = MODE == kWeights ? 64 : 128;
+  CUtensorMap m[4];
   int e;
-  if ((e = reduce(p_ds, row_blocks, D, ds, s)) != 0) return e;
-  if ((e = reduce(p_db, row_blocks, D, db, s)) != 0) return e;
-  if ((e = reduce(p_db2, row_blocks, D, db2, s)) != 0) return e;
-  if ((e = reduce(part_dw1, splits, D * DH, dw1, s)) != 0) return e;
-  if ((e = reduce(part_db1, splits, DH, db1, s)) != 0) return e;
-  return reduce(part_dw2, splits, DH * D, dw2, s);
+  if ((e = make_map(&m[0], a0, ra0, ca0, box)) != 0) return e;
+  if ((e = make_map(&m[1], b0, rb0, cb0, box)) != 0) return e;
+  if ((e = make_map(&m[2], a1 ? a1 : a0, a1 ? ra1 : ra0, a1 ? ca1 : ca0,
+                    box)) != 0)
+    return e;
+  if ((e = make_map(&m[3], b1 ? b1 : b0, b1 ? rb1 : rb0, b1 ? cb1 : cb0,
+                    box)) != 0)
+    return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_bwd_gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kGemmSmem);
+  if (err != cudaSuccess) return err;
+  // Persistent blocks: one an SM (the ring takes 133 KB), at most one an
+  // item.
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  ffn_bwd_gemm_kernel<MODE>
+      <<<min(args.items, sms), kGemmThreads, kGemmSmem, s>>>(
+          m[0], m[1], m[2], m[3], args);
+  return cudaGetLastError();
+}
+
+// The prep pass (post = false) or the post pass at width d.
+template <typename T, int kChunks>
+int row_pass_at(bool post, const void* x, const void* g, const void* scale,
+                const void* bias, void* xn, void* stats, const void* dxn,
+                void* dx, void* part, int rows, int d, int blocks,
+                cudaStream_t s) {
+  if (post)
+    ffn_bwd_post_kernel<T, kChunks><<<blocks, kRowThreads, 0, s>>>(
+        (const T*)x, (const T*)g, (const float*)dxn, (const float*)stats,
+        (const float*)scale, (T*)dx, (float*)part, rows, d);
+  else
+    ffn_bwd_prep_kernel<T, kChunks>
+        <<<(rows + kRowWarps - 1) / kRowWarps, kRowThreads, 0, s>>>(
+            (const T*)x, (const float*)scale, (const float*)bias, (T*)xn,
+            (float*)stats, rows, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int row_pass(bool post, const void* x, const void* g, const void* scale,
+             const void* bias, void* xn, void* stats, const void* dxn,
+             void* dx, void* part, int rows, int d, int blocks,
+             cudaStream_t s) {
+#define GN_ROW_PASS(C)                                                    \
+  row_pass_at<T, C>(post, x, g, scale, bias, xn, stats, dxn, dx, part, rows, \
+                    d, blocks, s)
+  switch (d / 128) {
+    case 1: return GN_ROW_PASS(1);
+    case 2: return GN_ROW_PASS(2);
+    case 3: return GN_ROW_PASS(3);
+    default: return GN_ROW_PASS(4);
+  }
+#undef GN_ROW_PASS
+}
+
+int launch_bf16(const void* x, const void* g, const void* scale,
+                const void* bias, const void* w1, const void* w1t,
+                const void* b1, const void* w2, void* dx, void* xn,
+                void* stats, void* h, void* dhp, void* dxn, void* part_db1,
+                void* part_rows, void* part_dw1, void* part_dw2, int T, int d,
+                int post_blocks, int splits, int rows_per_split,
+                cudaStream_t s) {
+  const int DH = 4 * d;
+  const int mt = (T + kBM - 1) / kBM;
+  int e;
+  if ((e = row_pass<__nv_bfloat16>(false, x, g, scale, bias, xn, stats,
+                                   nullptr, nullptr, nullptr, T, d, 0, s)) != 0)
+    return e;
+  GemmArgs a = {};
+  a.T = T;
+  a.d = d;
+  a.b1 = (const float*)b1;
+  a.h = (__nv_bfloat16*)h;
+  a.dhp = (__nv_bfloat16*)dhp;
+  a.part_db1 = (float*)part_db1;
+  a.c = (float*)dxn;
+  a.part_dw1 = (float*)part_dw1;
+  a.part_dw2 = (float*)part_dw2;
+  // 1. hp and dh (K = d): xn @ (W1^T)^T and g @ W2^T.
+  a.nk = 2 * d / kBK;
+  a.tiles_n0 = DH / kBN;
+  a.items = a.tiles_n0 * mt;
+  if ((e = launch_gemm<kHidden>(xn, T, d, w1t, DH, d, g,
+                                T, d, w2, DH, d, a, s)) != 0)
+    return e;
+  // 2. dxn = T(dhp) @ W1^T (K = 4d).
+  a.nk = DH / kBK;
+  a.tiles_n0 = d / kBN;
+  a.items = a.tiles_n0 * mt;
+  if ((e = launch_gemm<kDxn>(dhp, T, DH, w1, d, DH,
+                             nullptr, 0, 0, nullptr, 0, 0, a, s)) != 0)
+    return e;
+  // 3. dx and the [d] sums.
+  if ((e = row_pass<__nv_bfloat16>(true, x, g, scale, bias, xn, stats, dxn,
+                                   dx, part_rows, T, d, post_blocks, s)) != 0)
+    return e;
+  // 4. dW2 = h^T @ g and dW1 = xn^T @ T(dhp), split over row ranges.
+  a.nk = rows_per_split / kBK;
+  a.k_split = rows_per_split;
+  a.tiles_n0 = d / kBN;
+  a.tiles_n1 = DH / kBN;
+  a.tiles0 = (DH / kBM) * a.tiles_n0;
+  a.items = 2 * a.tiles0 * splits;
+  return launch_gemm<kWeights>(h, T, DH, g, T, d,
+                               xn, T, d, dhp, T, DH, a, s);
+}
+
+int launch_f32(const void* x, const void* g, const void* scale,
+               const void* bias, const void* w1, const void* b1,
+               const void* w2, void* dx, void* xn, void* stats, void* h,
+               void* dhp, void* dxn, void* part_db1, void* part_rows,
+               void* part_dw1, void* part_dw2, int T, int d, int post_blocks,
+               int splits, int rows_per_split, cudaStream_t s) {
+  const int DH = 4 * d;
+  const int mt = (T + kFT - 1) / kFT;
+  int e;
+  if ((e = row_pass<float>(false, x, g, scale, bias, xn, stats, nullptr,
+                           nullptr, nullptr, T, d, 0, s)) != 0)
+    return e;
+  ffn_bwd_hidden_f32_kernel<<<dim3(DH / kFT, mt), kFThreads, 0, s>>>(
+      (const float*)xn, (const float*)g, (const float*)w1, (const float*)b1,
+      (const float*)w2, (float*)h, (float*)dhp, (float*)part_db1, T, d);
+  if ((e = cudaGetLastError()) != 0) return e;
+  ffn_bwd_gemm_f32_kernel<<<dim3(d / kFT, mt), kFThreads, 0, s>>>(
+      (const float*)xn, (const float*)g, (const float*)w1, (const float*)h,
+      (const float*)dhp, (float*)dxn, nullptr, nullptr, T, d, 0, 0);
+  if ((e = cudaGetLastError()) != 0) return e;
+  if ((e = row_pass<float>(true, x, g, scale, bias, xn, stats, dxn, dx,
+                           part_rows, T, d, post_blocks, s)) != 0)
+    return e;
+  const int tiles = 2 * (DH / kFT) * (d / kFT);
+  ffn_bwd_gemm_f32_kernel<<<dim3(tiles, splits), kFThreads, 0, s>>>(
+      (const float*)xn, (const float*)g, (const float*)w1, (const float*)h,
+      (const float*)dhp, nullptr, (float*)part_dw2, (float*)part_dw1, T, d,
+      rows_per_split, 1);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Runs the passes on `stream` and returns the first launch error.  Scratch,
-// allocated by the Python wrapper, all f32: stats [T, 2], part_rows
-// [3, row_blocks, d], part_dw1 [splits, d, 4d], part_db1 [splits, 4d],
-// part_dw2 [splits, 4d, d], where splits = ceil(T / rows_per_split).
-// Preconditions, checked there: bf16 x, g [T, d], w1 [d, 4d], w2 [4d, d];
-// f32 scale, bias [d] and b1 [4d]; contiguous and 16-byte aligned; T >= 1;
-// d in {128, 256}; row_blocks >= 1; rows_per_split % 32 == 0.
-extern "C" int gn_ln_ffn_backward(const void* x, const void* g,
-                                  const void* scale, const void* bias,
-                                  const void* w1, const void* b1,
-                                  const void* w2, void* dx, void* ds, void* db,
-                                  void* dw1, void* db1, void* dw2, void* db2,
-                                  void* stats, void* part_rows,
-                                  void* part_dw1, void* part_db1,
-                                  void* part_dw2, int T, int d,
-                                  int row_blocks, int rows_per_split,
-                                  void* stream) {
+// Rows of a hidden-pass tile (the db1 partials are one row a tile).
+extern "C" int gn_ln_ffn_backward_tile_rows(int is_f32) {
+  return is_f32 ? kFT : kBM;
+}
+
+// Runs the passes on `stream` and returns the first launch error.
+// Outputs: dx [T, d] of the rows' type; ds, db, db2 [d], dw1 [d, 4d],
+// db1 [4d], dw2 [4d, d] in f32.  Scratch, allocated by the Python wrapper:
+// xn [T, d] of the rows' type, stats [T, 3] f32, h and dhp [T, 4d] of the
+// rows' type, dxn [T, d] f32, part_db1 [ceil(T / tile_rows), 4d],
+// part_rows [3, post_blocks, d], part_dw1 [splits, d, 4d], part_dw2
+// [splits, 4d, d], all f32.  w1t is W1^T [4d, d] (bf16 rows only).
+// Preconditions, checked there: x, g [T, d], w1 [d, 4d], w2 [4d, d] of the
+// rows' type (bf16, or f32 with is_f32 = 1); f32 scale, bias [d] and
+// b1 [4d]; contiguous and 16-byte aligned; T >= 1; d in {128, 256, 384,
+// 512}; splits = ceil(T / rows_per_split), rows_per_split % 64 == 0.
+extern "C" int gn_ln_ffn_backward(
+    const void* x, const void* g, const void* scale, const void* bias,
+    const void* w1, const void* w1t, const void* b1, const void* w2, void* dx,
+    void* ds, void* db, void* dw1, void* db1, void* dw2, void* db2, void* xn,
+    void* stats, void* h, void* dhp, void* dxn, void* part_db1,
+    void* part_rows, void* part_dw1, void* part_dw2, int T, int d, int is_f32,
+    int post_blocks, int splits, int rows_per_split, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-    case 128:
-      return launch<128>(x, g, scale, bias, w1, b1, w2, dx, ds, db, dw1, db1,
-                         dw2, db2, stats, part_rows, part_dw1, part_db1,
-                         part_dw2, T, row_blocks, rows_per_split, s);
-    case 256:
-      return launch<256>(x, g, scale, bias, w1, b1, w2, dx, ds, db, dw1, db1,
-                         dw2, db2, stats, part_rows, part_dw1, part_db1,
-                         part_dw2, T, row_blocks, rows_per_split, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (d % 128 || d > 512 || T < 1 || rows_per_split % 64)
+    return cudaErrorInvalidValue;
+  const int DH = 4 * d;
+  int e = is_f32 ? launch_f32(x, g, scale, bias, w1, b1, w2, dx, xn, stats,
+                              h, dhp, dxn, part_db1, part_rows, part_dw1,
+                              part_dw2, T, d, post_blocks, splits,
+                              rows_per_split, s)
+                 : launch_bf16(x, g, scale, bias, w1, w1t, b1, w2, dx, xn,
+                               stats, h, dhp, dxn, part_db1, part_rows,
+                               part_dw1, part_dw2, T, d, post_blocks, splits,
+                               rows_per_split, s);
+  if (e != 0) return e;
+  const int mt = (T + gn_ln_ffn_backward_tile_rows(is_f32) - 1) /
+                 gn_ln_ffn_backward_tile_rows(is_f32);
+  const float* pr = (const float*)part_rows;
+  if ((e = reduce(pr, post_blocks, d, (float*)ds, s)) != 0) return e;
+  if ((e = reduce(pr + (size_t)post_blocks * d, post_blocks, d, (float*)db,
+                  s)) != 0)
+    return e;
+  if ((e = reduce(pr + (size_t)2 * post_blocks * d, post_blocks, d,
+                  (float*)db2, s)) != 0)
+    return e;
+  if ((e = reduce((const float*)part_db1, mt, DH, (float*)db1, s)) != 0)
+    return e;
+  if ((e = reduce((const float*)part_dw1, splits, d * DH, (float*)dw1, s)) != 0)
+    return e;
+  return reduce((const float*)part_dw2, splits, DH * d, (float*)dw2, s);
 }

@@ -32,17 +32,23 @@
 // no long segment the chunk blocks cost two loads each.
 //
 // Windowed ids (senders: unsorted within a graph but local to it, with
-// [G+1] node and edge offsets): a block owns a tile of kTile segments and
-// kCols columns; its edge window is the edge range of the graphs that the
-// tile meets (a tile may span graphs).  The window is split into kWarps
-// contiguous parts, one a warp; each warp sums its part in edge order into
-// its own f32 accumulator in shared memory (each lane owns one column, so
-// no two threads touch one address), and the warps' accumulators are then
-// added in warp order.  The summation order is fixed: no atomics.  Each
-// warp loads kAhead edges' ids and values before it adds any of them, so
-// the loads are in flight together rather than one latency per edge.  At
-// the main path a tile is one graph's 2,048-edge window, and every edge row
-// is read once.
+// [G+1] node and edge offsets): a block owns a tile of kWinNodes segments
+// and one group of 32 x VEC columns (16 bytes a lane: 8 bf16 or 4 f32
+// values); its edge window is the edge range of the graphs that the tile
+// meets (a tile may span graphs).  The block reads the window's ids in
+// pieces of kPiece with all loads in flight at once, and sorts the edges
+// of its own segments by segment with a stable counting sort in shared
+// memory (per-warp counts, offsets in warp order, ranks within a warp by
+// __match_any_sync), so that each segment's edges lie together in edge
+// order.  Each warp then owns two neighbouring segments and adds their rows
+// in that order in registers, kWinAhead rows in flight at a time; a
+// segment of more than kWinLong rows (the pad node of a padded batch, which
+// collects every pad edge: 297 of the sort task's 512) is cut into eight
+// contiguous parts, one a warp, added in warp order.  Shared memory holds
+// the piece's ids, their order and the offsets (~33 KB) whatever the window
+// or the width; the sum order depends only on the ids: no float atomics,
+// deterministic.  At the main path (E = 16384, 8 graphs of 128 nodes,
+// d = 384 bf16) that is 64 tiles x 2 column groups = 128 blocks.
 
 #include "common.cuh"
 
@@ -194,21 +200,12 @@ long_segment_combine_kernel(const int* __restrict__ seg,
   }
 }
 
-constexpr int kTile = 128;    // segments per block (windowed)
-constexpr int kCols = 32;     // columns per block: one per lane
-constexpr int kWarps = 8;
-constexpr int kAhead = 8;     // edges loaded before they are added
-constexpr size_t kWinSmem = (size_t)kWarps * kTile * kCols * sizeof(float);
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ float from_f32(float v) { return v; }
+constexpr int kWinNodes = 16;    // segments a block (windowed)
+constexpr int kWinWarps = 8;
+constexpr int kPiece = 2048;     // window edges sorted at a time
+constexpr int kWinAhead = 16;    // rows a warp loads before it adds them
+constexpr int kWinLong = 64;     // rows above which all warps share a segment
+constexpr int kMaxOffsets = 1024;  // offsets cached in shared memory
 
 // First index i in the ascending a[0, n) with a[i] > key (n if none).
 __device__ __forceinline__ int upper_bound(const int* a, int n, int key) {
@@ -220,60 +217,209 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, int key) {
   return lo;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// VEC consecutive values of a row: one load, f32 adds, one rounding.
+template <typename T, int VEC> struct Vec;
+template <> struct Vec<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void add(float (&a)[8], Raw r) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 f = __bfloat1622float2(h[t]);
+      a[2 * t] += f.x;
+      a[2 * t + 1] += f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&a)[8]) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      h[t] = __floats2bfloat162_rn(a[2 * t], a[2 * t + 1]);
+    *reinterpret_cast<uint4*>(p) = r;
+  }
+};
+template <typename T> struct Vec<T, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return gn::load4(p);
+  }
+  static __device__ __forceinline__ void add(float (&a)[4], Raw r) {
+    a[0] += r.x; a[1] += r.y; a[2] += r.z; a[3] += r.w;
+  }
+  static __device__ __forceinline__ void store(T* p, const float (&a)[4]) {
+    gn::store4(p, make_float4(a[0], a[1], a[2], a[3]));
+  }
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWinWarps * 32)
 windowed_segment_sum_kernel(const T* __restrict__ x,
                             const int* __restrict__ seg,
                             const int* __restrict__ node_off,
                             const int* __restrict__ edge_off, int G,
                             T* __restrict__ out, int N, int D) {
-  extern __shared__ __align__(16) float acc[];  // [kWarps][kTile][kCols]
+  using V = Vec<T, VEC>;
+  constexpr int kLoads = kPiece / (kWinWarps * 32);
+  __shared__ int ids[kPiece];     // the piece's local ids (-1: not ours)
+  __shared__ int order[kPiece];   // our edges, grouped by segment
+  __shared__ int cnt[kWinWarps][kWinNodes];
+  __shared__ int start[kWinNodes + 1];
+  __shared__ int offs[2][kMaxOffsets];
   __shared__ int win[2];
+  __shared__ float parts[kWinWarps][VEC][32];  // a long segment's parts
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kTile, nt = min(kTile, N - n0);
-  const int c = blockIdx.y * kCols + lane;
+  const int n0 = blockIdx.x * kWinNodes;
+  const int c = (blockIdx.y * 32 + lane) * VEC;
+  const bool col_ok = c < D;
 
-  for (int i = tid; i < kWarps * kTile * kCols; i += kWarps * 32) acc[i] = 0.f;
+  // The graphs whose node ranges meet [n0, n0 + kWinNodes), as the TPU
+  // kernel's host-side searchsorted computes them.
+  const bool cached = G + 1 <= kMaxOffsets;
+  if (cached)
+    for (int i = tid; i <= G; i += kWinWarps * 32) {
+      offs[0][i] = node_off[i];
+      offs[1][i] = edge_off[i];
+    }
+  __syncthreads();
   if (tid == 0) {
-    // The graphs whose node ranges meet [n0, n0 + kTile), as the TPU
-    // kernel's host-side searchsorted computes them.
-    const int g_lo = max(0, min(G, upper_bound(node_off, G + 1, n0) - 1));
-    const int g_hi = max(0, min(G, gn::lower_bound(node_off, G + 1,
-                                                   n0 + kTile)));
-    win[0] = edge_off[g_lo];
-    win[1] = max(edge_off[g_hi], win[0]);
+    const int* no = cached ? offs[0] : node_off;
+    const int* eo = cached ? offs[1] : edge_off;
+    const int g_lo = max(0, min(G, upper_bound(no, G + 1, n0) - 1));
+    const int g_hi =
+        max(0, min(G, gn::lower_bound(no, G + 1, n0 + kWinNodes)));
+    win[0] = eo[g_lo];
+    win[1] = max(eo[g_hi], win[0]);
   }
   __syncthreads();
-  const int len = win[1] - win[0];
-  const int a = win[0] + (int)((long long)len * warp / kWarps);
-  const int b = win[0] + (int)((long long)len * (warp + 1) / kWarps);
-  float* mine = acc + (size_t)warp * kTile * kCols + lane;
-  if (c < D) {
-    for (int e0 = a; e0 < b; e0 += kAhead) {
-      unsigned s[kAhead];
-      float v[kAhead];
+  const int w0 = win[0], w1 = win[1];
+
+  float acc[2][VEC];
 #pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-        // A sender of another tile (or past the part) gets s >= nt.
-        s[j] = e0 + j < b ? (unsigned)(seg[e0 + j] - n0) : (unsigned)nt;
-        v[j] = s[j] < (unsigned)nt ? to_f32(x[(size_t)(e0 + j) * D + c])
-                                   : 0.f;
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) acc[q][t] = 0.f;
+
+  for (int p0 = w0; p0 < w1; p0 += kPiece) {
+    const int len = min(kPiece, w1 - p0);
+    {
+      int v[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int i = tid + k * kWinWarps * 32;
+        v[k] = i < len ? seg[p0 + i] - n0 : -1;
       }
 #pragma unroll
-      for (int j = 0; j < kAhead; ++j)
-        if (s[j] < (unsigned)nt) mine[s[j] * kCols] += v[j];
+      for (int k = 0; k < kLoads; ++k)
+        ids[tid + k * kWinWarps * 32] =
+            (unsigned)v[k] < (unsigned)kWinNodes ? v[k] : -1;
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < nt * kCols; i += kWarps * 32) {
-    const int r = i / kCols, q = i % kCols;
-    const int cc = blockIdx.y * kCols + q;
-    if (cc >= D) continue;
-    float sum = 0.f;
+    if (tid < kWinWarps * kWinNodes) cnt[tid / kWinNodes][tid % kWinNodes] = 0;
+    __syncthreads();
+    // Counts of each warp's contiguous part of the piece.
+    const int a = len * warp / kWinWarps, b = len * (warp + 1) / kWinWarps;
+    for (int i = a + lane; i < b; i += 32) {
+      const int l = ids[i];
+      if (l >= 0) atomicAdd(&cnt[warp][l], 1);
+    }
+    __syncthreads();
+    // Offsets: segment t's edges start after those of the segments before
+    // it; within them, warp w's after those of the warps before it.
+    if (warp == 0) {
+      int tot = 0;
+      if (lane < kWinNodes)
+        for (int w = 0; w < kWinWarps; ++w) tot += cnt[w][lane];
+      int incl = tot;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      sum += acc[((size_t)w * kTile + r) * kCols + q];
-    out[(size_t)(n0 + r) * D + cc] = from_f32<T>(sum);
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (lane < kWinNodes) {
+        int run = incl - tot;
+        start[lane] = run;
+        for (int w = 0; w < kWinWarps; ++w) {
+          const int k = cnt[w][lane];
+          cnt[w][lane] = run;
+          run += k;
+        }
+        if (lane == kWinNodes - 1) start[kWinNodes] = run;
+      }
+    }
+    __syncthreads();
+    // Stable placement: lanes in edge order, warps in part order.
+    for (int base = a; base < b; base += 32) {
+      const int i = base + lane;
+      const int l = i < b ? ids[i] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, l);
+      if (l >= 0)
+        order[cnt[warp][l] + __popc(peers & ((1u << lane) - 1u))] = p0 + i;
+      __syncwarp();
+      if (l >= 0 && lane == __ffs(peers) - 1) cnt[warp][l] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // Rows order[i0 .. i1) added in order, kWinAhead loads in flight; the
+    // rows before `mid` go to a0, the rest to a1.
+    auto add_rows = [&](float (&a0)[VEC], float (&a1)[VEC], int i0, int i1,
+                        int mid) {
+      if (!col_ok) return;
+      for (int i = i0; i < i1; i += kWinAhead) {
+        typename V::Raw r[kWinAhead];
+#pragma unroll
+        for (int j = 0; j < kWinAhead; ++j)
+          if (i + j < i1) r[j] = V::load(x + (size_t)order[i + j] * D + c);
+#pragma unroll
+        for (int j = 0; j < kWinAhead; ++j) {
+          if (i + j >= i1) continue;
+          if (i + j < mid) V::add(a0, r[j]);
+          else V::add(a1, r[j]);
+        }
+      }
+    };
+    // Segments 2 warp and 2 warp + 1 (their edges lie together in order),
+    // unless one is long.
+    const int e_begin = start[2 * warp], e_mid = start[2 * warp + 1],
+              e_end = start[2 * warp + 2];
+    const bool long0 = e_mid - e_begin > kWinLong,
+               long1 = e_end - e_mid > kWinLong;
+    add_rows(acc[0], acc[1], long0 ? e_mid : e_begin, long1 ? e_mid : e_end,
+             e_mid);
+    // A long segment (the pad node of a padded batch collects every pad
+    // edge): each warp adds a contiguous eighth of its rows, and the owner
+    // adds the eighths in warp order.
+    for (int t = 0; t < kWinNodes; ++t) {
+      const int s0 = start[t], len = start[t + 1] - s0;
+      if (len <= kWinLong) continue;
+      float part[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) part[v] = 0.f;
+      add_rows(part, part, s0 + len * warp / kWinWarps,
+               s0 + len * (warp + 1) / kWinWarps, 1 << 30);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) parts[warp][v][lane] = part[v];
+      __syncthreads();
+      if (warp == t / 2) {
+#pragma unroll
+        for (int w = 0; w < kWinWarps; ++w)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            if (t % 2) acc[1][v] += parts[w][v][lane];
+            else acc[0][v] += parts[w][v][lane];
+          }
+      }
+      __syncthreads();
+    }
+    __syncthreads();  // the next piece rewrites the shared arrays
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int n = n0 + 2 * warp + q;
+    if (n < N && col_ok) V::store(out + (size_t)n * D + c, acc[q]);
   }
 }
 
@@ -293,16 +439,13 @@ int launch_sorted(const void* x, const void* seg, void* out, void* part,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int VEC>
 int launch_windowed(const void* x, const void* seg, const void* node_off,
                     const void* edge_off, int G, void* out, int N, int D,
                     cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      windowed_segment_sum_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWinSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTile - 1) / kTile, (D + kCols - 1) / kCols);
-  windowed_segment_sum_kernel<T><<<grid, kWarps * 32, kWinSmem, stream>>>(
+  const dim3 grid((N + kWinNodes - 1) / kWinNodes,
+                  (D + 32 * VEC - 1) / (32 * VEC));
+  windowed_segment_sum_kernel<T, VEC><<<grid, kWinWarps * 32, 0, stream>>>(
       (const T*)x, (const int*)seg, (const int*)node_off,
       (const int*)edge_off, G, (T*)out, N, D);
   return cudaGetLastError();
@@ -335,8 +478,12 @@ extern "C" int gn_windowed_segment_sum(const void* x, const void* seg,
                                        void* out, int N, int D, int is_bf16,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_windowed<__nv_bfloat16>(x, seg, node_off, edge_off,
-                                                  G, out, N, D, s)
-                 : launch_windowed<float>(x, seg, node_off, edge_off, G, out,
-                                          N, D, s);
+  if (!is_bf16)
+    return launch_windowed<float, 4>(x, seg, node_off, edge_off, G, out, N,
+                                     D, s);
+  return D % 8 == 0
+             ? launch_windowed<__nv_bfloat16, 8>(x, seg, node_off, edge_off,
+                                                 G, out, N, D, s)
+             : launch_windowed<__nv_bfloat16, 4>(x, seg, node_off, edge_off,
+                                                 G, out, N, D, s);
 }

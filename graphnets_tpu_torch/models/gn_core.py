@@ -147,12 +147,10 @@ class GNCore(nn.Module):
     @staticmethod
     def _takes_fused(x: torch.Tensor) -> bool:
         """The JAX package's gate for one feature set
-        (``fused_ffn.py:99-105``): whole 8-row tiles.  The CUDA kernel masks
-        a ragged tile itself, but a set the JAX kernel refuses takes the
-        composed reference there, and so here."""
-        rows = x.shape[0]
-        return (rows % 8 == 0 and rows >= 8
-                and supports_fused_ffn(rows, x.shape[1], x.dtype))
+        (``fused_ffn.py:99-105``: whole 8-row tiles, d % 128 == 0, d up to
+        512), on bf16 and f32 rows: a set it refuses takes the composed
+        reference, in both packages."""
+        return supports_fused_ffn(x.shape[0], x.shape[1], x.dtype)
 
     def _use_fused(self, g: GraphsTuple, training: bool) -> bool:
         if not use_kernels() or (training and self.dropout > 0):

@@ -4,25 +4,29 @@
     y = bf16( xf + ((bf16(relu(bf16(LN(x)) @ W1 + b1)) @ W2 + b2)
                     + f32(extra)) )
 
+Both kernels take what the JAX gate takes (:func:`supports_fused_ffn`:
+d = 128, 256, 384 or 512, whole 8-row tiles) on bf16 and f32 rows; a CUDA
+tensor outside it raises a ``ValueError``.
+
 Kernel: ``csrc/fused_ffn.cu``.  It replaces the Pallas forward kernel of
 ``ln_ffn_residual`` (``fused_ffn.py:79-97,130-170``).  On the H100 it is
 bound by the tensor cores (38.7 GFLOP against ~40 MB at T = 16384,
 d = 384), so it keeps the ``[rows, 4d]`` hidden activation on the SM and
 streams the hidden dimension in slices into an f32 accumulator held in
-registers.  The source note in the ``.cu`` file has the details.
+registers; f32 rows take true-f32 multiply-adds on the CUDA cores.  The
+source note in the ``.cu`` file has the details.
 
 Backward kernel: ``csrc/fused_ffn_bwd.cu``.  It replaces the Pallas kernel
 of ``_fused_backward`` (``fused_ffn.py:176-283``), with its arithmetic:
-only ``x`` is kept from the forward, and the LN statistics and the hidden
-activation are recomputed per row tile.  On the H100 it is bound by the
-tensor cores (3.3 TFLOP against 1.6 GB at T = 1,048,576, d = 256).  The TPU
-kernel kept both weight gradients resident across its sequential grid;
-here a row pass gives dx and the ``[d]`` sums, a split-K pass over (hidden
-slice, row range) gives dW1, dW2 and db1, and the partials are added in a
+only ``x`` is kept from the forward, the LN statistics and the hidden
+activation are recomputed.  On the H100 it is bound by the tensor cores
+(2.75 TFLOP against 1.6 GB at T = 1,048,576, d = 256).  The five products
+the function needs run as warp-specialised ``wgmma`` passes fed by TMA
+(bf16 rows; true-f32 CUDA-core passes for f32 rows): hp and dh per row
+tile, which write ``h`` and ``dhp`` once to device memory in x's type;
+``dxn``; then dW1 and dW2 split over row ranges.  Partials are added in a
 fixed order (no atomics).  One call of :func:`ln_ffn_backward` runs the
-passes and counts as one launch.  The kernel takes d = 128 and 256 (the
-JAX package trains through it up to d = 256); a wider call on the card
-raises a ``ValueError``.
+passes and counts as one launch.
 
 :func:`ln_ffn_residual` is differentiable with the JAX package's contract
 (``fused_ffn.py:298-339``): ``extra`` is not saved and its gradient is the
@@ -52,17 +56,20 @@ __all__ = ["ln_ffn_residual", "ln_ffn_residual_plain",
 
 LAUNCHES = 0                    # kernel launches, for proving the path
 BWD_LAUNCHES = 0                # backward launches
-_DIMS = (128, 256, 384)         # feature dims the kernel is built for
-_BWD_DIMS = (128, 256)          # ... and the backward kernel
-_ROWS = 64                      # rows per block
+_DTYPES = (torch.bfloat16, torch.float32)   # row types the kernels take
+_VMEM_BUDGET = 12 << 20         # the JAX gate's budget (``fused_ffn.py:108``)
 
 
 def supports_fused_ffn(n_rows: int, d: int,
                        dtype: torch.dtype = torch.bfloat16) -> bool:
-    """Shapes the kernel takes: bf16 rows, any row count >= 1 (the ragged
-    row tile is masked), ``d`` in 128 / 256 / 384 (at 512 a block's
-    operands outgrow shared memory)."""
-    return dtype == torch.bfloat16 and d in _DIMS and n_rows >= 1
+    """The JAX package's gate (``fused_ffn.py:99-105``), letter for letter:
+    a lane-aligned width, whole 8-row tiles, and both weights plus one
+    8-row tile within the VMEM budget (f32 assumed), which lets d = 128,
+    256, 384 and 512 through.  The kernels take bf16 and f32 rows."""
+    dh = 4 * d
+    fits = 2 * d * dh * 4 + 8 * (d * 12 + dh * 8) <= _VMEM_BUDGET
+    return (dtype in _DTYPES and d % 128 == 0 and n_rows % 8 == 0
+            and n_rows >= 8 and fits)
 
 
 def ln_ffn_residual_reference(x, scale, bias, w1, b1, w2, b2, extra=None):
@@ -89,12 +96,12 @@ def ln_ffn_residual_plain(x, scale, bias, w1, b1, w2, b2, extra=None):
     return (x.float() + y).to(x.dtype)
 
 
-def _splits(T: int, device) -> int:
-    """Blocks per 64-row tile (split over the hidden dimension): enough to
+def _splits(T: int, rows: int, device) -> int:
+    """Blocks per row tile (split over the hidden dimension): enough to
     give every SM a block when there are few row tiles, at most 8."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = 1
-    while splits < 8 and -(-T // _ROWS) * splits * 2 <= sms:
+    while splits < 8 and -(-T // rows) * splits * 2 <= sms:
         splits *= 2
     return splits
 
@@ -103,10 +110,31 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ffn")
     fn = lib.gn_ln_ffn_residual
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.gn_ln_ffn_residual_rows.argtypes = [ctypes.c_int]
+        lib.gn_ln_ffn_residual_rows.restype = ctypes.c_int
     return lib
+
+
+def _check_args(what, x, tensors):
+    """Device and layout checks shared by the forward and the backward."""
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{what}: all inputs must be on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must be contiguous and "
+                             f"16-byte aligned")
+
+
+def _check_shapes(what, shapes):
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
 
 
 def _launch(x, scale, bias, w1, b1, w2, b2, extra):
@@ -114,42 +142,35 @@ def _launch(x, scale, bias, w1, b1, w2, b2, extra):
     T, d = x.shape
     if not supports_fused_ffn(T, d, x.dtype):
         raise ValueError(f"ln_ffn_residual: unsupported x {tuple(x.shape)} "
-                         f"{x.dtype} (bf16, d in {_DIMS})")
+                         f"{x.dtype} (bf16 or f32 rows, the JAX gate's "
+                         f"widths and row counts)")
     shapes = {"w1": (w1, (d, 4 * d)), "b1": (b1, (4 * d,)),
               "w2": (w2, (4 * d, d)), "b2": (b2, (d,)),
               "scale": (scale, (d,)), "bias": (bias, (d,))}
     if extra is not None:
         shapes["extra"] = (extra, (T, d))
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ln_ffn_residual: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
+    _check_shapes("ln_ffn_residual", shapes)
     args = [x, None if extra is None else extra.to(x.dtype), scale.float(),
             bias.float(), w1.to(x.dtype), b1.float(), w2.to(x.dtype),
             b2.float()]
-    for t in args:
-        if t is None:
-            continue
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"ln_ffn_residual: all inputs must be on "
-                             f"{x.device}")
-        if not t.is_contiguous():
-            raise ValueError("ln_ffn_residual: inputs must be contiguous")
+    _check_args("ln_ffn_residual", x, args)
     out = torch.empty_like(x)
-    splits = _splits(T, x.device)
+    lib = _lib()
+    is_f32 = x.dtype == torch.float32
+    rows = lib.gn_ln_ffn_residual_rows(d)
+    splits = 1 if is_f32 else _splits(T, rows, x.device)
     partial = counters = None
     if splits > 1:
         partial = torch.empty(splits * T * d, dtype=torch.float32,
                               device=x.device)
-        counters = torch.zeros(-(-T // _ROWS), dtype=torch.int32,
+        counters = torch.zeros(-(-T // rows), dtype=torch.int32,
                                device=x.device)
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gn_ln_ffn_residual(
             *[None if t is None else t.data_ptr()
               for t in (*args, out, partial, counters)],
-            T, d, splits, stream)
+            T, d, splits, int(is_f32), stream)
     _build.check(lib, err, "ln_ffn_residual")
     LAUNCHES += 1
     return out
@@ -201,58 +222,70 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_ffn_bwd")
     fn = lib.gn_ln_ffn_backward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.gn_ln_ffn_backward_tile_rows.argtypes = [ctypes.c_int]
+        lib.gn_ln_ffn_backward_tile_rows.restype = ctypes.c_int
     return lib
+
+
+def _weight_splits(T: int, tiles: int, sms: int) -> int:
+    """Row ranges of the weight pass: the count (at most 16, each range at
+    least 256 rows) that finishes the ``tiles`` output tiles in the fewest
+    waves of blocks per row, one block an SM."""
+    best, best_cost = 1, None
+    for s in range(1, 17):
+        if s > 1 and T < 256 * s:
+            break
+        cost = -(-tiles * s // sms) / s
+        if best_cost is None or cost < best_cost - 1e-9:
+            best, best_cost = s, cost
+    return best
 
 
 def _launch_backward(x, scale, bias, w1, b1, w2, g):
     global BWD_LAUNCHES
     T, d = x.shape
-    if x.dtype != torch.bfloat16 or d not in _BWD_DIMS or T < 1:
+    if not supports_fused_ffn(T, d, x.dtype):
         raise ValueError(f"ln_ffn_backward: unsupported x {tuple(x.shape)} "
-                         f"{x.dtype} (bf16, d in {_BWD_DIMS}; the backward "
-                         f"kernel is not built for width {d})")
-    shapes = {"w1": (w1, (d, 4 * d)), "b1": (b1, (4 * d,)),
-              "w2": (w2, (4 * d, d)), "g": (g, (T, d)),
-              "scale": (scale, (d,)), "bias": (bias, (d,))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ln_ffn_backward: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-    args = [x, g.to(x.dtype), scale.float(), bias.float(), w1.to(x.dtype),
-            b1.float(), w2.to(x.dtype)]
-    for t in args:
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"ln_ffn_backward: all inputs must be on "
-                             f"{x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("ln_ffn_backward: inputs must be contiguous "
-                             "and 16-byte aligned")
+                         f"{x.dtype} (bf16 or f32 rows, the JAX gate's "
+                         f"widths and row counts)")
+    _check_shapes("ln_ffn_backward",
+                  {"w1": (w1, (d, 4 * d)), "b1": (b1, (4 * d,)),
+                   "w2": (w2, (4 * d, d)), "g": (g, (T, d)),
+                   "scale": (scale, (d,)), "bias": (bias, (d,))})
+    is_f32 = x.dtype == torch.float32
+    w1c = w1.to(x.dtype)
+    args = [x, g.to(x.dtype), scale.float(), bias.float(), w1c,
+            None if is_f32 else w1c.t().contiguous(), b1.float(),
+            w2.to(x.dtype)]
+    _check_args("ln_ffn_backward", x, args)
+    lib = _bwd_lib()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    row_blocks = max(1, min(-(-T // _ROWS), sms))
-    # The weight pass: one block per (32-wide hidden slice, row range), two
-    # blocks an SM and no more than fit at once (a partly filled second
-    # wave would cost as much as a full one).
-    slices = 4 * d // 32
-    splits = max(1, min(2 * sms // slices, -(-T // 32)))
-    rows_per_split = -(-T // (splits * 32)) * 32
+    tile = lib.gn_ln_ffn_backward_tile_rows(int(is_f32))
+    post_blocks = max(1, min(-(-T // 8), 4 * sms))
+    splits = _weight_splits(T, 2 * (4 * d // tile) * (d // tile), sms)
+    rows_per_split = -(-T // (splits * 64)) * 64
     splits = -(-T // rows_per_split)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     outs = [torch.empty(d, **f32), torch.empty(d, **f32),
             torch.empty(d, 4 * d, **f32), torch.empty(4 * d, **f32),
             torch.empty(4 * d, d, **f32), torch.empty(d, **f32)]
-    scratch = [torch.empty(T, 2, **f32), torch.empty(3, row_blocks, d, **f32),
+    scratch = [torch.empty_like(x), torch.empty(T, 3, **f32),
+               torch.empty(T, 4 * d, dtype=x.dtype, device=x.device),
+               torch.empty(T, 4 * d, dtype=x.dtype, device=x.device),
+               torch.empty(T, d, **f32),
+               torch.empty(-(-T // tile), 4 * d, **f32),
+               torch.empty(3, post_blocks, d, **f32),
                torch.empty(splits, d, 4 * d, **f32),
-               torch.empty(splits, 4 * d, **f32),
                torch.empty(splits, 4 * d, d, **f32)]
-    lib = _bwd_lib()
     with torch.cuda.device(x.device):
         err = lib.gn_ln_ffn_backward(
-            *[t.data_ptr() for t in (*args, dx, *outs, *scratch)],
-            T, d, row_blocks, rows_per_split,
+            *[None if t is None else t.data_ptr()
+              for t in (*args, dx, *outs, *scratch)],
+            T, d, int(is_f32), post_blocks, splits, rows_per_split,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "ln_ffn_backward")
     BWD_LAUNCHES += 1

@@ -11,10 +11,11 @@ On the H100 both are bound by memory (~13.4 MB at E = 16384, d = 384 into
 CUDA cores in a fixed order, with no atomics: a warp owns a sorted segment
 (binary search over the ascending ids; a segment of more than 256 rows,
 such as the pad node of a sampled subgraph, is cut into chunks summed by a
-block each and added in chunk order), and a windowed tile of 128
-segments walks its graphs' edge window in per-warp parts whose
-accumulators are added in warp order.  The source note in the ``.cu``
-file has the details.
+block each and added in chunk order), and a windowed tile of 16
+segments sorts the edges of its graphs' window that are its own by
+segment (a stable counting sort in shared memory) and adds each segment's
+rows in edge order in registers.  The source note in the ``.cu`` file has
+the details.
 
 :func:`sorted_segment_sum` is differentiable; its backward is the sorted
 gather (``segment_sum.py:233-239``).  :func:`windowed_segment_sum` is not

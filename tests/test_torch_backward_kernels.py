@@ -118,6 +118,39 @@ def test_windowed_segment_sum_matches_pallas(interpret_mode, dtype, padded):
     _assert_sum_close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("layout", [
+    # (nodes, edges) a graph.  The sort task's padded batch: its pad graph
+    # sends all 297 pad edges from one node (a segment the CUDA kernel
+    # shares among its warps).  Empty graphs between full ones.
+    ([9, 7, 7, 6, 12], [81, 49, 49, 36, 297]),
+    ([5, 0, 20, 0, 3, 12], [40, 0, 0, 0, 30, 186]),
+])
+@pytest.mark.parametrize("dtype", sorted(_DT))
+def test_windowed_segment_sum_pad_node_and_empty_graphs(interpret_mode,
+                                                        dtype, layout):
+    """The senders' sum on windows that are not uniform: overlapping tiles,
+    a pad node that collects every pad edge, graphs with no nodes."""
+    from graphnets_tpu.ops.pallas.segment_sum import windowed_segment_sum
+    tdt, jdt = _DT[dtype]
+    nodes, edges = layout
+    rng = np.random.default_rng(5)
+    no = np.concatenate([[0], np.cumsum(nodes)]).astype(np.int32)
+    eo = np.concatenate([[0], np.cumsum(edges)]).astype(np.int32)
+    snd = np.concatenate([rng.integers(no[i], max(no[i + 1], no[i] + 1),
+                                       size=edges[i])
+                          for i in range(len(nodes))]).astype(np.int32)
+    snd[eo[-2]:] = no[-2]
+    n = int(no[-1])
+    x = rng.normal(size=(int(eo[-1]), D)).astype(np.float32)
+    ref = windowed_segment_sum(jnp.asarray(x, jdt), jnp.asarray(snd), n,
+                               jnp.asarray(no), jnp.asarray(eo))
+    out = pt_ss.windowed_segment_sum(
+        _t(x, tdt), torch.from_numpy(snd), n, torch.from_numpy(no),
+        torch.from_numpy(eo))
+    assert out.dtype == tdt
+    _assert_sum_close(out, ref, dtype)
+
+
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("dtype", sorted(_DT))
 def test_sorted_gather_matches_pallas_bit_equal(interpret_mode, dtype,

@@ -20,10 +20,13 @@ ordered f32 sum); with f32 rows, forward and backward at 1e-4 (f32 sums in
 another order).  ``sorted_gather_add`` is one f32 add of the same two
 values and one rounding: bit-equal.  The single-graph edge update: ``h``
 one bf16 ulp (f32: 1e-5), ``agg`` 1e-5 against an f32 sum of the kernel's
-own ``h``, gradients 5e-2 (f32: 1e-4).  The fused FFN backward: dx 2^-6,
-the parameter gradients 1e-2 (a relu mask may flip where the f32
-pre-activation is within rounding of 0).  ``random_gather`` is a copy:
-bit-equal.
+own ``h``, gradients 5e-2 (f32: 1e-4).  The fused FFN forward on f32
+rows: 1e-5 (f32 sums in another order).  The fused FFN backward: dx 2^-6
+(f32: 1e-4), the parameter gradients 1e-2 (a relu mask may flip where the
+f32 pre-activation is within rounding of 0, on f32 rows too; at d = 384
+and 512 by the 2-norm, where one flip at T = 8192 moves a tail element by
+2%), two launches bit-equal.  The windowed sum: two launches bit-equal.  ``random_gather``
+is a copy: bit-equal.
 """
 
 import numpy as np
@@ -89,32 +92,44 @@ def test_edge_update_agg_matches_plain(cuda, padded, use_ln):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [8, 1000, 4096])
-@pytest.mark.parametrize("d", [128, 384])
-def test_ln_ffn_residual_matches_plain(cuda, rows, d):
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (384, torch.bfloat16),
+                                     (512, torch.bfloat16),
+                                     (128, torch.float32),
+                                     (384, torch.float32),
+                                     (512, torch.float32)])
+def test_ln_ffn_residual_matches_plain(cuda, rows, d, dtype):
     rng = np.random.default_rng(9)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
-    args = [f(rows, d).bfloat16(), f(d), f(d), (f(d, 4 * d) * 0.05).bfloat16(),
-            f(4 * d).bfloat16(), (f(4 * d, d) * 0.05).bfloat16(),
-            f(d).bfloat16()]
-    extra = f(rows, d).bfloat16()
+    args = [f(rows, d).to(dtype), f(d), f(d),
+            (f(d, 4 * d) * 0.05).to(dtype), f(4 * d).to(dtype),
+            (f(4 * d, d) * 0.05).to(dtype), f(d).to(dtype)]
+    extra = f(rows, d).to(dtype)
     ref = ffn.ln_ffn_residual(*args, extra=extra)  # CPU: the plain version
     before = ffn.LAUNCHES
     out = ffn.ln_ffn_residual(*[t.to(cuda) for t in args],
                               extra=extra.to(cuda))
     torch.cuda.synchronize()
-    assert ffn.LAUNCHES == before + 1
-    tol = 2.0 ** -6 * float(ref.float().abs().max())
+    assert ffn.LAUNCHES == before + 1 and out.dtype == dtype
+    tol = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * float(
+        ref.float().abs().max())
     assert float((out.float().cpu() - ref.float()).abs().max()) <= tol
 
 
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(8, 384, device=cuda)  # float32: the kernel takes bf16
-    w1, w2 = torch.zeros(384, 1536, device=cuda), torch.zeros(1536, 384,
-                                                             device=cuda)
-    v = lambda n: torch.zeros(n, device=cuda)
-    with pytest.raises(ValueError):
-        ffn.ln_ffn_residual(x, v(384), v(384), w1, v(1536), w2, v(384))
+    """Outside the JAX gate (d = 640, rows not in whole 8-row tiles) and
+    on f16 rows the FFN kernels raise on the card."""
+    v = lambda *n: torch.zeros(*n, device=cuda)
+    for T, d, dt in ((8, 640, torch.bfloat16), (7, 384, torch.bfloat16),
+                     (8, 384, torch.float16)):
+        x = v(T, d).to(dt)
+        with pytest.raises(ValueError):
+            ffn.ln_ffn_residual(x, v(d), v(d), v(d, 4 * d), v(4 * d),
+                                v(4 * d, d), v(d))
+        with pytest.raises(ValueError):
+            ffn.ln_ffn_backward(x, v(d), v(d), v(d, 4 * d), v(4 * d),
+                                v(4 * d, d), x)
 
 
 def _close_max(out, ref, tol):
@@ -149,6 +164,55 @@ def test_segment_sums_match_plain(cuda, dtype, padded, n_slots):
     assert out.dtype == win.dtype == dtype
     _close_max(out, ss.sorted_segment_sum_plain(x, rcv, N), tol)
     _close_max(win, ss.windowed_segment_sum_plain(x, snd, N, *wins), tol)
+
+
+# Windowed-sum layouts: (node count, edge count) a graph.  The sort
+# task's five small graphs (a 16-segment tile spans several; padded, one
+# node takes more rows than a warp batches), the headline
+# (eight 128-node graphs of 2,048 edges), the bucketed headline (a ninth,
+# edgeless padding graph of 32 nodes), empty graphs between full ones, and
+# windows longer than one sorted piece of 2,048 edges.
+_WINDOWS = {
+    "sort": ([8, 9, 7, 9, 8], [100, 110, 90, 112, 100]),
+    # the sort task's padded batch: a pad node sends 297 of 512 edges
+    "sort_pad_node": ([9, 7, 7, 6, 12], [81, 49, 49, 36, 297]),
+    "headline": ([128] * 8, [2048] * 8),
+    "bucketed": ([128] * 8 + [32], [2048] * 8 + [0]),
+    "empty_graphs": ([5, 0, 20, 0, 3, 17], [40, 0, 0, 0, 30, 200]),
+    "long_windows": ([16, 40, 1], [5000, 9000, 3]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 12])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", sorted(_WINDOWS))
+def test_windowed_segment_sum_layouts(cuda, layout, dtype, d):
+    """Unsorted graph-local ids against the plain sum, and two launches
+    bit-equal (a fixed summation order, no float atomics); d = 12 takes
+    the 4-value path of bf16 rows."""
+    nodes, edges = _WINDOWS[layout]
+    rng = np.random.default_rng(24)
+    no = np.concatenate([[0], np.cumsum(nodes)]).astype(np.int32)
+    eo = np.concatenate([[0], np.cumsum(edges)]).astype(np.int32)
+    seg = np.concatenate([rng.integers(no[i], max(no[i + 1], no[i] + 1),
+                                       size=edges[i])
+                          for i in range(len(nodes))]).astype(np.int32)
+    if layout == "sort_pad_node":
+        seg[eo[-2]:] = no[-2]
+    N, E = int(no[-1]), int(eo[-1])
+    x = torch.from_numpy(rng.normal(size=(E, d)).astype(np.float32)).to(dtype)
+    ids, wins = torch.from_numpy(seg), (torch.from_numpy(no),
+                                        torch.from_numpy(eo))
+    before = ss.WINDOWED_LAUNCHES
+    args = (x.to(cuda), ids.to(cuda), N, *[w.to(cuda) for w in wins])
+    out = ss.windowed_segment_sum(*args)
+    again = ss.windowed_segment_sum(*args)
+    torch.cuda.synchronize()
+    assert ss.WINDOWED_LAUNCHES == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)
+    _close_max(out, ss.windowed_segment_sum_plain(x, ids, N, *wins),
+               2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
 
 
 @pytest.mark.cuda
@@ -465,33 +529,71 @@ def test_g1_edge_update_matches_plain(cuda, dtype, parts, has_ln, pads):
             _close_max(t[k].grad, t_ref[k].grad, 5e-2 if bf else 1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T", [8, 1000, 8192])
-@pytest.mark.parametrize("d", [128, 256])
-def test_ln_ffn_backward_matches_plain(cuda, d, T):
+def _ffn_backward_case(cuda, dtype, d, T):
+    """The kernel's and the plain version's gradients on the card for
+    seeded inputs (two rows constant), and a second launch of the
+    kernel."""
     rng = np.random.default_rng(21)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
-    bf = torch.bfloat16
     x = f(T, d)
     x[:2] = 0.0
-    args = [x.to(bf), 1 + 0.1 * f(d), 0.1 * f(d),
-            (f(d, 4 * d) * d ** -0.5).to(bf), (0.1 * f(4 * d)).to(bf),
-            (f(4 * d, d) * (4 * d) ** -0.5).to(bf), f(T, d).to(bf)]
-    ref = ffn.ln_ffn_backward_plain(*args)
+    args = [x.to(dtype), 1 + 0.1 * f(d), 0.1 * f(d),
+            (f(d, 4 * d) * d ** -0.5).to(dtype), (0.1 * f(4 * d)).to(dtype),
+            (f(4 * d, d) * (4 * d) ** -0.5).to(dtype), f(T, d).to(dtype)]
+    dev = [t.to(cuda) for t in args]
+    ref = ffn.ln_ffn_backward_plain(*dev)
     before = ffn.BWD_LAUNCHES
-    out = ffn.ln_ffn_backward(*[t.to(cuda) for t in args])
+    out = ffn.ln_ffn_backward(*dev)
+    again = ffn.ln_ffn_backward(*dev)
     torch.cuda.synchronize()
-    assert ffn.BWD_LAUNCHES == before + 1
-    for o, r, tol in zip(out, ref, (2.0 ** -6,) + (1e-2,) * 6):
-        assert o.dtype == r.dtype
+    assert ffn.BWD_LAUNCHES == before + 2
+    for o, a, r in zip(out, again, ref):
+        assert o.dtype == r.dtype and torch.equal(o, a)
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 200, 1000, 8192])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_ffn_backward_matches_plain(cuda, dtype, d, T):
+    """The trained widths on bf16 and f32 rows, with row counts that are
+    not whole 64- or 128-row tiles, against the plain version on the card
+    (as ``chip_smoke.py`` holds it); two launches bit-equal."""
+    out, ref = _ffn_backward_case(cuda, dtype, d, T)
+    tols = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4,) + (1e-2,) * 6
+    for o, r, tol in zip(out, ref, tols):
         _close_max(o, r, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 200, 1000, 8192])
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_ffn_backward_wide_rows_match_plain(cuda, dtype, d, T):
+    """The rest of the JAX gate's widths.  dx, dW2 and db2 as above; the
+    gradients that pass through the relu mask (dscale, dbias, dW1, db1) by
+    the 2-norm of the difference, within 1e-2 of the plain version's norm:
+    at T = 8192 and d = 384 a mask flips where the f32 pre-activation of
+    12.6M is within summation-order rounding of 0, moving one column of
+    dW1 by 2% of its largest element, a tail value the norm does not
+    weigh (``chip_smoke.py`` holds T = 65,536 by the
+    largest element)."""
+    out, ref = _ffn_backward_case(cuda, dtype, d, T)
+    tols = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4,) + (1e-2,) * 6
+    for i in (0, 5, 6):
+        _close_max(out[i], ref[i], tols[i])
+    for i in (1, 2, 3, 4):
+        o, r = out[i].float().cpu(), ref[i].float().cpu()
+        assert bool(torch.isfinite(o).all())
+        assert float((o - r).norm()) <= 1e-2 * float(r.norm())
 
 
 @pytest.mark.cuda
 def test_ln_ffn_residual_trains_through_its_backward_kernel(cuda):
     """Autograd through the fused forward reaches the backward kernel, with
-    ``extra``'s gradient the cotangent itself; d = 384 raises, naming the
-    width."""
+    ``extra``'s gradient the cotangent itself; d = 640, outside the JAX
+    gate, raises."""
     T, d = 512, 256
     rng = np.random.default_rng(22)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -511,12 +613,11 @@ def test_ln_ffn_residual_trains_through_its_backward_kernel(cuda):
     assert torch.equal(dev[7].grad.cpu(), ct)
     for a, b, tol in zip(dev[:7], cpu[:7], (2.0 ** -6,) + (1e-2,) * 6):
         _close_max(a.grad, b.grad, tol)
-    wide = [torch.zeros(8, 384, device=cuda, dtype=bf).requires_grad_()] + [
+    wide = [torch.zeros(8, 640, device=cuda, dtype=bf).requires_grad_()] + [
         torch.zeros(*s, device=cuda) for s in
-        ((384,), (384,), (384, 1536), (1536,), (1536, 384), (384,))]
-    y = ffn.ln_ffn_residual(*wide)
-    with pytest.raises(ValueError, match="384"):
-        y.sum().backward()
+        ((640,), (640,), (640, 2560), (2560,), (2560, 640), (640,))]
+    with pytest.raises(ValueError, match="unsupported"):
+        ffn.ln_ffn_residual(*wide)
 
 
 @pytest.mark.cuda

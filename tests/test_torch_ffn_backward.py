@@ -191,18 +191,103 @@ def test_ln_ffn_backward_var0_rows():
 
 
 def test_ln_ffn_backward_refuses_other_widths_on_the_card():
-    """The backward kernel is built for d = 128 and 256; the wrapper names
-    the width it refuses (checked before any launch, so it shows on the
-    CPU too when called directly)."""
-    x = torch.zeros(8, 384, dtype=torch.bfloat16)
+    """The backward kernel takes what the JAX gate takes (d = 128 to 512,
+    whole 8-row tiles) on bf16 and f32 rows; the wrapper refuses the rest
+    before any launch, so it shows on the CPU too when called directly."""
     z = torch.zeros
-    with pytest.raises(ValueError, match="384"):
-        pt_ffn._launch_backward(x, z(384), z(384), z(384, 1536), z(1536),
-                                z(1536, 384), x)
-    with pytest.raises(ValueError, match="bf16"):
-        pt_ffn._launch_backward(x.float()[:, :128], z(128), z(128),
-                                z(128, 512), z(512), z(512, 128),
-                                x.float()[:, :128])
+    for T, d, dt in ((8, 640, torch.bfloat16), (8, 200, torch.bfloat16),
+                     (8, 128, torch.float16), (12, 128, torch.bfloat16)):
+        x = z(T, d, dtype=dt)
+        with pytest.raises(ValueError, match="unsupported"):
+            pt_ffn._launch_backward(x, z(d), z(d), z(d, 4 * d), z(4 * d),
+                                    z(4 * d, d), x)
+        assert not pt_ffn.supports_fused_ffn(T, d, dt)
+        assert not j_ffn.supports_fused_ffn(T, d) or dt == torch.float16
+
+
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ln_ffn_backward_plain_wide_matches_jax_kernel(kernels_on, dtype, d):
+    """The plain backward (the CUDA kernel's yardstick) against the JAX
+    package's Pallas backward at the widths the JAX gate adds beyond the
+    trained ones, with the module docstring's tolerances."""
+    T = 16
+    tdt, jdt = _DT[dtype]
+    a = _inputs(70 + d, T, d)
+    assert j_ffn.supports_fused_ffn(T, d) and \
+        pt_ffn.supports_fused_ffn(T, d, tdt)
+    out_j = j_ffn._fused_backward(
+        *[jnp.asarray(a[n], jdt) for n in _ARGS], jnp.asarray(a["g"], jdt))
+    out_p = pt_ffn.ln_ffn_backward_plain(*[_t(a[n], tdt) for n in _ARGS],
+                                         _t(a["g"], tdt))
+    tols = dict(zip(_NAMES, (1e-5,) * 7 if dtype == "f32"
+                    else (2.0 ** -6,) + (1e-2,) * 6))
+    for n, o, r in zip(_NAMES, out_p, out_j):
+        _close(o, r, tols[n], n)
+
+
+def _batch_pair(seed, d, dtype):
+    """Two graphs of 16 nodes, in-degree 8, batched uniformly in both
+    packages: 256 edge rows, 32 node rows, 2 graph rows."""
+    rng = np.random.default_rng(seed)
+    adjs, efs, nfs = [], [], []
+    for _ in range(2):
+        adj = np.zeros((16, 16), np.int64)
+        for r in range(16):
+            adj[rng.choice(16, size=8, replace=False), r] = 1
+        adjs.append(adj)
+        efs.append(rng.normal(size=(128, d)).astype(np.float32))
+        nfs.append(rng.normal(size=(16, d)).astype(np.float32))
+    data = {"graphs": adjs, "ef": efs, "nf": nfs,
+            "gf": rng.normal(size=(2, d)).astype(np.float32)}
+    tdt, jdt = _DT[dtype]
+    pad = gn.PadSpec.uniform(16, 128)
+    gj = gn.batch(data, pad=pad)
+    gj = gj.with_features(ef=gj.ef.astype(jdt), nf=gj.nf.astype(jdt),
+                          gf=gj.gf.astype(jdt))
+    gp = pt.batch(data, pad=pad, device="cpu")
+    gp = gp.with_features(ef=gp.ef.to(tdt), nf=gp.nf.to(tdt),
+                          gf=gp.gf.to(tdt))
+    return gj, gp
+
+
+@pytest.mark.parametrize("dtype,d", [("bf16", 512), ("f32", 128),
+                                     ("f32", 512)])
+def test_gncore_forward_fuses_where_jax_does(kernels_on, monkeypatch, dtype,
+                                             d):
+    """With the kernels forced on, a GNCore forward on f32 rows or at
+    d = 512 takes the fused FFN for the edge and node sets in both packages
+    (the 2-row graph set composes in both), and the outputs agree: f32 at
+    1e-4, bf16 at 5e-2 of each set's largest magnitude."""
+    tdt, jdt = _DT[dtype]
+    gj, gp = _batch_pair(80 + d, d, dtype)
+    core_j = gn.GNCore((d, d, d))
+    params = jax.tree_util.tree_map(
+        lambda w: np.asarray(w.astype(jdt)), core_j.init(
+            jax.random.PRNGKey(6)))
+    core_p = pt.GNCore((d, d, d), device="cpu", dtype=tdt)
+    pt.from_jax_params(params, core_p)
+    calls = {"jax": 0, "port": 0}
+
+    def count(key, real):
+        def spy(*a, **k):
+            calls[key] += 1
+            return real(*a, **k)
+        return spy
+    monkeypatch.setattr(j_ffn, "_fused_forward",
+                        count("jax", j_ffn._fused_forward))
+    monkeypatch.setattr(pt_ffn, "ln_ffn_residual_plain",
+                        count("port", pt_ffn.ln_ffn_residual_plain))
+    yj = core_j.apply(jax.tree_util.tree_map(jnp.asarray, params), gj)
+    with torch.no_grad():
+        yp = core_p(gp)
+    assert calls == {"jax": 2, "port": 2}
+    for key in ("ef", "nf", "gf"):
+        a = np.asarray(getattr(yj, key), np.float32)
+        b = _np(getattr(yp, key))
+        assert np.isfinite(b).all()
+        tol = 1e-4 if dtype == "f32" else 5e-2
+        assert np.abs(b - a).max() <= tol * max(np.abs(a).max(), 1.0), key
 
 
 # -- the GNCore's training gates ----------------------------------------

@@ -196,11 +196,58 @@ def test_kernel_gates():
                                                 128, 2048, bf)  # smem
     assert not pt_eu.supports_fused_edge_update(16384, 1024, 8, 96, 384,
                                                 128, 2048, bf)
-    for rows in (8, 1024, 16384, 3):
+    for rows in (8, 1024, 16384):
         assert pt_ffn.supports_fused_ffn(rows, 384, bf)
+    assert not pt_ffn.supports_fused_ffn(3, 384, bf)     # not whole 8-row tiles
     assert not pt_ffn.supports_fused_ffn(0, 384, bf)
-    assert not pt_ffn.supports_fused_ffn(64, 512, bf)
-    assert not pt_ffn.supports_fused_ffn(64, 384, torch.float32)
+    assert pt_ffn.supports_fused_ffn(64, 512, bf)
+    assert not pt_ffn.supports_fused_ffn(64, 640, bf)    # the VMEM term
+    assert pt_ffn.supports_fused_ffn(64, 384, torch.float32)
+    assert not pt_ffn.supports_fused_ffn(64, 384, torch.float16)
+
+
+@pytest.mark.parametrize("rows", [7, 8, 64, 200])
+@pytest.mark.parametrize("d", [128, 200, 256, 384, 512, 640])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_supports_fused_ffn_matches_jax(dtype, d, rows):
+    """The port's FFN gate is the JAX package's (``fused_ffn.py:99-105``)
+    on bf16 and f32 rows."""
+    from graphnets_tpu.ops.pallas.fused_ffn import supports_fused_ffn
+    assert pt_ffn.supports_fused_ffn(rows, d, dtype) == \
+        supports_fused_ffn(rows, d)
+
+
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_ln_ffn_residual_wide_and_f32_match_pallas(interpret_mode, dtype, d):
+    """The forward at the widths and row type the repaired gate lets
+    through: the plain version (the CUDA kernel's yardstick) against the
+    JAX kernel in interpret mode; bf16 at the JAX kernel tests' 5e-2, f32
+    at 1e-5 of the largest magnitude (the same f32 sums in another
+    order)."""
+    from graphnets_tpu.ops.pallas.fused_ffn import _fused_forward
+    rows = 16
+    a = _ffn_inputs(8, rows, d)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    jx = {k: jnp.asarray(a[k]) for k in _FFN_KEYS}
+    pt = {k: _t(a[k]) for k in _FFN_KEYS}
+    for k in ("x", "w1", "b1", "w2", "b2"):
+        jx[k] = jx[k].astype(jdt)
+        pt[k] = pt[k].to(tdt)
+    out_j = np.asarray(_fused_forward(*[jx[k] for k in _FFN_KEYS],
+                                      extra=jnp.asarray(a["extra"], jdt)),
+                       np.float32)
+    assert pt_ffn.supports_fused_ffn(rows, d, tdt)
+    out_p = pt_ffn.ln_ffn_residual(*[pt[k] for k in _FFN_KEYS],
+                                   extra=_t(a["extra"], tdt))
+    assert out_p.dtype == tdt and out_p.shape == (rows, d)
+    if dtype == "bf16":
+        np.testing.assert_allclose(out_p.float().numpy(), out_j, rtol=5e-2,
+                                   atol=5e-2)
+    else:
+        err = np.abs(out_p.numpy() - out_j).max()
+        assert err <= 1e-5 * np.abs(out_j).max(), err
 
 
 # -- random_gather --------------------------------------------------------
