@@ -12,7 +12,9 @@ random gather):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``graphnets_tpu_torch/csrc`` with ``nvcc``
    for ``sm_90a`` (all sources at once) and print the build time and the
-   compiler's register/spill report;
+   compiler's register/spill report; every instance of the ``wgmma`` / TMA
+   kernels (the fused FFN forward and backward, the LN->matmul backward's
+   two passes) must show 0 spill bytes;
 3. hold each kernel against its plain torch version on the card, at the
    shapes the main path gives it: the fused edge update on the headline
    layout and on a padded uniform layout, the fused LN->FFN->residual at
@@ -24,7 +26,10 @@ random gather):
    ([16384, 384] bf16 into 1024 segments), the sorted gather ([1024, 384]
    to 16384 rows, bit-equal) and the LN->matmul backward (T = 16384,
    d = dout = 384), with the time of one PyTorch call computing the same
-   function where there is one (``index_add_``, ``index_select``);
+   function where there is one (``index_add_``, ``index_select``).  The
+   LN->matmul backward and the fused FFN forward launch twice on the same
+   inputs and must be bit-equal, and the LN backward's tensor-core passes
+   are timed one by one (row pass, dW pass, its fused reduction);
 4. run the main path: the headline forward of ``bench.py`` (8 graphs x 128
    nodes x in-degree 16, E = 16384, batched with
    ``PadSpec.uniform(128, 2048)``; 3 GNCores at (384, 384, 384); bf16
@@ -115,7 +120,8 @@ C. run the single large graph (``benchmarks/bench_large_graph.py``: one
    bf16 at d = 512 and in f32 at d = 384, its backward at T = 65,536 in
    bf16 at d = 384 and 512 and in f32 at d = 256.  The FFN backward and
    both segment sums also launch twice on the same inputs and must be
-   bit-equal (a fixed summation order).  The million-row cases are timed by
+   bit-equal (a fixed summation order), as the FFN forward and the LN
+   backward do at every shape.  The million-row cases are timed by
    5 eager calls between CUDA events, not by a CUDA graph;
 D. run sampled training (``benchmarks/bench_arxiv.py``: a synthetic graph
    of 169,343 nodes and 1,166,243 edges with power-law in-degree, 128-d
@@ -170,6 +176,30 @@ G1_F32_SLACK = 1.5
 
 def log(msg):
     print(msg, flush=True)
+
+
+# The wgmma / TMA kernels whose ptxas report must show no spills: the
+# fused FFN forward and backward and the LN->matmul backward's passes.
+TC_KERNELS = ("ln_ffn_residual_kernel", "ffn_bwd_gemm_kernel",
+              "ln_bwd_rows_tc_kernel", "ln_bwd_dw_tc_kernel")
+
+
+def tensor_core_spills(logs):
+    """Spill bytes (stored, loaded) of each instance of the tensor-core
+    kernels in the compiler's ``-Xptxas -v`` report, by mangled name."""
+    import re
+    out, fn = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn and any(k in fn for k in TC_KERNELS):
+                out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
 
 
 def cuda_ms(torch, fn, iters=ITERS, warmup=WARMUP):
@@ -327,7 +357,9 @@ def check_ffn(torch, ffn, T, seed, D=D, large=False, dtype=None):
     with torch.no_grad():
         y = ffn.ln_ffn_residual(x, *w, extra=extra)
         ref = ffn.ln_ffn_residual_plain(x, *w, extra=extra)
+        again = ffn.ln_ffn_residual(x, *w, extra=extra)
     torch.cuda.synchronize()
+    equal = bool(torch.equal(y, again))  # split-K partials in a fixed order
     err = float((y.float() - ref.float()).abs().max())
     # bf16: two bf16 ulps at the largest magnitude (the final rounding,
     # plus a hidden value that rounds the other way after a differently
@@ -342,8 +374,9 @@ def check_ffn(torch, ffn, T, seed, D=D, large=False, dtype=None):
     bms, by = (bound_ms(nbytes, flops) if es == 2
                else bound_ms(nbytes, 0, flops_f32=flops))
     return {"shape": f"T={T} d={D}" + ("" if es == 2 else " f32"),
-            "max_err": err, "tol": tol,
-            "ok": err <= tol and bool(torch.isfinite(y.float()).all()),
+            "max_err": err, "tol": tol, "bit_equal_relaunch": equal,
+            "ok": (err <= tol and equal
+                   and bool(torch.isfinite(y.float()).all())),
             **times, "bound_ms": bms, "bound_by": by}
 
 
@@ -511,8 +544,10 @@ def check_ln_backward(torch, ll, lnp, T, seed, dtype=None, D=D, large=False,
             (rnd(D, D) * D ** -0.5).to(bf), rnd(T, D).to(bf))
     kernel = lambda: ll.ln_linear_backward(*args)
     plain = lambda: lnp.ln_linear_backward_plain(*args)
-    out, ref = kernel(), plain()
+    out, ref, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
+    # A fixed summation order: a second launch is bit-equal.
+    equal = all(torch.equal(o, a) for o, a in zip(out, again))
     names = ("dx", "dscale", "dbias", "dw")
     rel = {n: max_err(o, r) / max(float(r.float().abs().max()), 1e-30)
            for n, o, r in zip(names, out, ref)}
@@ -523,12 +558,23 @@ def check_ln_backward(torch, ll, lnp, T, seed, dtype=None, D=D, large=False,
     flops = 4 * T * D * D
     bms, by = bound_ms(nbytes, flops if es == 2 else 0,
                        flops_f32=0 if es == 2 else flops)
-    return {"shape": f"T={T} d={D} dout={D} {'bf16' if es == 2 else 'f32'}",
+    case = {"shape": f"T={T} d={D} dout={D} {'bf16' if es == 2 else 'f32'}",
             "max_err": max(max_err(o, r) for o, r in zip(out, ref)),
-            "rel_err": rel, "tol": tols,
-            "ok": finite and all(rel[n] <= tols[n] for n in names),
+            "rel_err": rel, "tol": tols, "bit_equal_relaunch": equal,
+            "ok": finite and equal and all(rel[n] <= tols[n] for n in names),
             **timed(torch, kernel, plain, large=large), "bound_ms": bms,
             "bound_by": by}
+    if ll._one_step_rows(D, D, bf):
+        # The tensor-core passes alone: the row pass, the dW pass without
+        # and with its fused reduction (differences of three timings).
+        t = {p: (cuda_ms(torch, lambda p=p: ll._launch(*args, passes=p),
+                         iters=LARGE_ITERS, warmup=1) if large
+                 else graph_ms(torch, lambda p=p: ll._launch(*args,
+                                                             passes=p)))
+             for p in (1, 3, 7)}
+        case["pass_ms"] = {"rows": t[1], "dw": t[3] - t[1],
+                           "reduction": t[7] - t[3]}
+    return case
 
 
 def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype, D=D):
@@ -1578,6 +1624,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    spills = tensor_core_spills(logs)
+    for fn, (stores, loads) in sorted(spills.items()):
+        log(f"  spills of {fn}: {stores} bytes stored, {loads} loaded")
+    if len(spills) < len(TC_KERNELS) or any(
+            st or ld for st, ld in spills.values()):
+        raise SystemExit(f"the tensor-core kernels must build without "
+                         f"spills: {spills}")
 
     # 3. Each kernel against its plain version at the main-path shapes.
     g_exact = pt.batch(bench_graphs(0, N_PER_G, DEG, N_PER_G,
@@ -1682,6 +1735,13 @@ def main() -> int:
               + g1_cases + ffn_bwd_cases + [rg_case])
     for c in checks:
         log("check: " + json.dumps(c))
+    for c in ln_cases:
+        if "pass_ms" in c:
+            pm = c["pass_ms"]
+            log(f"ln_linear_backward {c['shape']}: row pass "
+                f"{pm['rows']:.4f} ms, dW pass {pm['dw']:.4f} ms, fused "
+                f"reduction {pm['reduction']:.4f} ms (of {c['kernel_ms']:.4f} "
+                f"ms; bound {c['bound_ms']:.4f} ms); {where}")
     failed = [c["shape"] for c in checks if not c["ok"]]
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")

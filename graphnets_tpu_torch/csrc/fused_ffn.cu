@@ -9,26 +9,49 @@
 // for rows of type T, bf16 or f32, and d = 128, 256, 384 or 512 (the JAX
 // gate's widths: d % 128 == 0 and both weights within its VMEM budget).
 //
-// What bounds it on the H100: 4 * T * d * 4d operations (38.7 GFLOP at
-// T = 16384, d = 384) against ~40 MB of traffic, so the tensor cores
-// bound it: ~39 us at 989 TFLOP/s bf16, ~12 us of memory.
+// What bounds it on the H100: 4 * T * d * 4d operations (1.1 TFLOP at
+// T = 1,048,576, d = 256: ~1.1 ms at 989 TFLOP/s bf16) against 3 * T * d
+// * 2 bytes of rows (1.6 GB, ~0.5 ms): the tensor cores bound it.
 //
-// bf16 rows.  The [rows, 4d] hidden activation never leaves the SM.  A
-// block takes R rows (64; 32 at d = 512), keeps their LN'd bf16 copy in
-// shared memory and walks the hidden dimension in slices of 32: it forms
-// the slice relu(xn @ W1[:, j] + b1[j]) in shared memory, rounds it to
-// bf16 and adds slice @ W2[j, :] into an f32 [R, d] accumulator held in
-// registers (the binding resource: R * d / 256 f32 a thread, which is why
-// the row tile halves at d = 512).  With few row tiles (T = 1024 or 8
-// on the node and graph sets) that leaves most SMs idle and one block's
-// serial walk over 4d/32 slices sets the time, so up to 8 blocks split the
-// hidden dimension of a row tile and the last to finish adds their f32
-// partials in a fixed order.  The W1/W2 slices stream from L2
-// through a two-stage cp.async ring, so the next slice is in flight while
-// the tensor cores work on this one.  Products run through WMMA (bf16 in,
-// f32 accumulate); a TMA/wgmma pipeline with larger row tiles is later
-// work.  Rows past T (T = 8 on the graph set) are zero-filled and never
-// written.
+// bf16 rows: wgmma fed by TMA.  A block of two warpgroups takes a tile of
+// rows; one thread issues the TMA loads (a dedicated producer warp would
+// cap the registers of a thread at 168, below what the accumulators
+// need).  The x tile arrives in a 128-byte-swizzled bf16 tile in shared
+// memory, which the warps normalise in place into xn, laid out as wgmma's
+// K-major A operand.  A ring of weight slices follows, each stage refilled
+// as soon as both warpgroups hand it back (completion and hand-back on
+// one mbarrier each a stage): W1[:, j:j+64] and
+// W2[j:j+64, :] in turn, each [d x 64] or [64 x d] in [64 x 64] boxes,
+// read by wgmma MN-major (their columns along the 128-byte rows), so the
+// row-major weights need no transpose.  Per hidden slice of 64 each
+// consumer warpgroup forms
+//
+//   hp = xn @ W1[:, j:j+64]          wgmma m64n64k16, A and B in shared
+//   h  = bf16(relu(hp + b1))         in registers
+//   y += h @ W2[j:j+64, :]           wgmma m64n64k16, A from registers
+//
+// the hidden slice never leaves the registers: the f32 accumulator of the
+// first product, rounded to bf16 pairs, is already the register layout of
+// the second product's A operand.  The y accumulator (f32) is the binding
+// resource: up to d = 256 the tile is 128 rows, 64 a warpgroup, each
+// holding a [64 x d] accumulator (128 registers a thread at d = 256); at
+// d = 384 and 512 the tile is 64 rows and the two warpgroups split y's
+// columns, each forming the (same) hidden slice for itself: 1.5x the
+// tensor-core work of the products, against an accumulator that would
+// not fit.  The epilogue stages the f32 tile in shared memory and writes
+// whole rows: y = bf16(xf + ((acc + b2) + extra)).  Rows past T arrive as
+// zeros, are normalised to zeros and are never written.
+//
+// Few row tiles (T = 1024, 1056 or 8 on the node and graph sets) leave
+// most SMs idle, so up to 8 blocks split the hidden dimension of a row tile
+// and the last to finish (a counter a tile) adds their f32 partials in a
+// fixed order before the epilogue.
+//
+// Rejected: the PR 1 design (WMMA fragments fed by a two-stage cp.async
+// ring, the hidden slice through shared memory twice, loading,
+// synchronising and multiplying in turn: 13.68 ms at T = 1,048,576,
+// d = 256 on an H100 80GB HBM3 at 700 W); persistent blocks and 2-CTA
+// clusters that multicast the weight slices are not built yet.
 //
 // f32 rows (no caller trains or infers through them at the driven shapes;
 // the kernel exists because the JAX gate takes them): true-f32 products on
@@ -40,184 +63,264 @@
 // `extra` is read and the result goes to a separate buffer: the kernel
 // does not alias `extra` into the output as the TPU kernel does.
 
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kSlice = 32;    // hidden columns per step
+using namespace hopper;
+
+constexpr int kSlice = 64;                  // hidden columns of a step
+// Two warpgroups and no producer warp: a ninth warp would cut the
+// registers a thread may hold from 255 to 168, which the y accumulator
+// and a hidden slice outgrow at d = 256.  Thread 0 issues the loads.
 constexpr int kThreads = 256;
 
-// Rows a bf16 block takes at width D.
-constexpr int rows_for(int D) { return D > 384 ? 32 : 64; }
+// Rows of a bf16 block at width D.
+constexpr int rows_for(int D) { return D > 256 ? 64 : 128; }
 
-template <int D, int R>
-struct Layout {
-  static constexpr int kLdx = D + 8;          // LN'd rows, bf16
-  static constexpr int kLdw1 = kSlice + 8;    // W1[:, slice], bf16
-  static constexpr int kLdw2 = D + 8;         // W2[slice, :], bf16
-  static constexpr int kLdhf = kSlice + 4;    // hidden slice, f32
-  static constexpr int kLdhs = kSlice + 8;    // hidden slice, bf16
-  static constexpr int kLdy = D + 4;          // accumulator spill, f32
-  static constexpr int kW1Stage = D * kLdw1;      // elements per stage
-  static constexpr int kW2Stage = kSlice * kLdw2;
-  static constexpr size_t kX = 0;
-  static constexpr size_t kW1 = kX + (size_t)R * kLdx * 2;
-  static constexpr size_t kW2 = kW1 + (size_t)2 * kW1Stage * 2;
-  static constexpr size_t kHf = kW2 + (size_t)2 * kW2Stage * 2;
-  static constexpr size_t kHs = kHf + (size_t)R * kLdhf * 4;
-  static constexpr size_t kBytes = kHs + (size_t)R * kLdhs * 2;
-  static_assert((size_t)R * kLdy * 4 <= kHf, "accumulator spill fits");
-  static_assert(kBytes <= 227 * 1024, "fits an SM's shared memory");
+template <int D>
+struct Fwd {
+  static constexpr int BM = rows_for(D);
+  static constexpr bool kSplitCols = D > 256;  // warpgroups split y's columns
+  static constexpr int NY = kSplitCols ? D / 2 : D;  // y columns a warpgroup
+  static constexpr int NCH = NY / 64;               // its 64-column chunks
+  static constexpr int kStages = D == 384 ? 3 : D == 512 ? 2 : 4;
+  static constexpr int kBuf = D * kSlice * 2;  // one W1 or W2 slice
+  static constexpr int kAtom = BM * 128;       // xn: 64 columns of its rows
+  static constexpr int kLdy = D + 8;           // staged f32 rows
+  static constexpr size_t kRing = (size_t)BM * D * 2;
+  static constexpr size_t kBars = kRing + (size_t)kStages * kBuf;
+  // full[kStages], empty[kStages], the x tile's barrier, the split flag.
+  static constexpr size_t kBytes = kBars + 2 * kStages * 8 + 8 + 16 + 1024;
+  static_assert((size_t)BM * kLdy * 4 <= kBars, "staged rows fit");
+  static_assert(kBytes <= 232448, "fits an SM's shared memory");
 };
 
-template <int D, int R>
-__global__ void __launch_bounds__(kThreads)
-ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_ffn_residual_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap w1map,
+                       const __grid_constant__ CUtensorMap w2map,
+                       const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ extra,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias,
-                       const __nv_bfloat16* __restrict__ w1,
                        const float* __restrict__ b1,
-                       const __nv_bfloat16* __restrict__ w2,
                        const float* __restrict__ b2,
                        __nv_bfloat16* __restrict__ out,
                        float* __restrict__ partial,
                        int* __restrict__ counters, int T) {
-  using L = Layout<D, R>;
-  constexpr int DH = 4 * D;
-  constexpr int RB = R / 16;        // 16-row blocks
-  constexpr int CG = 8 / RB;        // column groups of the accumulator
-  constexpr int NY = D / (16 * CG); // accumulator fragments per warp
-  constexpr int kSteps = DH / kSlice;
+  using L = Fwd<D>;
+  constexpr int S = L::kStages;
+  constexpr int kSteps = 4 * D / kSlice;
   const int splits = gridDim.y;  // blocks sharing one row tile (split-K)
-  const int s_begin = blockIdx.y * (kSteps / splits);
-  const int s_end = s_begin + kSteps / splits;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem + L::kX);
-  __nv_bfloat16* W1s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW1);
-  __nv_bfloat16* W2s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW2);
-  float* Hf = reinterpret_cast<float*>(smem + L::kHf);
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem + L::kHs);
-
+  const int n_steps = kSteps / splits;
+  const int s_begin = blockIdx.y * n_steps;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + (uint32_t)L::kBars;
+  const uint32_t empty = full + S * 8;
+  const uint32_t xbar = empty + S * 8;
+  int* last = reinterpret_cast<int*>(smem + L::kBars + 2 * S * 8 + 8);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, T - row0);
-  const int rb = warp % RB, cg = warp / RB;  // accumulator: rows, columns
+  const int row0 = blockIdx.x * L::BM;
 
-  // Issue the copy of hidden slice `s` of W1 and W2 into ring stage s & 1.
-  auto load_slice = [&](int s) {
-    const int j0 = s * kSlice;
-    __nv_bfloat16* w1s = W1s + (s & 1) * L::kW1Stage;
-    __nv_bfloat16* w2s = W2s + (s & 1) * L::kW2Stage;
-    for (int i = tid; i < D * (kSlice / 8); i += kThreads) {
-      const int k = i / (kSlice / 8), v = i % (kSlice / 8);
-      gn::cp_async16(w1s + k * L::kLdw1 + v * 8,
-                     w1 + (size_t)k * DH + j0 + v * 8);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival a consumer warpgroup
     }
-    gn::cp_async_rows(w2s, L::kLdw2, w2 + (size_t)j0 * D, kSlice, D, tid,
-                      kThreads);
-    gn::cp_async_commit();
-  };
-
-  // Group 0: this block's x rows; group 1: its first hidden slice.
-  gn::cp_async_rows(Xs, L::kLdx, x + (size_t)row0 * D, rows, D, tid,
-                    kThreads);
-  gn::cp_async_commit();
-  load_slice(s_begin);
-  for (int i = rows * D + tid; i < R * D; i += kThreads)
-    Xs[(i / D) * L::kLdx + i % D] = __float2bfloat16_rn(0.f);
-  gn::cp_async_wait<1>();
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  for (int r = warp; r < rows; r += kThreads / 32)
-    gn::ln_row_inplace(Xs + r * L::kLdx, D, scale, bias, lane);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[NY];
+  // Ring item `it`: the W1 slice of step it / 2 for even it, its W2 slice
+  // for odd; issued by thread 0 once both warpgroups have handed back the
+  // stage's previous item.
+  const int items = 2 * n_steps;
+  auto issue = [&](int it) {
+    const int s = it % S;
+    mbar_wait(empty + 8 * s, ((it / S) & 1) ^ 1);
+    const uint32_t fb = full + 8 * s;
+    const uint32_t dst = base + (uint32_t)L::kRing + s * L::kBuf;
+    mbar_expect_tx(fb, L::kBuf);
+    const int j0 = (s_begin + it / 2) * kSlice;
 #pragma unroll
-  for (int f = 0; f < NY; ++f) wmma::fill_fragment(yacc[f], 0.f);
-
-  for (int s = s_begin; s < s_end; ++s) {
-    if (s + 1 < s_end) {
-      load_slice(s + 1);
-      gn::cp_async_wait<1>();
-    } else {
-      gn::cp_async_wait<0>();
+    for (int b = 0; b < D / 64; ++b) {
+      if (it & 1)  // W2 rows j0 .. j0 + 64, columns 64 b ..
+        tma_load(dst + b * 8192, &w2map, fb, 64 * b, j0);
+      else         // W1 rows 64 b .., columns j0 .. j0 + 64
+        tma_load(dst + b * 8192, &w1map, fb, j0, 64 * b);
     }
-    __syncthreads();
-    const __nv_bfloat16* w1s = W1s + (s & 1) * L::kW1Stage;
-    const __nv_bfloat16* w2s = W2s + (s & 1) * L::kW2Stage;
-    const int j0 = s * kSlice;
-
-    // Hidden slice [R, 32] = xn @ W1[:, j0:j0+32]: RB x 2 fragments, one a
-    // warp (warps past them wait), summed in kChains independent chains so
-    // the tensor core is not waiting on one accumulator.
-    if (warp < RB * 2) {
-      const int hb = warp % RB, hc = warp / RB;
-      constexpr int kChains = 4;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[kChains];
+  };
+  if (tid == 0) {
+    // The x tile into the xn tile's place, then the first S items.
+    mbar_expect_tx(xbar, L::BM * D * 2);
 #pragma unroll
-      for (int c = 0; c < kChains; ++c) wmma::fill_fragment(hacc[c], 0.f);
+    for (int b = 0; b < D / 64; ++b)
+      tma_load(base + b * L::kAtom, &xmap, xbar, 64 * b, row0);
+    for (int it = 0; it < min(S, items); ++it) issue(it);
+  }
+  __syncwarp();
+  // 1. xn = bf16(LN(x)) of the tile's rows, one warp a row, in place in
+  //    the swizzled A tile (rows past T arrive as zeros): 16-byte chunk v
+  //    of a row lies in 64-column atom v / 8 at chunk v % 8.
+  mbar_wait(xbar, 0);
+  for (int r = warp; r < L::BM; r += kThreads / 32) {
+    const int row = row0 + r;
+    float v[2][8];
+    float sum = 0.f;
 #pragma unroll
-      for (int k = 0; k < D; k += 16 * kChains) {
+    for (int j = 0; j < 2; ++j) {
+      const int vi = lane + 32 * j;
 #pragma unroll
-        for (int c = 0; c < kChains; ++c) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          const int kk = k + 16 * c;
-          wmma::load_matrix_sync(fa, Xs + hb * 16 * L::kLdx + kk, L::kLdx);
-          wmma::load_matrix_sync(fb, w1s + kk * L::kLdw1 + hc * 16,
-                                 L::kLdw1);
-          wmma::mma_sync(hacc[c], fa, fb, hacc[c]);
+      for (int t = 0; t < 8; ++t) v[j][t] = 0.f;
+      if (vi < D / 8) {
+        const uint4 raw4 = *reinterpret_cast<const uint4*>(
+            smem + (vi / 8) * L::kAtom + swz128(r, vi % 8));
+        const __nv_bfloat162* p =
+            reinterpret_cast<const __nv_bfloat162*>(&raw4);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 f = __bfloat1622float2(p[t]);
+          v[j][2 * t] = f.x;
+          v[j][2 * t + 1] = f.y;
+          sum += f.x + f.y;
         }
       }
-#pragma unroll
-      for (int i = 0; i < hacc[0].num_elements; ++i)
-        hacc[0].x[i] = (hacc[0].x[i] + hacc[1].x[i]) +
-                       (hacc[2].x[i] + hacc[3].x[i]);
-      wmma::store_matrix_sync(Hf + hb * 16 * L::kLdhf + hc * 16, hacc[0],
-                              L::kLdhf, wmma::mem_row_major);
     }
-    __syncthreads();
-
-    for (int i = tid; i < R * kSlice; i += kThreads) {
-      const int r = i / kSlice, c = i % kSlice;
-      const float v = Hf[r * L::kLdhf + c] + b1[j0 + c];
-      Hs[r * L::kLdhs + c] = __float2bfloat16_rn(v > 0.f ? v : 0.f);
-    }
-    __syncthreads();
-
-    // acc[R, D] += hidden slice @ W2[j0:j0+32, :]; warp: 16 rows x D/CG.
+    const float mean = gn::warp_sum(sum) / D;
+    float q = 0.f;
 #pragma unroll
-    for (int k = 0; k < kSlice; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, Hs + rb * 16 * L::kLdhs + k, L::kLdhs);
+    for (int j = 0; j < 2; ++j)
+      if (lane + 32 * j < D / 8)
 #pragma unroll
-      for (int f = 0; f < NY; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, w2s + k * L::kLdw2 + cg * (D / CG) + f * 16,
-                               L::kLdw2);
-        wmma::mma_sync(yacc[f], fa, fb, yacc[f]);
+        for (int t = 0; t < 8; ++t) {
+          const float c = v[j][t] - mean;
+          q += c * c;
+        }
+    const float var = gn::warp_sum(q) / D;
+    const float den = (var > 0.f ? sqrtf(var) : 0.f) + gn::kLnEps;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int vi = lane + 32 * j;
+      if (vi >= D / 8) continue;
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (row < T) {
+        uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int c = vi * 8 + 2 * t;
+          pk[t] = pack_bf16(
+              __fadd_rn(__fmul_rn((v[j][2 * t] - mean) / den, scale[c]),
+                        bias[c]),
+              __fadd_rn(__fmul_rn((v[j][2 * t + 1] - mean) / den,
+                                  scale[c + 1]),
+                        bias[c + 1]));
+        }
       }
+      *reinterpret_cast<uint4*>(smem + (vi / 8) * L::kAtom +
+                                swz128(r, vi % 8)) = packed;
     }
-    // The next iteration refills the other stage; this one is free only
-    // after every warp is done with it.
-    __syncthreads();
+  }
+  fence_proxy_async();  // the xn stores, before wgmma reads them
+  __syncthreads();
+
+  // 2. The hidden dimension, a slice of 64 a step.
+  const int wg = tid >> 7;
+  const int rw = L::kSplitCols ? 0 : 64 * wg;   // the warpgroup's rows
+  const int cw = L::kSplitCols ? wg * L::NY : 0;  // and y columns
+  const uint32_t xa = base + rw * 128;
+  float y[L::NCH][32];
+#pragma unroll
+  for (int c = 0; c < L::NCH; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[c][i] = 0.f;
+    fence_regs(y[c]);
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    const int it = 2 * t;
+    const int s1 = it % S, s2 = (it + 1) % S;
+    mbar_wait(full + 8 * s1, (it / S) & 1);
+    const uint32_t w1s = base + (uint32_t)L::kRing + s1 * L::kBuf;
+    float hp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hp[i] = 0.f;
+    fence_regs(hp);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_m64n64k16<0, 1>(
+          hp, make_desc(xa + (k / 4) * L::kAtom + (k % 4) * 32, 16),
+          make_desc(w1s + k * 2048, 8192));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(hp);
+    if ((tid & 127) == 0) mbar_arrive(empty + 8 * s1);
+    if (tid == 0 && it + S < items) issue(it + S);
+    __syncwarp();
+
+    // h = bf16(relu(hp + b1)), packed as the A fragments of 4 k16 steps.
+    const int j0 = (s_begin + t) * kSlice;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int i = 8 * q + 2 * p;
+        const float2 bb = *reinterpret_cast<const float2*>(
+            b1 + j0 + 8 * (i / 4) + 2 * (lane & 3));
+        const float h0 = hp[i] + bb.x, h1 = hp[i + 1] + bb.y;
+        a[q][p] = pack_bf16(h0 > 0.f ? h0 : 0.f, h1 > 0.f ? h1 : 0.f);
+      }
+
+    mbar_wait(full + 8 * s2, ((it + 1) / S) & 1);
+    const uint32_t w2s = base + (uint32_t)L::kRing + s2 * L::kBuf;
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < L::NCH; ++c)
+        wgmma_m64n64k16_rs<1>(
+            y[c], a[q],
+            make_desc(w2s + (cw / 64 + c) * 8192 + q * 2048, 8192));
+    wgmma_commit();
+    // The A registers are read asynchronously: nothing may reuse them
+    // before the products are done.  The other warpgroup keeps the tensor
+    // cores busy meanwhile.
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c) fence_regs(y[c]);
+    if ((tid & 127) == 0) mbar_arrive(empty + 8 * s2);
+    if (tid == 0 && it + 1 + S < items) issue(it + 1 + S);
+    __syncwarp();
   }
 
-  // Spill the accumulator over the (now free) operand buffers.
-  float* Ys = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int f = 0; f < NY; ++f)
-    wmma::store_matrix_sync(Ys + rb * 16 * L::kLdy + cg * (D / CG) + f * 16,
-                            yacc[f], L::kLdy, wmma::mem_row_major);
+  // 3. Stage the f32 tile over xn and the ring (every warpgroup is done
+  //    with both) and finish whole rows.
   __syncthreads();
+  float* Ys = reinterpret_cast<float*>(smem);
+  {
+    const int lr = rw + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half;
+          const int col = cw + 64 * c + 8 * j + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(Ys + (lr + 8 * half) * L::kLdy + col) =
+              make_float2(y[c][i], y[c][i + 1]);
+        }
+  }
+  __syncthreads();
+  const int rows = min(L::BM, T - row0);
 
   if (splits > 1) {
     // Split-K over the hidden dimension: publish this block's partial sum;
@@ -231,7 +334,6 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __threadfence();
     __syncthreads();
-    int* last = reinterpret_cast<int*>(smem + L::kHs);
     if (tid == 0) *last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
     __syncthreads();
     if (!*last) return;
@@ -239,24 +341,26 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = tid; i < rows * (D / 4); i += kThreads) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       const size_t g = (size_t)(row0 + r) * D + c;
-      float4 a = __ldcg(reinterpret_cast<const float4*>(partial + g));
+      float4 acc = __ldcg(reinterpret_cast<const float4*>(partial + g));
       for (int k = 1; k < splits; ++k) {
         const float4 p = __ldcg(reinterpret_cast<const float4*>(
             partial + (size_t)k * T * D + g));
-        a.x += p.x; a.y += p.y; a.z += p.z; a.w += p.w;
+        acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
       }
-      *reinterpret_cast<float4*>(Ys + r * L::kLdy + c) = a;
+      *reinterpret_cast<float4*>(Ys + r * L::kLdy + c) = acc;
     }
     __syncthreads();
   }
 
   // Epilogue: y = bf16(xf + ((acc + b2) + extra)) with xf re-read from x.
+#pragma unroll 4
   for (int i = tid; i < rows * (D / 4); i += kThreads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     const size_t g = (size_t)(row0 + r) * D + c;
-    const float4 a = *reinterpret_cast<const float4*>(Ys + r * L::kLdy + c);
+    const float4 acc = *reinterpret_cast<const float4*>(Ys + r * L::kLdy + c);
     const float4 bb = *reinterpret_cast<const float4*>(b2 + c);
-    float4 t = make_float4(a.x + bb.x, a.y + bb.y, a.z + bb.z, a.w + bb.w);
+    float4 t = make_float4(acc.x + bb.x, acc.y + bb.y, acc.z + bb.z,
+                           acc.w + bb.w);
     if (extra != nullptr) {
       const float4 e = gn::load4(extra + g);
       t.x += e.x; t.y += e.y; t.z += e.z; t.w += e.w;
@@ -270,23 +374,25 @@ ln_ffn_residual_kernel(const __nv_bfloat16* __restrict__ x,
 // ---- f32 rows --------------------------------------------------------------
 
 constexpr int kRowsF32 = 32;
+constexpr int kSliceF32 = 32;     // hidden columns per step
+constexpr int kThreadsF32 = 256;
 
 template <int D>
 struct LayoutF32 {
   static constexpr int kLdx = D + 4;          // LN'd rows
-  static constexpr int kLdw1 = kSlice + 4;    // W1[:, slice]
+  static constexpr int kLdw1 = kSliceF32 + 4;    // W1[:, slice]
   static constexpr int kLdw2 = D + 4;         // W2[slice, :]
-  static constexpr int kLdh = kSlice + 4;     // hidden slice
+  static constexpr int kLdh = kSliceF32 + 4;     // hidden slice
   static constexpr size_t kX = 0;
   static constexpr size_t kW1 = kX + (size_t)kRowsF32 * kLdx * 4;
   static constexpr size_t kW2 = kW1 + (size_t)D * kLdw1 * 4;
-  static constexpr size_t kH = kW2 + (size_t)kSlice * kLdw2 * 4;
+  static constexpr size_t kH = kW2 + (size_t)kSliceF32 * kLdw2 * 4;
   static constexpr size_t kBytes = kH + (size_t)kRowsF32 * kLdh * 4;
   static_assert(kBytes <= 227 * 1024, "fits an SM's shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsF32)
 ln_ffn_residual_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ extra,
                            const float* __restrict__ scale,
@@ -310,7 +416,7 @@ ln_ffn_residual_f32_kernel(const float* __restrict__ x,
 
   // LN of each row in f32, one warp a row: the plain version's arithmetic
   // ((x - mean) / (std + eps)) * scale + bias.
-  for (int r = warp; r < kRowsF32; r += kThreads / 32) {
+  for (int r = warp; r < kRowsF32; r += kThreadsF32 / 32) {
     float* xs = Xs + r * L::kLdx;
     if (r >= rows) {
       for (int c = lane; c < D; c += 32) xs[c] = 0.f;
@@ -341,14 +447,14 @@ ln_ffn_residual_f32_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int t = 0; t < 4; ++t) acc[j][t] = 0.f;
 
-  for (int j0 = 0; j0 < DH; j0 += kSlice) {
+  for (int j0 = 0; j0 < DH; j0 += kSliceF32) {
     __syncthreads();  // the previous slice's readers are done
-    for (int i = tid; i < D * (kSlice / 4); i += kThreads) {
-      const int k = i / (kSlice / 4), v = (i % (kSlice / 4)) * 4;
+    for (int i = tid; i < D * (kSliceF32 / 4); i += kThreadsF32) {
+      const int k = i / (kSliceF32 / 4), v = (i % (kSliceF32 / 4)) * 4;
       *reinterpret_cast<float4*>(W1s + k * L::kLdw1 + v) =
           *reinterpret_cast<const float4*>(w1 + (size_t)k * DH + j0 + v);
     }
-    for (int i = tid; i < kSlice * (D / 4); i += kThreads) {
+    for (int i = tid; i < kSliceF32 * (D / 4); i += kThreadsF32) {
       const int k = i / (D / 4), v = (i % (D / 4)) * 4;
       *reinterpret_cast<float4*>(W2s + k * L::kLdw2 + v) =
           *reinterpret_cast<const float4*>(w2 + (size_t)(j0 + k) * D + v);
@@ -374,7 +480,7 @@ ln_ffn_residual_f32_kernel(const float* __restrict__ x,
     }
     __syncthreads();
 #pragma unroll 4
-    for (int k = 0; k < kSlice; ++k) {
+    for (int k = 0; k < kSliceF32; ++k) {
       const float a = Hs[yr * L::kLdh + k];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
@@ -421,25 +527,29 @@ int launch(const void* x, const void* extra, const void* scale,
                                (int)smem);
     if (err != cudaSuccess) return err;
     ln_ffn_residual_f32_kernel<D>
-        <<<(T + kRowsF32 - 1) / kRowsF32, kThreads, smem, stream>>>(
+        <<<(T + kRowsF32 - 1) / kRowsF32, kThreadsF32, smem, stream>>>(
             (const float*)x, (const float*)extra, (const float*)scale,
             (const float*)bias, (const float*)w1, (const float*)b1,
             (const float*)w2, (const float*)b2, (float*)out, T);
     return cudaGetLastError();
   }
-  constexpr int R = rows_for(D);
   if (splits < 1 || (4 * D / kSlice) % splits) return cudaErrorInvalidValue;
-  const size_t smem = Layout<D, R>::kBytes;
-  err = cudaFuncSetAttribute(ln_ffn_residual_kernel<D, R>,
+  CUtensorMap mx, m1, m2;
+  int e;
+  if ((e = make_map(&mx, x, T, D, Fwd<D>::BM)) != 0) return e;
+  if ((e = make_map(&m1, w1, D, 4 * D, 64)) != 0) return e;
+  if ((e = make_map(&m2, w2, 4 * D, D, 64)) != 0) return e;
+  const size_t smem = Fwd<D>::kBytes;
+  err = cudaFuncSetAttribute(ln_ffn_residual_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + R - 1) / R, splits);
-  ln_ffn_residual_kernel<D, R><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)extra,
-      (const float*)scale, (const float*)bias, (const __nv_bfloat16*)w1,
-      (const float*)b1, (const __nv_bfloat16*)w2, (const float*)b2,
-      (__nv_bfloat16*)out, (float*)partial, (int*)counters, T);
+  const dim3 grid((T + Fwd<D>::BM - 1) / Fwd<D>::BM, splits);
+  ln_ffn_residual_kernel<D><<<grid, kThreads, smem, stream>>>(
+      mx, m1, m2, (const __nv_bfloat16*)x, (const __nv_bfloat16*)extra,
+      (const float*)scale, (const float*)bias, (const float*)b1,
+      (const float*)b2, (__nv_bfloat16*)out, (float*)partial, (int*)counters,
+      T);
   return cudaGetLastError();
 }
 
@@ -455,8 +565,8 @@ extern "C" int gn_ln_ffn_residual_rows(int d) { return rows_for(d); }
 // and `counters` holds one zeroed int a row tile.  f32 rows (is_f32 = 1):
 // splits, partial and counters are unused.
 // Preconditions, checked by the Python wrapper: x/extra/w1/w2/out all of
-// the rows' type, f32 scale/bias/b1/b2, contiguous, T >= 1, d in
-// {128, 256, 384, 512}, and splits dividing 4d / 32.
+// the rows' type, f32 scale/bias/b1/b2, contiguous and 16-byte aligned,
+// T >= 1, d in {128, 256, 384, 512}, and splits dividing 4d / 64.
 extern "C" int gn_ln_ffn_residual(const void* x, const void* extra,
                                   const void* scale, const void* bias,
                                   const void* w1, const void* b1,

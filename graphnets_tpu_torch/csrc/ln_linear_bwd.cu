@@ -11,43 +11,57 @@
 //   dz  = dxn * scale
 //   dx  = bf16( (dz - mean(dz)) / s - (z - mean(z)) * (mean(dz * z) / sigma) )
 //
-// What bounds it on the H100: at the main-path shape (T = 16384,
-// d = dout = 384) it reads x and g (25 MB), writes dx (12.6 MB) and the
-// f32 dW (0.6 MB): ~38.6 MB, ~11.5 us at 3.35 TB/s, against 9.7 GFLOP
-// (~9.8 us of bf16 tensor-core work).
+// What bounds it on the H100: memory.  At the large graph's shape
+// (T = 1,048,576, d = dout = 256) it must read x and g (1.07 GB) and write
+// dx (0.54 GB): ~0.48 ms at 3.35 TB/s, against 0.27 TFLOP (~0.28 ms of
+// bf16 tensor-core work at 989 TFLOP/s); at the main path's (T = 16384,
+// d = dout = 384) ~38.6 MB, ~11.5 us, against 9.7 GFLOP.
 //
-// What the design does about it.  The TPU kernel carried dW, dscale and
-// dbias across its sequential grid; blocks here run in parallel, so the
-// sums over rows are split and then added in a fixed order (no atomics;
-// deterministic):
+// bf16 rows of d = 128, 256, 384 or 512 (every driven shape): two passes
+// of wgmma fed by TMA, and no separate reduction.
 //
-// 1. Row pass, one block per 32 rows: x and g rows arrive by cp.async,
-//    each warp takes the statistics of its rows (also written out, 8 bytes
-//    a row, for pass 2), dxn = g @ W^T runs on the tensor cores (WMMA)
-//    into shared memory while W streams through a two-stage cp.async ring
-//    of 32-column slices shared by the block's warps, dx is written, and
-//    the block's column sums of dxn * z and dxn go to a partial row each.
-// 2. dW pass: dW = xn^T @ g as a split-K product, one block per 128 x 128
-//    tile of dW and per range of rows (about two blocks an SM); raw x and
-//    g rows of the next step and their statistics arrive by cp.async
-//    while this step's xn is rebuilt from x and multiplied; each block
-//    writes its f32 partial tile.
-// 3. Reduce: the partials of dW, dscale and dbias are added in partial
-//    order.
+// 1. Row pass.  Persistent blocks (one an SM) of two warpgroups walk
+//    64-row tiles; one thread issues the TMA loads (a producer warp would
+//    cap a thread's registers at 168, too few at d = 384 and 512): each x
+//    tile (two in flight up to d = 384) and a ring of g chunks [64 x 64]
+//    and W chunks [d x 64], a stage refilled as soon as both warpgroups
+//    hand it back (W is [d, dout] row-major, already the K-major B
+//    operand of dxn = g @ W^T: no transpose).  Per tile the warps take the
+//    row statistics from the x tile (one warp a row) and write the bf16 xn
+//    rows to device memory for pass 2; the two warpgroups then
+//    split dxn's d columns (wgmma m64n64k16 from shared memory; the f32
+//    [64 x d / 2] accumulator stays in registers), and the LN pullback runs
+//    on the accumulator in registers: the row sums of dz, dz * z and z are
+//    added across the lanes of a row and then across the two warpgroups
+//    through shared memory, dx is staged in shared memory and written in
+//    whole rows (over the x tile, whose buffer then takes a later tile),
+//    and each lane adds the column sums of dxn * z and dxn of its columns
+//    across the block's tiles in registers.
+// 2. dW pass.  dW = xn^T @ g takes the rows as K: [64 x 64] TMA boxes of
+//    xn and g land MN-major and wgmma's transpose bits read them (the FFN
+//    backward's weight pass); one 128 x 128 tile of dW and one range of
+//    rows a block, the ranges of a tile on neighbouring blocks so that
+//    their rows are read from device memory about once.  Each block writes
+//    its f32 partial tile; the last block of a tile to finish (a counter a
+//    tile, zeroed by pass 1) adds the partials in range order, and the last
+//    blocks of the first column of tiles add the row pass's dscale and
+//    dbias partials of their 128 columns in block order.  No atomics in
+//    any sum: a second launch on the same inputs is bit-equal.
 //
-// A wgmma/TMA pipeline and a fused reduction are later work.
+// Traffic at the large graph's shape: pass 1 reads x and g and writes dx
+// and xn (2.1 GB), pass 2 reads xn and g (1.07 GB): ~3.2 GB, ~0.96 ms at
+// 3.35 TB/s.  Rejected: rebuilding xn from x in pass 2 (the same bytes, and
+// the normalisation in front of every product) and passes over L2-sized row
+// chunks (not built).  The PR 2 design (WMMA fed by a two-stage cp.async
+// ring, a dW pass that re-read x and g, and three reduce launches) took
+// 4.23 ms there on an H100 80GB HBM3 at 700 W.
 //
-// Pass 1 in two steps.  The row pass above keeps a block's x and g rows, a
-// W^T ring and the f32 dxn rows in shared memory and its accumulators in
-// registers sized by d, so it is built for d = 128 .. 512 in bf16.  Any
-// other width of the JAX package's gate (and a dout whose g rows outgrow
-// shared memory) takes pass 1 in two steps whose shared memory does not
-// depend on the widths: a tiled product dxn = g @ W^T into an f32 [T, d]
-// scratch in device memory, then a pullback pass (one warp a row) that
-// reads x and dxn, writes dx and the statistics and adds the block's column
-// sums.  Passes 2 and 3 are the same.  The scratch costs one extra write
-// and read of T * d * 4 bytes, which is why bf16 rows keep the one-step row
-// pass where it fits.
+// Any other width of the JAX package's gate takes pass 1 in two steps
+// whose shared memory does not depend on the widths: a tiled product dxn =
+// g @ W^T into an f32 [T, d] scratch in device memory, then a pullback pass
+// (one warp a row) that reads x and dxn, writes dx and the statistics and
+// adds the block's column sums; then a split-K WMMA dW pass that rebuilds
+// xn from x, and three fixed-order reductions.
 //
 // f32 rows (the sort task trains in f32) take every product on the CUDA
 // cores in plain f32 multiply-adds, never TF32: pass 1 always in two steps
@@ -59,184 +73,19 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 32;       // rows per block of the row pass
 constexpr int kTile = 128;      // dW tile (both dims) of the dW pass
 constexpr int kTk = 32;         // rows per step of the dW pass
 constexpr int kLdt = kTile + 8;
-constexpr int kWk = 32;         // W^T rows (dout) per ring stage, row pass
-constexpr int kLdw = kWk + 8;
-
-// Shared memory of a row-pass block: x and g rows, then the W^T ring,
-// whose space the f32 dxn rows reuse once the product is done, then the
-// per-row statistics.
-__host__ __device__ constexpr size_t rows_ring_bytes(int d) {
-  return (size_t)2 * d * kLdw * 2 > (size_t)kRows * (d + 4) * 4
-             ? (size_t)2 * d * kLdw * 2
-             : (size_t)kRows * (d + 4) * 4;
-}
-__host__ __device__ constexpr size_t rows_smem_bytes(int d, int dout) {
-  return (size_t)kRows * (d + 8) * 2 + (size_t)kRows * (dout + 8) * 2 +
-         rows_ring_bytes(d) + (size_t)kRows * 3 * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ g,
-                   const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ scale,
-                   __nv_bfloat16* __restrict__ dx,
-                   float* __restrict__ stats, float* __restrict__ part_ds,
-                   float* __restrict__ part_db, int T, int dout) {
-  constexpr int kLdx = D + 8;
-  constexpr int kLdd = D + 4;
-  constexpr int NF = D / 64;  // dxn fragments a warp (4 column groups)
-  const int ldg = dout + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Gs = Xs + kRows * kLdx;
-  __nv_bfloat16* Ws = Gs + kRows * ldg;        // 2 stages of [D][kLdw]
-  float* Ds = reinterpret_cast<float*>(Ws);    // after the product
-  float* st = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(Ws) + rows_ring_bytes(D));
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, T - row0);
-
-  gn::cp_async_rows(Xs, kLdx, x + (size_t)row0 * D, rows, D, tid, kThreads);
-  gn::cp_async_rows(Gs, ldg, g + (size_t)row0 * dout, rows, dout, tid,
-                    kThreads);
-  gn::cp_async_commit();
-  // Issue the copy of W[:, k0:k0 + kWk] (W^T rows k0..) into ring stage.
-  auto load_w = [&](int k0, int stage) {
-    __nv_bfloat16* dst = Ws + stage * D * kLdw;
-    for (int i = tid; i < D * (kWk / 8); i += kThreads) {
-      const int n = i / (kWk / 8), v = (i % (kWk / 8)) * 8;
-      gn::cp_async16(dst + n * kLdw + v, w + (size_t)n * dout + k0 + v);
-    }
-    gn::cp_async_commit();
-  };
-  load_w(0, 0);
-  for (int i = rows * D + tid; i < kRows * D; i += kThreads)
-    Xs[(i / D) * kLdx + i % D] = __float2bfloat16_rn(0.f);
-  for (int i = rows * dout + tid; i < kRows * dout; i += kThreads)
-    Gs[(i / dout) * ldg + i % dout] = __float2bfloat16_rn(0.f);
-  gn::cp_async_wait<1>();  // x and g rows (the W slice may still fly)
-  __syncthreads();
-
-  // Statistics, one warp a row.
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const __nv_bfloat16* xr = Xs + r * kLdx;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += __bfloat162float(xr[c]);
-    const float mean = gn::warp_sum(s) / D;
-    float q = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = __bfloat162float(xr[c]) - mean;
-      q += v * v;
-    }
-    const float var = gn::warp_sum(q) / D;
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-    if (lane == 0) {
-      st[r * 3] = mean;
-      st[r * 3 + 1] = sd + gn::kLnEps;
-      st[r * 3 + 2] = var > 0.f ? sd : 1.f;
-      if (r < rows) {
-        stats[(size_t)(row0 + r) * 2] = mean;
-        stats[(size_t)(row0 + r) * 2 + 1] = sd + gn::kLnEps;
-      }
-    }
-  }
-
-  // dxn = g @ W^T: warp (rb, cg) takes 16 rows x D/4 columns.  A ring
-  // stage holds W[:, k0:k0 + kWk] as [n][k], which is W^T's slice in
-  // column-major order.
-  {
-    const int rb = warp & 1, cg = warp >> 1;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-    for (int k0 = 0; k0 < dout; k0 += kWk) {
-      const int stage = (k0 / kWk) & 1;
-      if (k0 + kWk < dout) {
-        load_w(k0 + kWk, stage ^ 1);
-        gn::cp_async_wait<1>();
-      } else {
-        gn::cp_async_wait<0>();
-      }
-      __syncthreads();
-      const __nv_bfloat16* ws = Ws + stage * D * kLdw;
-#pragma unroll
-      for (int kk = 0; kk < kWk; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Gs + rb * 16 * ldg + k0 + kk, ldg);
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          const int n = cg * (D / 4) + f * 16;
-          wmma::load_matrix_sync(fb, ws + n * kLdw + kk, kLdw);
-          wmma::mma_sync(acc[f], fa, fb, acc[f]);
-        }
-      }
-      // The next iteration refills the other stage; this one is free only
-      // once every warp is done with it (and Ds reuses the ring after).
-      __syncthreads();
-    }
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-      wmma::store_matrix_sync(Ds + rb * 16 * kLdd + cg * (D / 4) + f * 16,
-                              acc[f], kLdd, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // dx, one warp a row.
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const float mean = st[r * 3], s = st[r * 3 + 1], sigma = st[r * 3 + 2];
-    const __nv_bfloat16* xr = Xs + r * kLdx;
-    const float* dr = Ds + r * kLdd;
-    float sdz = 0.f, sdzz = 0.f, sz = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float z = (__bfloat162float(xr[c]) - mean) / s;
-      const float dz = dr[c] * scale[c];
-      sdz += dz;
-      sdzz += dz * z;
-      sz += z;
-    }
-    const float mean_dz = gn::warp_sum(sdz) / D;
-    const float mean_dzz = gn::warp_sum(sdzz) / D;
-    const float mean_z = gn::warp_sum(sz) / D;
-    __nv_bfloat16* out = dx + (size_t)(row0 + r) * D;
-    for (int c = lane; c < D; c += 32) {
-      const float z = (__bfloat162float(xr[c]) - mean) / s;
-      const float dz = dr[c] * scale[c];
-      out[c] = __float2bfloat16_rn((dz - mean_dz) / s -
-                                   (z - mean_z) * (mean_dzz / sigma));
-    }
-  }
-
-  // This block's column sums of dxn * z and dxn, rows in order.
-  for (int c = tid; c < D; c += kThreads) {
-    float sds = 0.f, sdb = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float z = (__bfloat162float(Xs[r * kLdx + c]) - st[r * 3]) /
-                      st[r * 3 + 1];
-      const float d = Ds[r * kLdd + c];
-      sds += d * z;
-      sdb += d;
-    }
-    part_ds[(size_t)blockIdx.x * D + c] = sds;
-    part_db[(size_t)blockIdx.x * D + c] = sdb;
-  }
-}
 
 // Partial dW tile: xn[rows]^T @ g[rows] for one 128 x 128 tile and one
 // range of rows.  Warp (wm, wn) takes 32 x 64 of the tile.  Raw x and g
@@ -385,22 +234,6 @@ reduce_partials_kernel(const float* __restrict__ part, int parts, int n,
     for (int q = 1; q < kThreads / 32; ++q) t += sums[q][lane];
     out[i] = t;
   }
-}
-
-template <int D>
-int launch_rows(const void* x, const void* g, const void* w,
-                const void* scale, void* dx, void* stats, void* part_ds,
-                void* part_db, int T, int dout, cudaStream_t stream) {
-  const size_t smem = rows_smem_bytes(D, dout);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_bwd_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  ln_bwd_rows_kernel<D><<<(T + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
-      (const __nv_bfloat16*)w, (const float*)scale, (__nv_bfloat16*)dx,
-      (float*)stats, (float*)part_ds, (float*)part_db, T, dout);
-  return cudaGetLastError();
 }
 
 // ---- f32 rows ------------------------------------------------------------
@@ -705,16 +538,642 @@ int reduce(const void* part, int parts, int n, void* out,
   return cudaGetLastError();
 }
 
+// ---- bf16 rows, d = 128 .. 512: the tensor-core passes ----------------------
+
+constexpr int kConsumers = 256;             // two consumer warpgroups
+// The row pass has no producer warp (a ninth warp would cap a thread's
+// registers at 168, which the accumulators and the pullback outgrow at
+// d = 384 and 512): thread 0 issues its loads.  The dW pass has one.
+constexpr int kRowThreads = kConsumers;
+constexpr int kWThreads = kConsumers + 32;
+constexpr int kRB = 64;                     // rows of a row-pass tile
+
+__device__ __forceinline__ void consumer_sync() {
+  named_sync<1, kConsumers>();
+}
+
+template <int D>
+struct RowPass {
+  static constexpr int NY = D / 2;                  // dxn columns a warpgroup
+  static constexpr int NCH = NY / 64;               // its 64-column chunks
+  // Up to d = 256 each lane keeps the column sums of all its columns in
+  // registers and adds them across its warp's rows once, at the end.
+  static constexpr bool kColRegs = NCH <= 2;
+  static constexpr int kStages = D == 128 ? 4 : D == 256 ? 3 : 2;
+  static constexpr int kXB = D == 512 ? 1 : 2;      // x tiles in flight
+  static constexpr int kG = kRB * 128;              // g chunk [64 x 64]
+  static constexpr int kStage = kG + D * 128;       // and W chunk [D x 64]
+  static constexpr int kXT = kRB * D * 2;           // an x tile, then dx
+  static constexpr size_t kX = (size_t)kStages * kStage;
+  static constexpr size_t kSt = kX + (size_t)kXB * kXT;    // [64][3] stats
+  static constexpr size_t kXch = kSt + kRB * 3 * 4;  // [2][64][3] row sums
+  static constexpr size_t kBars = kXch + 2 * kRB * 3 * 4;
+  // full, empty [kStages]; xfull [kXB].
+  static constexpr size_t kBytes = kBars + (2 * kStages + kXB) * 8 + 1024;
+  static_assert((size_t)4 * D * 2 * 4 <= (size_t)kXT, "red fits");
+  static_assert(kBytes <= 232448, "fits an SM's shared memory");
+};
+
+// Byte offset of the bf16 pair at (row r, even column c) of an x tile as
+// TMA writes it: [64 x 64] boxes of 128-byte rows, 128-byte swizzle.
+__device__ __forceinline__ int xoff(int r, int c) {
+  return (c >> 6) * 8192 + swz128(r, (c >> 3) & 7) + (c & 7) * 2;
+}
+
+// Row pass: persistent blocks walk 64-row tiles.  Per tile: the row
+// statistics and xn (written to device memory for the dW pass), dxn =
+// g @ W^T on the tensor cores, then in registers dx and the column sums of
+// dxn * z and dxn, which each lane keeps across tiles for its columns.
+template <int D>
+__global__ void __launch_bounds__(kRowThreads, 1)
+ln_bwd_rows_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ dx,
+                      __nv_bfloat16* __restrict__ xn,
+                      float* __restrict__ part_rows,
+                      int* __restrict__ counters, int n_counters, int T,
+                      int dout) {
+  using L = RowPass<D>;
+  constexpr int S = L::kStages, XB = L::kXB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (base - raw);
+  float* st = reinterpret_cast<float*>(smem + L::kSt);
+  float* xch = reinterpret_cast<float*>(smem + L::kXch);
+  const uint32_t full = base + (uint32_t)L::kBars;
+  const uint32_t empty = full + S * 8;
+  const uint32_t xfull = empty + S * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (T + kRB - 1) / kRB, nk = dout / 64;
+
+  if (blockIdx.x == 0)  // the dW pass's tile counters, for this launch
+    for (int i = tid; i < n_counters; i += kRowThreads) counters[i] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival a consumer warpgroup
+    }
+    for (int b = 0; b < XB; ++b) mbar_init(xfull + 8 * b, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The loads, issued by thread 0.  The x tile of the block's tile lt
+  // ([64 x 64] boxes) into x buffer lt % XB, once the tile before it in
+  // that buffer is done; ring item it = lt * nk + kc: the g chunk
+  // [64 rows x 64] and the W chunk [D x 64] of k-chunk kc (W is [D, dout]
+  // row-major: already K-major for dxn = g @ W^T), once both warpgroups
+  // have handed back the stage's previous item.
+  auto issue_x = [&](int lt) {
+    const int tile = blockIdx.x + lt * gridDim.x, b = lt % XB;
+    if (tile >= tiles) return;
+    mbar_expect_tx(xfull + 8 * b, L::kXT);
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a)
+      tma_load(base + (uint32_t)L::kX + b * L::kXT + a * 8192, &xmap,
+               xfull + 8 * b, 64 * a, tile * kRB);
+  };
+  auto issue = [&](int it) {
+    const int tile = blockIdx.x + (it / nk) * gridDim.x, kc = it % nk;
+    if (tile >= tiles) return;
+    const int s = it % S;
+    mbar_wait(empty + 8 * s, ((it / S) & 1) ^ 1);
+    const uint32_t fb = full + 8 * s, dst = base + s * L::kStage;
+    mbar_expect_tx(fb, L::kStage);
+    tma_load(dst, &gmap, fb, 64 * kc, tile * kRB);
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a)
+      tma_load(dst + L::kG + a * 8192, &wmap, fb, 64 * kc, 64 * a);
+  };
+  if (tid == 0) {
+    for (int lt = 0; lt < XB; ++lt) issue_x(lt);
+    for (int it = 0; it < S; ++it) issue(it);
+  }
+  __syncwarp();
+
+  const int wg = tid >> 7, cw = wg * L::NY;
+  const int lr = 16 * (warp & 3) + (lane >> 2);  // rows lr and lr + 8
+  // dscale, dbias sums of this lane's columns: of column group lane / 4
+  // (summed over the warp's rows), or of every group (its own rows).
+  float colacc[L::NCH][4];
+  float colr[L::kColRegs ? L::NCH : 1][L::kColRegs ? 8 : 1][4];
+#pragma unroll
+  for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) colacc[c][k] = 0.f;
+  if constexpr (L::kColRegs)
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) colr[c][j][k] = 0.f;
+  int it = 0, xt = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++xt) {
+    const int row0 = tile * kRB;
+    unsigned char* xs = smem + L::kX + (xt % XB) * L::kXT;
+    mbar_wait(xfull + 8 * (xt % XB), (xt / XB) & 1);
+    // 1. Statistics and xn from the x tile (rows past T are zeros): four
+    //    lanes a row, all 64 rows at once, each lane with 16-byte chunks
+    //    q, q + 4, ... of its row (lane = 4 * row-in-warp + q).
+    {
+      constexpr int CPL = D / 32;  // chunks a lane
+      const int r = 8 * warp + (lane >> 2), q = lane & 3, row = row0 + r;
+      // The lane's chunk k, read again from shared memory by each of the
+      // three sweeps (holding them would spill at d = 512).
+      auto chunk = [&](int k) {
+        const int v = q + 4 * k;
+        return *reinterpret_cast<const uint4*>(xs + (v / 8) * 8192 +
+                                               swz128(r, v % 8));
+      };
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const uint4 raw4 = chunk(k);
+        const __nv_bfloat162* p =
+            reinterpret_cast<const __nv_bfloat162*>(&raw4);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 f = __bfloat1622float2(p[t]);
+          s0 += f.x;
+          s1 += f.y;
+        }
+      }
+      float sum = s0 + s1;
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float mean = sum / D;
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const uint4 raw4 = chunk(k);
+        const __nv_bfloat162* p =
+            reinterpret_cast<const __nv_bfloat162*>(&raw4);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 f = __bfloat1622float2(p[t]);
+          q0 += (f.x - mean) * (f.x - mean);
+          q1 += (f.y - mean) * (f.y - mean);
+        }
+      }
+      float qs = q0 + q1;
+      qs += __shfl_xor_sync(0xffffffffu, qs, 1);
+      qs += __shfl_xor_sync(0xffffffffu, qs, 2);
+      const float var = qs / D;
+      const float sd = var > 0.f ? sqrtf(var) : 0.f;
+      const float sv = sd + gn::kLnEps;
+      if (q == 0) {
+        st[r * 3] = mean;
+        st[r * 3 + 1] = sv;
+        st[r * 3 + 2] = var > 0.f ? sd : 1.f;
+      }
+      if (row < T) {
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) {
+          const int v = q + 4 * k;
+          const uint4 raw4 = chunk(k);
+          const __nv_bfloat162* p =
+              reinterpret_cast<const __nv_bfloat162*>(&raw4);
+          const float4* s4 = reinterpret_cast<const float4*>(scale + v * 8);
+          const float4* b4 = reinterpret_cast<const float4*>(bias + v * 8);
+          const float4 sa = s4[0], sb = s4[1], ba = b4[0], bb = b4[1];
+          const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+          const float bi[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+          uint4 packed;
+          uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float2 f = __bfloat1622float2(p[t]);
+            pk[t] = pack_bf16(
+                __fadd_rn(__fmul_rn((f.x - mean) / sv, sc[2 * t]), bi[2 * t]),
+                __fadd_rn(__fmul_rn((f.y - mean) / sv, sc[2 * t + 1]),
+                          bi[2 * t + 1]));
+          }
+          *reinterpret_cast<uint4*>(xn + (size_t)row * D + v * 8) = packed;
+        }
+      }
+    }
+    consumer_sync();
+
+    // 2. dxn = g @ W^T: this warpgroup's NY columns of the tile's 64 rows.
+    float acc[L::NCH][32];
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+      fence_regs(acc[c]);
+    }
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % S;
+      mbar_wait(full + 8 * s, (it / S) & 1);
+      const uint32_t gs = base + s * L::kStage, ws = gs + L::kG;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < L::NCH; ++c)
+          wgmma_m64n64k16<0, 0>(
+              acc[c], make_desc(gs + kk * 32, 16),
+              make_desc(ws + (cw + 64 * c) * 128 + kk * 32, 16));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous chunk's products are done
+      if (kc > 0 && (tid & 127) == 0)
+        mbar_arrive(empty + 8 * ((it - 1) % S));
+      if (kc > 0 && tid == 0) issue(it - 1 + S);
+      __syncwarp();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c) fence_regs(acc[c]);
+    if ((tid & 127) == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+    if (tid == 0) issue(it - 1 + S);
+    __syncwarp();
+
+    // 3. The LN pullback in registers.  Register i of chunk c holds row
+    //    lr + 8 * ((i / 2) % 2), column cw + 64 c + 8 (i / 4) + 2 (lane % 4)
+    //    + i % 2.
+    //    z and the division by s take one reciprocal a row (within an ulp
+    //    of the plain version's divisions; the tolerances hold dx to 2^-6
+    //    and the sums to 1e-3).
+    float mean[2], rs[2], sigma[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = st[(lr + 8 * h) * 3];
+      rs[h] = 1.f / st[(lr + 8 * h) * 3 + 1];
+      sigma[h] = st[(lr + 8 * h) * 3 + 2];
+    }
+    float sdz[2] = {0.f, 0.f}, sdzz[2] = {0.f, 0.f}, sz[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = cw + 64 * c + 8 * j + 2 * (lane & 3);
+        const float2 sc = *reinterpret_cast<const float2*>(scale + col);
+        float cs[4] = {0.f, 0.f, 0.f, 0.f};  // dxn * z and dxn, 2 columns
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  xs + xoff(lr + 8 * h, col)));
+          const float z0 = (xv.x - mean[h]) * rs[h];
+          const float z1 = (xv.y - mean[h]) * rs[h];
+          const float d0 = acc[c][i], d1 = acc[c][i + 1];
+          const float dz0 = d0 * sc.x, dz1 = d1 * sc.y;
+          sdz[h] += dz0 + dz1;
+          sdzz[h] += dz0 * z0 + dz1 * z1;
+          sz[h] += z0 + z1;
+          cs[0] += d0 * z0;
+          cs[1] += d1 * z1;
+          cs[2] += d0;
+          cs[3] += d1;
+        }
+        if constexpr (L::kColRegs) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) colr[c][j][k] += cs[k];
+        } else {
+          // Over the warp's 16 rows (lanes of one lane % 4 share columns);
+          // lane group j keeps column group j.
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], o);
+          if ((lane >> 2) == j)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) colacc[c][k] += cs[k];
+        }
+      }
+    // Row sums: the quad's lanes, then the two warpgroups in order.
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        sdz[h] += __shfl_xor_sync(0xffffffffu, sdz[h], o);
+        sdzz[h] += __shfl_xor_sync(0xffffffffu, sdzz[h], o);
+        sz[h] += __shfl_xor_sync(0xffffffffu, sz[h], o);
+      }
+    if ((lane & 3) == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* e = xch + (wg * kRB + lr + 8 * h) * 3;
+        e[0] = sdz[h];
+        e[1] = sdzz[h];
+        e[2] = sz[h];
+      }
+    consumer_sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* e0 = xch + (lr + 8 * h) * 3;
+      const float* e1 = xch + (kRB + lr + 8 * h) * 3;
+      const float mean_dz = (e0[0] + e1[0]) / D;
+      const float mean_z = (e0[2] + e1[2]) / D;
+      const float kz = ((e0[1] + e1[1]) / D) / sigma[h];  // mean(dz z) / sg
+#pragma unroll
+      for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = cw + 64 * c + 8 * j + 2 * (lane & 3);
+          const int i = 4 * j + 2 * h;
+          const float2 sc = *reinterpret_cast<const float2*>(scale + col);
+          __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(
+              xs + xoff(lr + 8 * h, col));
+          const float2 xv = __bfloat1622float2(*px);
+          const float z0 = (xv.x - mean[h]) * rs[h];
+          const float z1 = (xv.y - mean[h]) * rs[h];
+          const float dz0 = acc[c][i] * sc.x, dz1 = acc[c][i + 1] * sc.y;
+          *px = __floats2bfloat162_rn(
+              (dz0 - mean_dz) * rs[h] - (z0 - mean_z) * kz,
+              (dz1 - mean_dz) * rs[h] - (z1 - mean_z) * kz);
+        }
+    }
+    consumer_sync();
+    // 4. dx out in whole rows; then the buffer takes a later x tile.
+    for (int i = tid; i < kRB * (D / 8); i += kConsumers) {
+      const int r = i / (D / 8), v = i % (D / 8);
+      if (row0 + r < T)
+        *reinterpret_cast<uint4*>(dx + (size_t)(row0 + r) * D + v * 8) =
+            *reinterpret_cast<const uint4*>(xs + (v / 8) * 8192 +
+                                            swz128(r, v % 8));
+    }
+    fence_proxy_async();  // the dx stores, before TMA rewrites the tile
+    consumer_sync();      // xs, st and xch are rewritten by the next tile
+    if (tid == 0) issue_x(xt + XB);
+  }
+
+  // The block's column sums: each warp's lanes hold theirs (up to d = 256
+  // first added over the warp's rows, as the wider rows did per tile); the
+  // four warps of a warpgroup (other rows, the same columns) are added in
+  // order.
+  if constexpr (L::kColRegs)
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            colr[c][j][k] += __shfl_xor_sync(0xffffffffu, colr[c][j][k], o);
+        if ((lane >> 2) == j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) colacc[c][k] = colr[c][j][k];
+      }
+  // No x tile is in flight: the last one was issued for this block's last
+  // tile.
+  float* red = reinterpret_cast<float*>(smem + L::kX);  // [4][D][2]
+#pragma unroll
+  for (int c = 0; c < L::NCH; ++c)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = cw + 64 * c + 8 * (lane >> 2) + 2 * (lane & 3) + p;
+      red[((warp & 3) * D + col) * 2] = colacc[c][p];
+      red[((warp & 3) * D + col) * 2 + 1] = colacc[c][2 + p];
+    }
+  consumer_sync();
+  for (int col = tid; col < D; col += kConsumers) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      s0 += red[(w * D + col) * 2];
+      s1 += red[(w * D + col) * 2 + 1];
+    }
+    part_rows[(size_t)(2 * blockIdx.x) * D + col] = s0;
+    part_rows[(size_t)(2 * blockIdx.x + 1) * D + col] = s1;
+  }
+}
+
+// dW pass: dW = xn^T @ g over row ranges (the rows are K, read MN-major
+// from [64 x 64] boxes), one 128 x 128 tile of dW and one range a block.
+// With `reduce`, the last block of a tile to finish (a counter a tile) adds
+// the ranges' partials in range order, and the last blocks of the tiles of
+// the first column also add the row pass's dscale and dbias partials of
+// their 128 columns in block order: no atomics in any sum.
+constexpr int kWB = 128;                  // tile rows and columns
+constexpr int kWK = 64;                   // rows (k) of a stage
+constexpr int kWStages = 4;
+constexpr int kWHalf = kWK * 64 * 2;      // one [64 x 64] box, 8 KB
+constexpr int kWStage = 4 * kWHalf;       // two boxes of xn, two of g
+constexpr size_t kWBytes = (size_t)kWStages * kWStage + 2 * kWStages * 8 +
+                           16 + 1024;
+
+struct DwArgs {
+  int T, d, dout, k_split, tiles_n, tiles, splits, row_blocks, reduce;
+  float* part_dw;          // [splits, d, dout]
+  float* dw;               // [d, dout]
+  const float* part_rows;  // [row_blocks, 2, d]
+  float* ds;
+  float* db;
+  int* counters;           // one a tile, zeroed by the row pass
+};
+
+__global__ void __launch_bounds__(kWThreads, 1)
+ln_bwd_dw_tc_kernel(const __grid_constant__ CUtensorMap xnmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const DwArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + kWStages * kWStage;
+  const uint32_t empty = full + kWStages * 8;
+  int* last = reinterpret_cast<int*>(smem + kWStages * kWStage +
+                                     2 * kWStages * 8);
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x % p.tiles, split = blockIdx.x / p.tiles;
+  const int m0 = (tile / p.tiles_n) * kWB, n0 = (tile % p.tiles_n) * kWB;
+  const int k_begin = split * p.k_split;
+  const int nk = max(0, min(p.k_split, p.T - k_begin) + kWK - 1) / kWK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid != kConsumers) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kWStages;
+      mbar_wait(empty + 8 * s, ((kt / kWStages) & 1) ^ 1);
+      const uint32_t fb = full + 8 * s, sa = base + s * kWStage;
+      mbar_expect_tx(fb, kWStage);
+      const int k0 = k_begin + kt * kWK;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        tma_load(sa + b * kWHalf, &xnmap, fb, m0 + 64 * b, k0);
+        tma_load(sa + (2 + b) * kWHalf, &gmap, fb, n0 + 64 * b, k0);
+      }
+    }
+    return;
+  }
+
+  // Warpgroup wg takes rows [64 wg, 64 wg + 64) of the tile (dW rows are
+  // xn's columns).  Rows of x past T arrive as zeros.
+  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kWStages;
+    mbar_wait(full + 8 * s, (kt / kWStages) & 1);
+    const uint32_t sa = base + s * kWStage, sb = sa + 2 * kWHalf;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kWK / 16; ++j)
+      wgmma_m64n128k16<1, 1>(acc,
+                             make_desc(sa + wg * kWHalf + j * 2048, kWHalf),
+                             make_desc(sb + j * 2048, kWHalf));
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kt > 0 && (tid & 127) == 0)
+      mbar_arrive(empty + 8 * ((kt - 1) % kWStages));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const size_t sz = (size_t)p.d * p.dout;
+  float* mine = p.part_dw + (size_t)split * sz;
+  const int r_lo = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int c_lo = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<float2*>(mine + (size_t)(r_lo + 8 * h) * p.dout +
+                                 c_lo + 8 * j) =
+          make_float2(acc[i], acc[i + 1]);
+    }
+  if (!p.reduce) return;
+  __threadfence();
+  consumer_sync();
+  if (tid == 0) *last = atomicAdd(p.counters + tile, 1) == p.splits - 1;
+  consumer_sync();
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < kWB * kWB / 4; i += kConsumers) {
+    const int r = i / (kWB / 4), c = (i % (kWB / 4)) * 4;
+    const size_t g = (size_t)(m0 + r) * p.dout + n0 + c;
+    float4 a = __ldcg(reinterpret_cast<const float4*>(p.part_dw + g));
+#pragma unroll 4
+    for (int k = 1; k < p.splits; ++k) {
+      const float4 q =
+          __ldcg(reinterpret_cast<const float4*>(p.part_dw + k * sz + g));
+      a.x += q.x; a.y += q.y; a.z += q.z; a.w += q.w;
+    }
+    *reinterpret_cast<float4*>(p.dw + g) = a;
+  }
+  if (n0 == 0 && tid < kWB) {
+    const int col = m0 + tid;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll 8
+    for (int b = 0; b < p.row_blocks; ++b) {
+      s0 += p.part_rows[(size_t)(2 * b) * p.d + col];
+      s1 += p.part_rows[(size_t)(2 * b + 1) * p.d + col];
+    }
+    p.ds[col] = s0;
+    p.db[col] = s1;
+  }
+}
+
+template <int D>
+int launch_rows_tc(const CUtensorMap& xm, const CUtensorMap& gm,
+                   const CUtensorMap& wm, const void* scale, const void* bias,
+                   void* dx, void* xn, void* part_rows, void* counters,
+                   int n_counters, int T, int dout, int row_blocks,
+                   cudaStream_t s) {
+  const size_t smem = RowPass<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_rows_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  ln_bwd_rows_tc_kernel<D><<<row_blocks, kRowThreads, smem, s>>>(
+      xm, gm, wm, (const float*)scale,
+      (const float*)bias, (__nv_bfloat16*)dx, (__nv_bfloat16*)xn,
+      (float*)part_rows, (int*)counters, n_counters, T, dout);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Runs the three passes on `stream` and returns the first launch error.
-// Scratch, allocated by the Python wrapper: stats [T, 2], part_dw
-// [splits, d, dout], part_ds and part_db [ceil(T / 32), d], all f32, where
-// splits = ceil(T / rows_per_split); with `wide` also dxn [T, d] f32 (else
-// null).  Preconditions, checked there: bf16 x [T, d], g [T, dout],
-// w [d, dout]; f32 scale, bias; contiguous; T >= 1; d % 128 == 0;
-// dout % 128 == 0; rows_per_split % 32 == 0; `wide` unless d is one of
-// 128, 256, 384, 512 and pass 1's block fits shared memory.
+// The bf16 rows of d = 128, 256, 384 or 512 on the tensor cores.  Runs on
+// `stream` the passes selected by `passes` (1: row pass, 2: dW pass, 4:
+// the fused reduction at the end of the dW pass; 7 for the gradients, the
+// others only to time a pass) and returns the first launch error.
+// Scratch, allocated by the Python wrapper: xn [T, d] bf16, part_rows
+// [row_blocks, 2, d] and part_dw [splits, d, dout] f32, counters
+// (d / 128) * (dout / 128) int.  Preconditions, checked there: bf16 x
+// [T, d], g [T, dout], w [d, dout]; f32 scale, bias; contiguous and 16-byte
+// aligned; T >= 1; dout % 128 == 0; 1 <= row_blocks <= ceil(T / 64);
+// rows_per_split % 64 == 0, splits = ceil(T / rows_per_split).
+extern "C" int gn_ln_linear_backward_tc(
+    const void* x, const void* g, const void* w, const void* scale,
+    const void* bias, void* dx, void* dw, void* ds, void* db, void* xn,
+    void* part_rows, void* part_dw, void* counters, int T, int d, int dout,
+    int row_blocks, int splits, int rows_per_split, int passes,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d % 128 || d > 512 || dout % 128 || T < 1 || rows_per_split % 64 ||
+      row_blocks < 1)
+    return cudaErrorInvalidValue;
+  const int tiles = (d / kWB) * (dout / kWB);
+  CUtensorMap xm, gm, wm, nm;
+  int e;
+  if ((e = make_map(&xm, x, T, d, 64)) != 0) return e;
+  if ((e = make_map(&gm, g, T, dout, 64)) != 0) return e;
+  if ((e = make_map(&wm, w, d, dout, 64)) != 0) return e;
+  if ((e = make_map(&nm, xn, T, d, 64)) != 0) return e;
+  if (passes & 1) {
+    switch (d) {
+      case 128: e = launch_rows_tc<128>(xm, gm, wm, scale, bias, dx, xn, part_rows, counters, tiles, T, dout, row_blocks, s); break;
+      case 256: e = launch_rows_tc<256>(xm, gm, wm, scale, bias, dx, xn, part_rows, counters, tiles, T, dout, row_blocks, s); break;
+      case 384: e = launch_rows_tc<384>(xm, gm, wm, scale, bias, dx, xn, part_rows, counters, tiles, T, dout, row_blocks, s); break;
+      default: e = launch_rows_tc<512>(xm, gm, wm, scale, bias, dx, xn, part_rows, counters, tiles, T, dout, row_blocks, s); break;
+    }
+    if (e != 0) return e;
+  }
+  if (!(passes & 2)) return 0;
+  DwArgs a;
+  a.T = T;
+  a.d = d;
+  a.dout = dout;
+  a.k_split = rows_per_split;
+  a.tiles_n = dout / kWB;
+  a.tiles = tiles;
+  a.splits = splits;
+  a.row_blocks = row_blocks;
+  a.reduce = (passes & 4) != 0;
+  a.part_dw = (float*)part_dw;
+  a.dw = (float*)dw;
+  a.part_rows = (const float*)part_rows;
+  a.ds = (float*)ds;
+  a.db = (float*)db;
+  a.counters = (int*)counters;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kWBytes);
+  if (err != cudaSuccess) return err;
+  ln_bwd_dw_tc_kernel<<<tiles * splits, kWThreads, kWBytes, s>>>(nm, gm, a);
+  return cudaGetLastError();
+}
+
+// The other rows in bf16 (a width outside 128 .. 512): the row pass in
+// two steps, the WMMA dW pass and three reductions, on `stream`; returns
+// the first launch error.  Scratch, allocated by the Python wrapper: stats
+// [T, 2], part_dw [splits, d, dout], part_ds and part_db [ceil(T / 32), d],
+// dxn [T, d], all f32, where splits = ceil(T / rows_per_split).
+// Preconditions, checked there: bf16 x [T, d], g [T, dout], w [d, dout];
+// f32 scale, bias; contiguous; T >= 1; d % 128 == 0; dout % 128 == 0;
+// rows_per_split % 32 == 0; `wide` set.
 extern "C" int gn_ln_linear_backward(const void* x, const void* g,
                                      const void* w, const void* scale,
                                      const void* bias, void* dx, void* dw,
@@ -724,15 +1183,9 @@ extern "C" int gn_ln_linear_backward(const void* x, const void* g,
                                      int dout, int rows_per_split, int wide,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  if (wide) err = launch_rows_wide(x, g, w, scale, dx, stats, part_ds, part_db, dxn, T, d, dout, false, s);
-  else switch (d) {
-    case 128: err = launch_rows<128>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    case 256: err = launch_rows<256>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    case 384: err = launch_rows<384>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    case 512: err = launch_rows<512>(x, g, w, scale, dx, stats, part_ds, part_db, T, dout, s); break;
-    default: return cudaErrorInvalidValue;
-  }
+  if (!wide) return cudaErrorInvalidValue;
+  int err = launch_rows_wide(x, g, w, scale, dx, stats, part_ds, part_db,
+                             dxn, T, d, dout, false, s);
   if (err != cudaSuccess) return err;
   const int splits = (T + rows_per_split - 1) / rows_per_split;
   const dim3 grid(d / kTile, dout / kTile, splits);

@@ -65,14 +65,14 @@ def _concat(parts) -> torch.Tensor:
 
 def get_edge_fn_input(g: GraphsTuple, ef=..., nf=..., gf=...):
     """Per-edge update input ``[E, DE + 2 DN + DG]`` (absent features add
-    no columns)."""
+    no columns).  The receivers ascend: their gather is declared sorted."""
     ef = g.ef if ef is ... else ef
     nf = g.nf if nf is ... else nf
     gf = g.gf if gf is ... else gf
     parts = [ef]
     if nf is not None:
         parts.append(scatter.gather_nodes(nf, g.senders))
-        parts.append(scatter.gather_nodes(nf, g.receivers))
+        parts.append(scatter.gather_nodes(nf, g.receivers, idx_sorted=True))
     if gf is not None:
         parts.append(scatter.broadcast_globals_to_edges(gf, g.edge_graph))
     return _concat(parts)
@@ -104,10 +104,12 @@ def get_graph_fn_input(g: GraphsTuple, ef=..., nf=..., gf=...):
     if ef is None or nf is None:
         raise ValueError("the graph update needs edge and node features")
     parts = [
-        scatter.aggregate_edges_for_globals(ef, g.edge_graph,
-                                            g.num_graph_slots, g.edge_mask),
-        scatter.aggregate_nodes_for_globals(nf, g.node_graph,
-                                            g.num_graph_slots, g.node_mask),
+        scatter.aggregate_edges_for_globals(
+            ef, g.edge_graph, g.num_graph_slots, g.edge_mask,
+            mask_aliases_real=g.pad_aliases_real),
+        scatter.aggregate_nodes_for_globals(
+            nf, g.node_graph, g.num_graph_slots, g.node_mask,
+            mask_aliases_real=g.pad_aliases_real),
     ]
     if gf is not None:
         parts.append(gf)

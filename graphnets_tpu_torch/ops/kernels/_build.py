@@ -55,24 +55,31 @@ def _library(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named kernels (all by default) that have no library
     yet, one ``nvcc`` per source, all started together.  Returns the
-    compiler's output (``ptxas`` register and spill counts) per kernel
-    built; raises if any build fails."""
+    compiler's output (``ptxas`` register and spill counts) per kernel,
+    kept beside each library, also for those built before; raises if any
+    build fails."""
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
+    logs = {}
     for name in names:
         out = _library(name)
         if out.exists():
+            # Built before: the report of that build, kept beside it.
+            report = out.with_suffix(".log")
+            if report.exists():
+                logs[name] = report.read_text()
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
-    logs, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in jobs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
         else:
             failed.append(name)

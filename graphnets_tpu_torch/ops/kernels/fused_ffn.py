@@ -11,10 +11,14 @@ tensor outside it raises a ``ValueError``.
 Kernel: ``csrc/fused_ffn.cu``.  It replaces the Pallas forward kernel of
 ``ln_ffn_residual`` (``fused_ffn.py:79-97,130-170``).  On the H100 it is
 bound by the tensor cores (38.7 GFLOP against ~40 MB at T = 16384,
-d = 384), so it keeps the ``[rows, 4d]`` hidden activation on the SM and
-streams the hidden dimension in slices into an f32 accumulator held in
-registers; f32 rows take true-f32 multiply-adds on the CUDA cores.  The
-source note in the ``.cu`` file has the details.
+d = 384).  bf16 rows run on ``wgmma`` fed by TMA: the
+weight slices stream through a ring in shared memory, and each 64-wide
+hidden slice goes from the first product's accumulator, through bias, relu
+and rounding, straight into the second product's A operand in registers,
+so the ``[rows, 4d]`` hidden activation never leaves them; f32 rows take
+true-f32 multiply-adds on the CUDA cores.  With few row tiles, up to 8
+blocks split the hidden dimension (:func:`_splits`).  The source note in
+the ``.cu`` file has the details.
 
 Backward kernel: ``csrc/fused_ffn_bwd.cu``.  It replaces the Pallas kernel
 of ``_fused_backward`` (``fused_ffn.py:176-283``), with its arithmetic:

@@ -17,12 +17,15 @@ Backward kernel: ``csrc/ln_linear_bwd.cu``.  It replaces the Pallas kernel
 statistics are recomputed from ``x``, and the Flux std convention and the
 var == 0 guard hold.  On the H100 it is bound by memory in bf16 (~38.6 MB
 for 9.7 GFLOP at T = 16384, d = dout = 384, ~11.5 us).  The TPU kernel
-carried dW, dscale and dbias across its sequential grid; here a row pass
-writes dx and per-block column sums, a split-K pass computes partial dW
-tiles (on the tensor cores for bf16 rows, on the CUDA cores for f32 rows),
-and a last pass adds the partials in a fixed order (no atomics).  One call
-of :func:`ln_linear_backward` runs the three passes and counts as one
-launch.  The source notes in the ``.cu`` files have the details.
+carried dW, dscale and dbias across its sequential grid; here bf16 rows of
+d = 128 / 256 / 384 / 512 take two ``wgmma`` passes fed by TMA: a row pass
+that writes dx, the bf16 normalised rows and per-block column sums, and a
+dW pass over row ranges whose last blocks add the partials in a fixed
+order (no atomics).  Every other width, and f32 rows
+(on the CUDA cores), take a row pass in two steps, a split-K dW pass and
+three fixed-order reductions.  One call of :func:`ln_linear_backward` runs
+the passes and counts as one launch.  The source notes in the ``.cu``
+files have the details.
 
 :func:`ln_matmul` is differentiable: its backward is
 :func:`ln_linear_backward`, and the gradient of ``addend`` is the
@@ -31,10 +34,7 @@ their plain versions (``ops.ln_linear``) for CPU tensors only; a CUDA
 tensor launches the kernel or raises.  A shape outside
 :func:`supports_ln_matmul` takes the plain composition on any device, as
 in the JAX package; the gate is the JAX package's (``ln_linear.py:81-85``),
-for bf16 and f32 rows.  The forward's shared memory does not depend on the
-widths; the backward's row pass runs as one kernel on bf16 rows of d = 128
-/ 256 / 384 / 512 and in two steps, whose shared memory does not depend on
-the widths either, everywhere else.
+for bf16 and f32 rows.  Neither kernel's shared memory depends on ``dout``.
 """
 
 from __future__ import annotations
@@ -54,15 +54,9 @@ LAUNCHES = 0            # backward launches, for proving the path was taken
 FWD_LAUNCHES = 0        # ln_matmul (forward) launches
 _DIMS = (128, 256, 384, 512)
 _DTYPES = (torch.bfloat16, torch.float32)
-_SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
-_ROWS = 32              # rows per block of the row pass
-
-
-def _smem_bytes(d: int, dout: int) -> int:
-    """Shared memory of a bf16 row-pass block, as ``rows_smem_bytes``: x
-    and g rows, the W ring or the f32 dxn rows, and the row statistics."""
-    ring = max(2 * d * 40 * 2, _ROWS * (d + 4) * 4)
-    return _ROWS * ((d + 8) * 2 + (dout + 8) * 2 + 3 * 4) + ring
+_ROWS = 32              # rows per block of the two-step row pass
+_TC_ROWS = 64           # rows of a tensor-core row-pass tile
+_TC_TILE = 128          # dW tile (both dims) of the tensor-core dW pass
 
 
 def supports_ln_linear_backward(n_rows: int, d: int, dout: int,
@@ -74,11 +68,10 @@ def supports_ln_linear_backward(n_rows: int, d: int, dout: int,
 
 
 def _one_step_rows(d: int, dout: int, dtype: torch.dtype) -> bool:
-    """Whether the row pass runs as one kernel that keeps its rows in
-    shared memory (bf16 rows at the widths it is built for) or in two steps
-    through an f32 ``[T, d]`` scratch (every other width, and f32 rows)."""
-    return (dtype == torch.bfloat16 and d in _DIMS
-            and _smem_bytes(d, dout) <= _SMEM_LIMIT)
+    """Whether the bf16 rows take the tensor-core passes (the widths they
+    are built for, any ``dout``) or the row pass in two steps through an
+    f32 ``[T, d]`` scratch (every other width, and f32 rows)."""
+    return dtype == torch.bfloat16 and d in _DIMS
 
 
 _VMEM_BUDGET = 12 << 20
@@ -113,7 +106,23 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.gn_ln_linear_backward, lib.gn_ln_linear_backward_f32):
             fn.argtypes = _backward_args()
             fn.restype = ctypes.c_int
+        fn = lib.gn_ln_linear_backward_tc
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _tc_plan(T: int, d: int, dout: int, sms: int):
+    """``(row_blocks, splits, rows_per_split)`` of the tensor-core passes:
+    one persistent row-pass block an SM (at most one a tile), and row
+    ranges of the dW pass (whole 64-row stages) that give about one block
+    an SM."""
+    row_blocks = min(-(-T // _TC_ROWS), sms)
+    tiles = (d // _TC_TILE) * (dout // _TC_TILE)
+    splits = max(1, min(-(-sms // tiles), -(-T // 64)))
+    rows_per_split = -(-T // (splits * 64)) * 64
+    return row_blocks, -(-T // rows_per_split), rows_per_split
 
 
 def _fwd_lib() -> ctypes.CDLL:
@@ -126,7 +135,10 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, scale, bias, w, g):
+def _launch(x, scale, bias, w, g, passes: int = 7):
+    """The kernels on the card.  ``passes`` selects the tensor-core passes
+    (1: row pass, 2: dW pass, 4: its fused reduction); anything but 7 is
+    for timing a pass alone and leaves some outputs unset."""
     global LAUNCHES
     T, d = x.shape
     dout = w.shape[1]
@@ -150,27 +162,40 @@ def _launch(x, scale, bias, w, g):
                              "and 16-byte aligned")
     f32 = dict(dtype=torch.float32, device=x.device)
     is_f32 = x.dtype == torch.float32
-    rows_per_split = _rows_per_split(T, d, dout, 64 if is_f32 else 128,
-                                     x.device)
-    splits = -(-T // rows_per_split)
-    blocks = -(-T // _ROWS)
     dx = torch.empty_like(x)
     dw = torch.empty(d, dout, **f32)
     ds = torch.empty(d, **f32)
     db = torch.empty(d, **f32)
-    scratch = [torch.empty(T, 2, **f32), torch.empty(splits, d, dout, **f32),
-               torch.empty(blocks, d, **f32), torch.empty(blocks, d, **f32)]
-    wide = not _one_step_rows(d, dout, x.dtype)
-    dxn = torch.empty(T, d, **f32) if wide else None
     lib = _lib()
-    entry = (lib.gn_ln_linear_backward_f32 if is_f32
-             else lib.gn_ln_linear_backward)
-    with torch.cuda.device(x.device):
-        err = entry(
-            *[t.data_ptr() for t in (*args, dx, dw, ds, db, *scratch)],
-            None if dxn is None else dxn.data_ptr(),
-            T, d, dout, rows_per_split, int(wide),
-            torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if _one_step_rows(d, dout, x.dtype):
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        row_blocks, splits, rows_per_split = _tc_plan(T, d, dout, sms)
+        scratch = [torch.empty_like(x), torch.empty(row_blocks, 2, d, **f32),
+                   torch.empty(splits, d, dout, **f32),
+                   torch.empty((d // _TC_TILE) * (dout // _TC_TILE),
+                               dtype=torch.int32, device=x.device)]
+        with torch.cuda.device(x.device):
+            err = lib.gn_ln_linear_backward_tc(
+                *[t.data_ptr() for t in (*args, dx, dw, ds, db, *scratch)],
+                T, d, dout, row_blocks, splits, rows_per_split, passes,
+                stream)
+    else:
+        rows_per_split = _rows_per_split(T, d, dout, 64 if is_f32 else 128,
+                                         x.device)
+        splits = -(-T // rows_per_split)
+        blocks = -(-T // _ROWS)
+        scratch = [torch.empty(T, 2, **f32),
+                   torch.empty(splits, d, dout, **f32),
+                   torch.empty(blocks, d, **f32),
+                   torch.empty(blocks, d, **f32), torch.empty(T, d, **f32)]
+        entry = (lib.gn_ln_linear_backward_f32 if is_f32
+                 else lib.gn_ln_linear_backward)
+        with torch.cuda.device(x.device):
+            err = entry(
+                *[t.data_ptr() for t in (*args, dx, dw, ds, db, *scratch)],
+                T, d, dout, rows_per_split, 1, stream)
     _build.check(lib, err, "ln_linear_backward")
     LAUNCHES += 1
     return dx, ds, db, dw

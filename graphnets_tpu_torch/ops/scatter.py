@@ -6,7 +6,8 @@ never contaminates real slots.  The JAX package takes a one-hot matmul at
 ``Precision.HIGHEST`` for <= 64 segments (the graph pools); that is the
 same float32 sum, which here is an ``index_add_``, so no TF32 matmul is
 ever involved.  With kernels on, a ``sorted_pad_safe`` sum over more than
-64 segments takes the sorted segment-sum kernel instead
+64 segments (the edge->node sum, and the graph pools of a batch with more
+than 64 graph slots) takes the sorted segment-sum kernel instead
 (``ops/kernels/segment_sum``), as the JAX package does
 (``scatter.py:227-232``).
 
@@ -163,18 +164,33 @@ def aggregate_edges_for_nodes(ef: torch.Tensor, receivers: torch.Tensor,
 
 def aggregate_edges_for_globals(ef: torch.Tensor, edge_graph: torch.Tensor,
                                 num_graphs: int,
-                                edge_mask: Optional[torch.Tensor]
+                                edge_mask: Optional[torch.Tensor],
+                                mask_aliases_real: bool = False
                                 ) -> torch.Tensor:
-    """Sum-pool over real edges per graph."""
-    return segment_sum(ef, edge_graph, num_graphs, edge_mask)
+    """Sum-pool over real edges per graph (``edge_graph`` ascends).
+
+    ``mask_aliases_real`` (``GraphsTuple.pad_aliases_real``): the uniform
+    slot layout gives padded edges their slot's graph id, so the mask
+    matters; the padded rows are zeroed before the sorted sum, after which
+    sharing a segment with them is harmless (``scatter.py:297-312`` of the
+    JAX package)."""
+    if mask_aliases_real and edge_mask is not None:
+        ef, edge_mask = _mask_rows(ef, edge_mask), None
+    return segment_sum(ef, edge_graph, num_graphs, edge_mask,
+                       sorted_pad_safe=True)
 
 
 def aggregate_nodes_for_globals(nf: torch.Tensor, node_graph: torch.Tensor,
                                 num_graphs: int,
-                                node_mask: Optional[torch.Tensor]
+                                node_mask: Optional[torch.Tensor],
+                                mask_aliases_real: bool = False
                                 ) -> torch.Tensor:
-    """Sum-pool over real nodes per graph."""
-    return segment_sum(nf, node_graph, num_graphs, node_mask)
+    """Sum-pool over real nodes per graph; ``mask_aliases_real`` as in
+    :func:`aggregate_edges_for_globals`."""
+    if mask_aliases_real and node_mask is not None:
+        nf, node_mask = _mask_rows(nf, node_mask), None
+    return segment_sum(nf, node_graph, num_graphs, node_mask,
+                       sorted_pad_safe=True)
 
 
 def broadcast_globals_to_edges(gf: torch.Tensor,

@@ -9,7 +9,11 @@ mode, as ``GRAPHNETS_TPU_PALLAS`` does for the JAX package.
 gathered split-linear partials to bf16 (``GRAPHNETS_TPU_TORCH_BF16_GATHER``
 pins it).  ``g1_agg_fusion_training()`` says whether the single-graph edge
 update keeps its fused edge->node sum under training
-(``GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN=0/1``).
+(``GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN=0/1``).  ``use_split_linear()`` says
+whether GNBlock takes the split-linear route (gather after transform) or
+materialises the concatenated update inputs
+(``GRAPHNETS_TPU_TORCH_SPLIT_LINEAR=0/1``, default 1, as
+``GRAPHNETS_TPU_SPLIT_LINEAR`` for the JAX package).
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ def _env_tristate(name: str) -> Optional[bool]:
 _config = Config(
     use_kernels=_env_tristate("GRAPHNETS_TPU_TORCH_KERNELS"),
     bf16_gather_partials=_env_tristate("GRAPHNETS_TPU_TORCH_BF16_GATHER"),
+    split_linear=os.environ.get("GRAPHNETS_TPU_TORCH_SPLIT_LINEAR",
+                                "1") == "1",
     g1_agg_fusion_training=os.environ.get(
         "GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN", "1") == "1")
 

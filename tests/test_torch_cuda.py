@@ -12,7 +12,8 @@ so a value near a rounding boundary may round the other way); ``agg`` is
 held to 1e-4 against an f32 sum of the kernel's own ``h``.  The segment
 sums: one bf16 ulp of the largest magnitude, f32 at rtol 1e-5; the gather
 is bit-equal; the LN backward: dx at 2^-6 and dW, dscale, dbias at 1e-3 of
-the largest magnitude; the edge update's gradients at 5e-2 of each
+the largest magnitude, two launches of its bf16 tensor-core passes
+bit-equal, as two launches of the bf16 FFN forward are; the edge update's gradients at 5e-2 of each
 tensor's largest magnitude (bf16 cotangents).  ``ln_matmul``: the f32
 partial at 1e-3 and the completed bf16 row at one bf16 ulp of the largest
 magnitude (the normalised row may round the other way after a differently
@@ -114,6 +115,39 @@ def test_ln_ffn_residual_matches_plain(cuda, rows, d, dtype):
     tol = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * float(
         ref.float().abs().max())
     assert float((out.float().cpu() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["8", "ragged", "split_lo", "split_hi"])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_ln_ffn_residual_tensor_core_tiles(cuda, d, case):
+    """The bf16 ``wgmma`` kernel at every width of the gate: 8 rows, rows
+    not in whole row tiles, and the last row count whose tiles split the
+    hidden dimension beside the first that does not; rows with var == 0
+    (zeros, and a constant); two launches bit-equal."""
+    rows = ffn._lib().gn_ln_ffn_residual_rows(d)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edge = (sms // 2) * rows  # more row tiles than sms / 2: no split
+    T = {"8": 8, "ragged": 1000, "split_lo": edge,
+         "split_hi": edge + 8}[case]
+    assert (ffn._splits(T, rows, cuda) > 1) == (case != "split_hi")
+    rng = np.random.default_rng(22)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x = f(T, d)
+    x[:2], x[2] = 0.0, 1.5
+    args = [t.to(cuda) for t in (
+        x.bfloat16(), 1 + 0.1 * f(d), 0.1 * f(d),
+        (f(d, 4 * d) * d ** -0.5).bfloat16(), (0.1 * f(4 * d)).bfloat16(),
+        (f(4 * d, d) * (4 * d) ** -0.5).bfloat16(), (0.1 * f(d)).bfloat16())]
+    extra = f(T, d).bfloat16().to(cuda)
+    ref = ffn.ln_ffn_residual_plain(*args, extra=extra)
+    before = ffn.LAUNCHES
+    out = ffn.ln_ffn_residual(*args, extra=extra)
+    again = ffn.ln_ffn_residual(*args, extra=extra)
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    _close_max(out, ref, 2.0 ** -6)
 
 
 @pytest.mark.cuda
@@ -246,6 +280,36 @@ def test_ln_linear_backward_matches_plain(cuda, d, T):
     out = ll.ln_linear_backward(*[t.to(cuda) for t in args])
     torch.cuda.synchronize()
     assert ll.LAUNCHES == before + 1
+    assert out[0].dtype == torch.bfloat16
+    for o, r, tol in zip(out, ref, (2.0 ** -6, 1e-3, 1e-3, 1e-3)):
+        _close_max(o, r, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 1000, 8200, 40000])
+@pytest.mark.parametrize("d,dout", [(128, 128), (256, 256), (256, 384),
+                                    (384, 384), (512, 512), (512, 128)])
+def test_ln_linear_backward_tensor_core_passes(cuda, d, dout, T):
+    """The bf16 ``wgmma`` passes at every width they are built for: 8 rows,
+    rows not in whole 64-row tiles, persistent row-pass blocks that walk
+    several tiles (T = 40000), rows with var == 0 (zeros, and a constant);
+    two launches bit-equal (the fused reduction's fixed order)."""
+    rng = np.random.default_rng(23)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x = f(T, d)
+    x[:2], x[2] = 0.0, 1.5
+    args = [t.to(cuda) for t in (x.bfloat16(), 1 + 0.1 * f(d), 0.1 * f(d),
+                                 (f(d, dout) * d ** -0.5).bfloat16(),
+                                 f(T, dout).bfloat16())]
+    assert ll._one_step_rows(d, dout, torch.bfloat16)
+    ref = lnp.ln_linear_backward_plain(*args)
+    before = ll.LAUNCHES
+    out = ll.ln_linear_backward(*args)
+    again = ll.ln_linear_backward(*args)
+    torch.cuda.synchronize()
+    assert ll.LAUNCHES == before + 2
+    for o, a in zip(out, again):
+        assert torch.equal(o, a)
     assert out[0].dtype == torch.bfloat16
     for o, r, tol in zip(out, ref, (2.0 ** -6, 1e-3, 1e-3, 1e-3)):
         _close_max(o, r, tol)
