@@ -14,10 +14,13 @@ random gather):
    for ``sm_90a`` (all sources at once) and print the build time and the
    compiler's register/spill report; every instance of the ``wgmma`` / TMA
    kernels (the fused FFN forward and backward, the LN->matmul backward's
-   two passes) must show 0 spill bytes;
+   two passes, the core of both fused edge updates) must show 0 spill
+   bytes;
 3. hold each kernel against its plain torch version on the card, at the
    shapes the main path gives it: the fused edge update on the headline
-   layout and on a padded uniform layout, the fused LN->FFN->residual at
+   layout and on a padded uniform layout, and at de = dout = 512 (16
+   graphs of 64 / 1024 slots, a width the JAX gate admits), each variant
+   launched twice and bit-equal; the fused LN->FFN->residual at
    T = 16384, 1024, 8 and 1056 rows; record the largest error against the stated
    tolerance, and time kernel and plain version with CUDA events
    (warm-up excluded): device time from a replayed CUDA graph, and the
@@ -112,7 +115,9 @@ C. run the single large graph (``benchmarks/bench_large_graph.py``: one
    sum at the large graph's shape (bf16 partials), at the sampled
    subgraph's shape (E = 56,320, N = 56,960, f32 partials, power-law
    receivers with a hub, empty nodes and pad edges on the last node) and on
-   f32 rows; the FFN backward at T = 1,048,576 and 65,536 (d = 256) and at
+   f32 rows, bit-equal on a second launch, and with a dead sender term of
+   ef's type (``src_is_dead``) written over it with the same values; the FFN
+   backward at T = 1,048,576 and 65,536 (d = 256) and at
    d = 128; the FFN forward, the LN backward, the sorted sum and the sorted
    gather at the shapes this route gives them; and the wide rows of
    ``ln_matmul`` and its backward (d = dout = 512 and 1024 in bf16, 640 in
@@ -179,9 +184,11 @@ def log(msg):
 
 
 # The wgmma / TMA kernels whose ptxas report must show no spills: the
-# fused FFN forward and backward and the LN->matmul backward's passes.
+# fused FFN forward and backward, the LN->matmul backward's passes and the
+# two fused edge updates' core (edge_wgmma.cuh, every instance of both).
 TC_KERNELS = ("ln_ffn_residual_kernel", "ffn_bwd_gemm_kernel",
-              "ln_bwd_rows_tc_kernel", "ln_bwd_dw_tc_kernel")
+              "ln_bwd_rows_tc_kernel", "ln_bwd_dw_tc_kernel",
+              "edge_update_tc_kernel")
 
 
 def tensor_core_spills(logs):
@@ -311,10 +318,12 @@ def check_edge_update(torch, eu, g, seed):
     args = (ef, ln, w0, ts, tr, tg, b, g.senders, g.receivers,
             *g.slot_shape)
     h, agg = eu.fused_edge_update_agg(*args)
+    h2, agg2 = eu.fused_edge_update_agg(*args)
     h_ref, _ = eu.fused_edge_update_agg_plain(
         ef, ln["scale"], ln["bias"], w0, ts, tr, tg, b, g.senders,
         g.receivers, g.slot_shape[1])
     torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(h, h2) and torch.equal(agg, agg2))
     own = torch.zeros_like(agg).index_add_(0, g.receivers, h.float())
     err_h = float((h.float() - h_ref.float()).abs().max())
     err_agg = float((agg - own).abs().max())
@@ -323,7 +332,7 @@ def check_edge_update(torch, eu, g, seed):
     # other way); agg: f32 sums of the same rounded h in another order.
     tol_h = 2.0 ** -7 * float(h_ref.float().abs().max())
     tol_agg = 1e-5 * float(own.abs().max()) * max(1, E // N)
-    ok = (err_h <= tol_h and err_agg <= tol_agg
+    ok = (err_h <= tol_h and err_agg <= tol_agg and bit_equal
           and bool(torch.isfinite(h.float()).all()))
     kernel = lambda: eu.fused_edge_update_agg(*args)
     plain = lambda: eu.fused_edge_update_agg_plain(
@@ -339,8 +348,66 @@ def check_edge_update(torch, eu, g, seed):
     return {"shape": f"E={E} N={N} G={G} d={D} pad_aliases_real="
                      f"{g.pad_aliases_real}",
             "max_err": err_h, "tol": tol_h, "agg_max_err": err_agg,
-            "agg_tol": tol_agg, "ok": ok, **times, "bound_ms": bms,
-            "bound_by": by}
+            "agg_tol": tol_agg, "bit_equal": bit_equal, "ok": ok, **times,
+            "bound_ms": bms, "bound_by": by}
+
+
+def check_edge_update_wide(torch, eu, G, n_slots, e_slots, de, dout, seed):
+    """The uniform update, with and without its sum, at widths the JAX
+    gate admits beyond the headline's (de = 512 was refused before the
+    port took that gate): random senders and sorted receivers in each
+    graph's slots, the tail of each graph's edges padding on its last
+    node.  The tolerances of ``check_edge_update``; both variants bit-equal
+    on a second launch."""
+    gen = torch.Generator().manual_seed(seed)
+    E, N = G * e_slots, G * n_slots
+    if not eu.supports_fused_edge_update(E, N, G, de, dout, n_slots, e_slots,
+                                         torch.bfloat16, with_agg=True):
+        raise SystemExit(f"the JAX gate refuses {G}x{n_slots}/{e_slots} "
+                         f"{de}->{dout}")
+    base = torch.arange(G).repeat_interleave(e_slots) * n_slots
+    snd = torch.randint(0, n_slots, (E,), generator=gen) + base
+    rcv = torch.sort(torch.randint(0, n_slots - 1, (G, e_slots),
+                                   generator=gen), dim=1).values
+    rcv[:, e_slots - e_slots // 8:] = n_slots - 1
+    rcv = rcv.reshape(-1) + base
+    snd, rcv = (t.to(torch.int32).cuda() for t in (snd, rcv))
+    rnd = lambda *sh: torch.randn(*sh, generator=gen).cuda()
+    ln = {"scale": 1 + 0.1 * rnd(de), "bias": 0.1 * rnd(de)}
+    args = (rnd(E, de).to(torch.bfloat16), ln,
+            (rnd(de, dout) * de ** -0.5).to(torch.bfloat16), rnd(N, dout),
+            rnd(N, dout), rnd(G, dout), rnd(dout), snd, rcv, n_slots,
+            e_slots)
+    pargs = (args[0], ln["scale"], ln["bias"], *args[2:9], e_slots)
+    with torch.no_grad():
+        h, agg = eu.fused_edge_update_agg(*args)
+        h2, agg2 = eu.fused_edge_update_agg(*args)
+        h3, h4 = eu.fused_edge_update(*args), eu.fused_edge_update(*args)
+        h_ref = eu.fused_edge_update_plain(*pargs)
+        torch.cuda.synchronize()
+        own = torch.zeros_like(agg).index_add_(0, rcv.long(), h.float())
+        err_h = max(max_err(h, h_ref), max_err(h3, h_ref))
+        err_agg = max_err(agg, own)
+        tol_h = 2.0 ** -7 * float(h_ref.float().abs().max())
+        tol_agg = 1e-5 * float(own.abs().max()) * max(1, E // N)
+        bit_equal = bool(torch.equal(h, h2) and torch.equal(agg, agg2)
+                         and torch.equal(h3, h4))
+        ok = (err_h <= tol_h and err_agg <= tol_agg and bit_equal
+              and bool(torch.isfinite(h.float()).all()))
+        times = timed(torch, lambda: eu.fused_edge_update_agg(*args),
+                      lambda: eu.fused_edge_update_agg_plain(*pargs))
+        h_times = timed(torch, lambda: eu.fused_edge_update(*args),
+                        lambda: eu.fused_edge_update_plain(*pargs))
+    nbytes = (E * de * 2 + de * dout * 2 + 2 * N * dout * 4 + G * dout * 4
+              + dout * 4 + 2 * de * 4 + 2 * E * 4 + E * dout * 2)
+    bms, by = bound_ms(nbytes + N * dout * 4, 2 * E * de * dout)
+    h_bms, _ = bound_ms(nbytes, 2 * E * de * dout)
+    return {"shape": f"E={E} N={N} G={G} {de}->{dout} padded",
+            "max_err": err_h, "tol": tol_h, "agg_max_err": err_agg,
+            "agg_tol": tol_agg, "bit_equal": bit_equal, "ok": ok, **times,
+            "bound_ms": bms, "bound_by": by,
+            "h_kernel_ms": h_times["kernel_ms"],
+            "h_plain_ms": h_times["plain_ms"], "h_bound_ms": h_bms}
 
 
 def check_ffn(torch, ffn, T, seed, D=D, large=False, dtype=None):
@@ -426,8 +493,9 @@ def check_edge_update_h(torch, eu, g, seed):
         ef, ln["scale"], ln["bias"], w0, ts, tr, tg, b, g.senders,
         g.receivers, g.slot_shape[1])
     with torch.no_grad():
-        h, h_ref = kernel(), plain()
+        h, h2, h_ref = kernel(), kernel(), plain()
         torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(h, h2))
         err = max_err(h, h_ref)
         tol = 2.0 ** -7 * float(h_ref.float().abs().max())
         times = timed(torch, kernel, plain)
@@ -436,7 +504,9 @@ def check_edge_update_h(torch, eu, g, seed):
     bms, by = bound_ms(nbytes, 2 * E * D * D)
     return {"shape": f"E={E} N={N} G={G} d={D} pad_aliases_real="
                      f"{g.pad_aliases_real}", "max_err": err, "tol": tol,
-            "ok": err <= tol and bool(torch.isfinite(h.float()).all()),
+            "bit_equal": bit_equal,
+            "ok": (err <= tol and bit_equal
+                   and bool(torch.isfinite(h.float()).all())),
             **times, "bound_ms": bms, "bound_by": by}
 
 
@@ -985,13 +1055,28 @@ def check_g1(torch, g1, E, N, d, dtype, part_dtype, kind, seed, large=False):
     cases = []
     with torch.no_grad():
         before = (g1.LAUNCHES, g1.LAUNCHES_NO_AGG)
+        kept = src.clone()
         h, agg = g1.fused_g1_edge_update_agg(*args)
         h2 = g1.fused_g1_edge_update(*args)
+        h_again, agg_again = g1.fused_g1_edge_update_agg(*args)
+        h2_again = g1.fused_g1_edge_update(*args)
         h_ref = g1.g1_edge_update_plain(*pargs)
+        # h written over a dead sender term of ef's type, as GNBlock hands
+        # it over: the same values, in src's storage.
+        dead = src.clone()
+        h_dead, agg_dead = g1.fused_g1_edge_update_agg(
+            ef, ln, w0, dead, tr, rl, gb, src_is_dead=True)
         torch.cuda.synchronize()
-        if (g1.LAUNCHES, g1.LAUNCHES_NO_AGG) != (before[0] + 1,
-                                                  before[1] + 1):
+        if (g1.LAUNCHES, g1.LAUNCHES_NO_AGG) != (before[0] + 3,
+                                                  before[1] + 2):
             raise SystemExit(f"fused_g1_edge_update did not launch: {shape}")
+        bit_equal = bool(torch.equal(h, h_again) and torch.equal(agg, agg_again)
+                         and torch.equal(h2, h2_again))
+        aliased = h_dead.data_ptr() == dead.data_ptr()
+        alias_ok = (aliased == (part_dtype == dtype)
+                    and torch.equal(h_dead, h) and torch.equal(agg_dead, agg)
+                    and torch.equal(src, kept))
+        del h_again, agg_again, h2_again, h_dead, agg_dead, dead, kept
         own = torch.zeros_like(agg).index_add_(0, rl.long(), h.float())
         err_agg = max_err(agg, own)
         tol_agg = 1e-5 * float(own.abs().max()) * max(1, E // N)
@@ -1011,8 +1096,11 @@ def check_g1(torch, g1, E, N, d, dtype, part_dtype, kind, seed, large=False):
                                flops_f32=0 if es == 2 else flops)
             err = max_err(out, h_ref)
             ok = err <= tol and bool(torch.isfinite(out.float()).all())
+            ok = ok and bit_equal and alias_ok
             case = {"shape": shape + (" +agg" if with_agg else ""),
-                    "max_err": err, "tol": tol, "tr_rows_read": tr_rows}
+                    "max_err": err, "tol": tol, "tr_rows_read": tr_rows,
+                    "bit_equal": bit_equal, "h_over_src": aliased,
+                    "alias_ok": alias_ok}
             if with_agg:
                 ok = ok and err_agg <= tol_agg
                 case.update(agg_max_err=err_agg, agg_tol=tol_agg)
@@ -1667,6 +1755,11 @@ def main() -> int:
                                         g_bucket.num_node_slots))]
     edge_h_cases = [check_edge_update_h(torch, eu, g, 20 + i)
                     for i, g in enumerate((g_exact, g_padded))]
+    # A width the JAX gate admits and the port refused before it took that
+    # gate: de = dout = 512 on 16 graphs of 64 / 1024 slots (listed after
+    # the headline's cases, whose times head the kernels line).
+    edge_cases.append(check_edge_update_wide(torch, eu, 16, 64, 1024, 512,
+                                             512, 26))
     seg_cases = check_segment_sums(torch, ss, g_exact, 30)
     seg_bucket = check_segment_sums(torch, ss, g_bucket, 33)
     # f32 rows: the cotangents that the bucketed step's deferred receivers

@@ -8,9 +8,11 @@
 // `fused_g1_edge_update_agg` (graphnets_tpu/ops/pallas/edge_update_g1.py,
 // `_kernel` and `_forward`), with its arithmetic: the LN in f32 in the Flux
 // convention (std = 0 where var == 0), the normalised row rounded to ef's
-// type, the product accumulated in f32 (WMMA for bf16 rows; plain f32
+// type, the product accumulated in f32 (wgmma for bf16 rows; plain f32
 // multiply-adds, never TF32, for f32 rows), the partials added in f32 in
 // the order above.  src and tr may be bf16 or f32 independently of ef.
+// h may be src itself (the caller's dead sender term, as the TPU kernel
+// aliases it): every element of src is read before it is written.
 //
 // What bounds it on the H100: at the large-graph shape (E = 1,048,576,
 // N = 65,536, 256 -> 256, bf16 rows and partials) it reads ef and src
@@ -18,32 +20,40 @@
 // ~1.7 GB, ~0.5 ms at 3.35 TB/s, against 137 GFLOP (~0.14 ms of bf16
 // tensor-core work): memory bounds it.
 //
-// What the design does about it: ef, src and h are streamed once per
-// 128-column tile (ef again from L2 for the second column tile), the
-// normalised rows and the f32 sum never reach device memory, and a tile's
-// tr rows are read directly: rl ascends, so a tile's rows are one short
-// window of the table, which stays in L2 (the TPU kernel's one-hot matmul
-// gather is not carried over).  The ef operand streams through in k-chunks
-// (ln_gemm.cuh), so shared memory does not depend on the widths.
+// bf16 rows: the wgmma + TMA core of edge_wgmma.cuh.  Persistent blocks,
+// one an SM, take 128 rows at a time; ef is read from device memory once
+// and normalised once for all output columns; at 256 x 256, W0 (128 KB)
+// is loaded once a block and stays in shared memory (wider weights stream
+// through a ring).  A tile's tr rows are read directly: rl ascends, so they
+// are one short window of the table, which stays in L2 (the TPU kernel's
+// one-hot matmul gather is not carried over).  Rejected: the PR 4 design
+// (64 x 128 WMMA tiles on a two-stage cp.async ring, ef normalised once
+// per column tile and W0 re-read from L2 by every block: 2.58 ms at the
+// large graph on an H100 80GB HBM3 at 700 W).
+//
+// f32 rows (no driven path takes them): 32 x 128 tiles of ln_gemm.cuh, ef
+// streamed in k-chunks, true f32 multiply-adds.
 //
 // The sum.  The TPU kernel read-modify-wrote agg across its sequential
-// grid.  Blocks here run concurrently, so: every thread of a tile's first
-// 128 owns a column and walks the tile's rows in order.  A node whose edges
-// lie wholly inside the tile gets its complete sum written to agg.  The run
-// that touches the tile's first row and the run that touches its last row
-// may continue in the neighbouring tiles: their sums go to two partial rows
-// of the tile.  A second kernel then adds, for every node that touches a
-// tile boundary, the partial rows in tile order: deterministic, no atomics,
-// and a hub node that spans many tiles costs one partial row a tile.  Nodes
-// with no edges keep the zeros the wrapper fills agg with.  Ids outside
-// [0, N) read a zero tr row and join no sum.
+// grid.  Blocks here run concurrently, so each tile of rows (64 for bf16
+// rows, 32 for f32) sums its rounded h by node, column by column in row
+// order: a node whose edges lie wholly inside the tile gets its complete sum
+// written to agg, and the runs that touch the tile's first and last rows go
+// to two partial rows of the tile, which a second kernel adds in tile
+// order: deterministic, no atomics, and a hub node that spans many tiles
+// costs one partial row a tile.  Nodes with no edges keep the zeros the
+// wrapper fills agg with.  Ids outside [0, N) read a zero tr row and join
+// no sum.
 
+#include <type_traits>
+
+#include "edge_wgmma.cuh"
 #include "ln_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = gn::kGemmThreads;
-constexpr int kCols = gn::kTileCols;
+constexpr int kThreadsF = gn::kGemmThreads;
+constexpr int kColsF = gn::kTileCols;
 
 enum Part { kF32 = 1, kBf16 = 2 };
 
@@ -54,27 +64,94 @@ __device__ __forceinline__ float4 part4(const void* p, int kind, size_t row,
   return gn::load4(static_cast<const __nv_bfloat16*>(p) + row * dout + c);
 }
 
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+// The single graph's partials for the wgmma core, added in the TPU
+// kernel's order: ((src + gb) + tr[rl]) + product.  The partials' types
+// are template arguments (no branch in the unrolled epilogue).  A bf16 src
+// is staged through the staging tile by TMA; with a bf16 tr as well, the
+// first three terms are added while the products run, otherwise after
+// them (holding f32 loads beside the accumulators would spill).
+template <bool kSrcF32, bool kTrF32>
+struct Single {
+  using SrcT = typename std::conditional<kSrcF32, float, __nv_bfloat16>::type;
+  using TrT = typename std::conditional<kTrF32, float, __nv_bfloat16>::type;
+  const SrcT* src;  // [E, dout]; may be h itself
+  const TrT* tr;    // [N, dout]
+  const float* gb;
+  const int* rl;
+  int N;
 
-// The epilogue of one [kRows x 128] tile held in Cs: add the partials, round
-// once, write h, and (with agg) leave the rounded values in Cs and sum them
-// by node.
-template <typename TE, int kRows>
-__device__ __forceinline__ void finish_tile(
+  static constexpr bool kStaged = !kSrcF32;
+  static constexpr bool kPreSum = kStaged && !kTrF32;
+
+  struct Row {
+    const SrcT* s;
+    const TrT* t;   // a valid row of tr (row 0 for an id outside [0, N))
+    bool valid;
+  };
+  __device__ __forceinline__ int receiver(int e) const { return rl[e]; }
+  __device__ __forceinline__ Row row(int e, int dout) const {
+    const int n = rl[e];
+    const bool valid = n >= 0 && n < N;
+    return {src + (size_t)e * dout, tr + (size_t)(valid ? n : 0) * dout,
+            valid};
+  }
+  // (((src + gb) + tr) + product) at columns c, c + 1.
+  __device__ __forceinline__ float2 apply(const Row& w, int c, float a0,
+                                          float a1, float2 staged) const {
+    const float2 p = pre(w, c, staged);
+    return make_float2(p.x + a0, p.y + a1);
+  }
+  // ((src + gb) + tr) at columns c, c + 1; `staged`: src's pair from the
+  // staging tile (kStaged).
+  __device__ __forceinline__ float2 pre(const Row& w, int c,
+                                        float2 staged) const {
+    float2 s = staged;
+    if constexpr (!kStaged) s = two(w.s + c);
+    const float2 g = *reinterpret_cast<const float2*>(gb + c);
+    const float2 t0 = two(w.t + c);
+    const float2 t = w.valid ? t0 : make_float2(0.f, 0.f);
+    return make_float2((s.x + g.x) + t.x, (s.y + g.y) + t.y);
+  }
+
+ private:
+  __device__ __forceinline__ static float2 two(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  __device__ __forceinline__ static float2 two(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+template <bool kSrcF32, bool kTrF32>
+int launch_single(const void* ef, const void* w0, const void* scale,
+                  const void* bias, const void* src, const void* tr,
+                  const void* rl, const void* gb, void* h, void* agg,
+                  void* part_first, void* part_last, int E, int N, int de,
+                  int dout, int has_ln, cudaStream_t s) {
+  using Epi = Single<kSrcF32, kTrF32>;
+  const Epi epi{(const typename Epi::SrcT*)src, (const typename Epi::TrT*)tr,
+                (const float*)gb, (const int*)rl, N};
+  return gn::edge::launch(epi, ef, w0, scale, bias,
+                          Epi::kStaged ? src : nullptr, h, agg, part_first,
+                          part_last, (const int*)rl, E, N, de, dout, has_ln,
+                          s);
+}
+
+// f32 rows: the epilogue of one [kTileRowsF x 128] tile held in Cs: add the
+// partials, write h, and (with agg) sum by node.
+__device__ __forceinline__ void finish_tile_f32(
     float* Cs, int* rls, const void* src, int src_kind, const void* tr,
-    int tr_kind, const int* rl, const float* gb, TE* h, float* agg,
+    int tr_kind, const int* rl, const float* gb, float* h, float* agg,
     float* part_first, float* part_last, int E, int N, int dout, int row0,
     int c0) {
+  constexpr int kRows = gn::kTileRowsF;
   const int tid = threadIdx.x;
   const int rows = min(kRows, E - row0);
-  for (int r = tid; r < kRows; r += kThreads)
+  for (int r = tid; r < kRows; r += kThreadsF)
     rls[r] = r < rows ? rl[row0 + r] : -1;
   __syncthreads();
-  for (int i = tid; i < rows * (kCols / 4); i += kThreads) {
-    const int r = i / (kCols / 4), q = (i % (kCols / 4)) * 4;
+  for (int i = tid; i < rows * (kColsF / 4); i += kThreadsF) {
+    const int r = i / (kColsF / 4), q = (i % (kColsF / 4)) * 4;
     const size_t row = (size_t)row0 + r;
     const int c = c0 + q, n = rls[r];
     const float4 p = *reinterpret_cast<const float4*>(Cs + r * gn::kLdc + q);
@@ -88,22 +165,17 @@ __device__ __forceinline__ void finish_tile(
     v.z = ((s.z + g4.z) + t.z) + p.z;
     v.w = ((s.w + g4.w) + t.w) + p.w;
     gn::store4(h + row * dout + c, v);
-    if (agg != nullptr) {
-      const TE* tag = nullptr;
-      v.x = round_to(v.x, tag); v.y = round_to(v.y, tag);
-      v.z = round_to(v.z, tag); v.w = round_to(v.w, tag);
+    if (agg != nullptr)
       *reinterpret_cast<float4*>(Cs + r * gn::kLdc + q) = v;
-    }
   }
   if (agg == nullptr) return;
   __syncthreads();
-  if (tid >= kCols) return;
+  if (tid >= kColsF) return;
   // Column c0 + tid: runs of equal ids, in row order.
   const int c = c0 + tid;
   const size_t tile = (size_t)blockIdx.x;
-  const int first = rls[0];
   float sum = 0.f;
-  int cur = first;
+  int cur = rls[0];
   bool is_first = true;
   for (int r = 0; r < rows; ++r) {
     const int n = rls[r];
@@ -122,47 +194,22 @@ __device__ __forceinline__ void finish_tile(
 }
 
 template <bool kLn>
-__global__ void __launch_bounds__(kThreads, 3)
-g1_edge_update_bf16_kernel(const __nv_bfloat16* __restrict__ ef,
-                           const __nv_bfloat16* __restrict__ w0,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ bias,
-                           const void* __restrict__ src, int src_kind,
-                           const void* __restrict__ tr, int tr_kind,
-                           const int* __restrict__ rl,
-                           const float* __restrict__ gb,
-                           __nv_bfloat16* __restrict__ h,
-                           float* __restrict__ agg,
-                           float* __restrict__ part_first,
-                           float* __restrict__ part_last, int E, int N,
-                           int de, int dout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int rls[gn::kTileRows];
-  const int row0 = blockIdx.x * gn::kTileRows, c0 = blockIdx.y * kCols;
-  gn::ln_gemm_tile_bf16<kLn>(ef, w0, scale, bias, E, de, dout, row0, c0,
-                             smem);
-  finish_tile<__nv_bfloat16, gn::kTileRows>(
-      gn::tile_cs(smem), rls, src, src_kind, tr, tr_kind, rl, gb, h, agg,
-      part_first, part_last, E, N, dout, row0, c0);
-}
-
-template <bool kLn>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsF)
 g1_edge_update_f32_kernel(const float* __restrict__ ef,
                           const float* __restrict__ w0,
                           const float* __restrict__ scale,
                           const float* __restrict__ bias,
-                          const void* __restrict__ src, int src_kind,
+                          const void* src, int src_kind,
                           const void* __restrict__ tr, int tr_kind,
                           const int* __restrict__ rl,
-                          const float* __restrict__ gb, float* __restrict__ h,
+                          const float* __restrict__ gb, float* h,
                           float* __restrict__ agg,
                           float* __restrict__ part_first,
                           float* __restrict__ part_last, int E, int N, int de,
                           int dout) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int rls[gn::kTileRowsF];
-  const int row0 = blockIdx.x * gn::kTileRowsF, c0 = blockIdx.y * kCols;
+  const int row0 = blockIdx.x * gn::kTileRowsF, c0 = blockIdx.y * kColsF;
   float acc[4][4];
   gn::ln_gemm_tile_f32<kLn>(ef, w0, scale, bias, E, de, dout, row0, c0, smem,
                             acc);
@@ -173,76 +220,26 @@ g1_edge_update_f32_kernel(const float* __restrict__ ef,
     *reinterpret_cast<float4*>(Cs + (warp * 4 + i) * gn::kLdc + lane * 4) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   __syncthreads();
-  finish_tile<float, gn::kTileRowsF>(Cs, rls, src, src_kind, tr, tr_kind, rl,
-                                     gb, h, agg, part_first, part_last, E, N,
-                                     dout, row0, c0);
-}
-
-// The node sums that cross tile boundaries.  Block t looks at tile t's
-// first run (if it does not continue the previous tile's last run) and at
-// its last run (if the tile holds more than one run): for each it adds this
-// tile's partial row and the first-run partial rows of the following tiles
-// for as long as they belong to the same node, in tile order.
-__global__ void __launch_bounds__(256)
-g1_agg_boundary_kernel(const int* __restrict__ rl,
-                       const float* __restrict__ part_first,
-                       const float* __restrict__ part_last,
-                       float* __restrict__ agg, int E, int N, int dout,
-                       int tile_rows, int tiles) {
-  const int t = blockIdx.x;
-  auto first_of = [&](int u) { return rl[(size_t)u * tile_rows]; };
-  auto last_of = [&](int u) {
-    return rl[min((size_t)E, (size_t)(u + 1) * tile_rows) - 1];
-  };
-  const int first = first_of(t), last = last_of(t);
-  for (int which = 0; which < 2; ++which) {
-    int node;
-    const float* mine;
-    if (which == 0) {
-      if (t > 0 && last_of(t - 1) == first) continue;  // an earlier tile's
-      node = first;
-      mine = part_first;
-    } else {
-      if (last == first) continue;  // one run only: handled as the first
-      node = last;
-      mine = part_last;
-    }
-    if (node < 0 || node >= N) continue;
-    // The tiles after t that the node's run reaches: up to the one that
-    // holds its last row (tile t itself when the run ends inside it).
-    const int e1 = gn::lower_bound(rl, E, node + 1);
-    const int until = (e1 - 1) / tile_rows + 1;
-    for (int c = threadIdx.x; c < dout; c += blockDim.x) {
-      float sum = mine[(size_t)t * dout + c];
-      // A hub or pad node spans hundreds of tiles: unrolled, so that the
-      // independent loads are in flight together; the adds stay in order.
-#pragma unroll 8
-      for (int u = t + 1; u < until; ++u)
-        sum += part_first[(size_t)u * dout + c];
-      agg[(size_t)node * dout + c] = sum;
-    }
-  }
+  finish_tile_f32(Cs, rls, src, src_kind, tr, tr_kind, rl, gb, h, agg,
+                  part_first, part_last, E, N, dout, row0, c0);
 }
 
 }  // namespace
 
-extern "C" size_t gn_g1_edge_update_smem(int is_f32) {
-  return is_f32 ? gn::kTileBytesF : gn::kTileBytes;
-}
-
-// Rows of ef a block takes (the tiling of the partial rows).
+// Rows of ef a partial row of the edge->node sum covers.
 extern "C" int gn_g1_edge_update_tile_rows(int is_f32) {
-  return is_f32 ? gn::kTileRowsF : gn::kTileRows;
+  return is_f32 ? gn::kTileRowsF : gn::edge::kRows;
 }
 
 // Launches the kernel (and, with agg, the boundary pass) on `stream` and
 // returns the first launch error.  `src_kind` / `tr_kind`: 1 f32, 2 bf16.
-// With agg: agg [N, dout] f32 zero-filled by the caller, part_first and
-// part_last [ceil(E / tile_rows), dout] f32 scratch.  Preconditions,
-// checked by the Python wrapper: ef [E, de] and w0 [de, dout] of one type
-// (bf16, or f32 with is_f32), h [E, dout] of that type, src [E, dout],
-// tr [N, dout], rl [E] int32 ascending, f32 scale, bias [de] and gb [dout];
-// contiguous and 16-byte aligned; E >= 1; de % 128 == 0; dout % 128 == 0.
+// h may equal src (bf16 rows and partials).  With agg: agg [N, dout] f32
+// zero-filled by the caller, part_first and part_last
+// [ceil(E / tile_rows), dout] f32 scratch.  Preconditions, checked by the
+// Python wrapper: ef [E, de] and w0 [de, dout] of one type (bf16, or f32
+// with is_f32), h [E, dout] of that type, src [E, dout], tr [N, dout], rl
+// [E] int32 ascending, f32 scale, bias [de] and gb [dout]; contiguous and
+// 16-byte aligned; E >= 1; de % 128 == 0; dout % 128 == 0.
 extern "C" int gn_g1_edge_update(const void* ef, const void* w0,
                                  const void* scale, const void* bias,
                                  const void* src, int src_kind,
@@ -252,32 +249,33 @@ extern "C" int gn_g1_edge_update(const void* ef, const void* w0,
                                  int N, int de, int dout, int is_f32,
                                  int has_ln, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int tile_rows = gn_g1_edge_update_tile_rows(is_f32);
-  const int tiles = (E + tile_rows - 1) / tile_rows;
-  const size_t smem = gn_g1_edge_update_smem(is_f32);
-  const dim3 grid(tiles, dout / kCols);
-#define GN_LAUNCH(KERNEL, TE)                                                \
-  do {                                                                       \
-    cudaError_t err = cudaFuncSetAttribute(                                  \
-        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);     \
-    if (err != cudaSuccess) return err;                                      \
-    KERNEL<<<grid, kThreads, smem, s>>>(                                     \
-        (const TE*)ef, (const TE*)w0, (const float*)scale,                   \
-        (const float*)bias, src, src_kind, tr, tr_kind, (const int*)rl,      \
-        (const float*)gb, (TE*)h, (float*)agg, (float*)part_first,           \
-        (float*)part_last, E, N, de, dout);                                  \
-  } while (0)
-  if (is_f32) {
-    if (has_ln) GN_LAUNCH(g1_edge_update_f32_kernel<true>, float);
-    else GN_LAUNCH(g1_edge_update_f32_kernel<false>, float);
-  } else {
-    if (has_ln) GN_LAUNCH(g1_edge_update_bf16_kernel<true>, __nv_bfloat16);
-    else GN_LAUNCH(g1_edge_update_bf16_kernel<false>, __nv_bfloat16);
+  if (!is_f32) {
+    const bool s32 = src_kind == kF32, t32 = tr_kind == kF32;
+    if (s32 && t32)
+      return launch_single<true, true>(ef, w0, scale, bias, src, tr, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
+    if (s32)
+      return launch_single<true, false>(ef, w0, scale, bias, src, tr, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
+    if (t32)
+      return launch_single<false, true>(ef, w0, scale, bias, src, tr, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
+    return launch_single<false, false>(ef, w0, scale, bias, src, tr, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
   }
-#undef GN_LAUNCH
-  cudaError_t err = cudaGetLastError();
+  const int tile_rows = gn::kTileRowsF;
+  const int tiles = (E + tile_rows - 1) / tile_rows;
+  const size_t smem = gn::kTileBytesF;
+  const dim3 grid(tiles, dout / kColsF);
+  auto kernel = has_ln ? g1_edge_update_f32_kernel<true>
+                       : g1_edge_update_f32_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreadsF, smem, s>>>(
+      (const float*)ef, (const float*)w0, (const float*)scale,
+      (const float*)bias, src, src_kind, tr, tr_kind, (const int*)rl,
+      (const float*)gb, (float*)h, (float*)agg, (float*)part_first,
+      (float*)part_last, E, N, de, dout);
+  err = cudaGetLastError();
   if (err != cudaSuccess || agg == nullptr) return err;
-  g1_agg_boundary_kernel<<<tiles, 256, 0, s>>>(
+  gn::edge::edge_agg_boundary_kernel<<<tiles, 256, 0, s>>>(
       (const int*)rl, (const float*)part_first, (const float*)part_last,
       (float*)agg, E, N, dout, tile_rows, tiles);
   return cudaGetLastError();

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (fused_ffn.cu, fused_ffn_bwd.cu, ln_linear_bwd.cu): mbarriers,
-// TMA tile loads and their tensor maps, and the warpgroup matrix multiply
-// (wgmma) with its shared-memory descriptors.
+// kernels (fused_ffn.cu, fused_ffn_bwd.cu, ln_linear_bwd.cu, and the edge
+// updates' edge_wgmma.cuh): mbarriers, TMA tile loads and stores and their
+// tensor maps, and the warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptors.
 //
 // Conventions.  Every operand tile in shared memory is bf16 in the
 // 128-byte-swizzled layout that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -78,6 +79,31 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// One box of `map` from shared memory to (c0 = column, c1 = row); rows and
+// columns past the matrix are not written.  Completes in the thread's
+// current bulk group (bulk_commit()).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of the thread's bulk groups still read their shared
+// memory source (.read) or are still writing device memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Makes the thread's ordinary shared-memory stores visible to the async

@@ -1,6 +1,6 @@
-// One output tile of  [LN](x) @ W  with x streamed in k-chunks, shared by
-// the kernels that fuse a LayerNorm into the product consuming it
-// (ln_linear_fwd.cu, edge_update_g1.cu).
+// One output tile of  [LN](x) @ W  with x streamed in k-chunks, for the
+// kernels that fuse a LayerNorm into the product consuming it
+// (ln_linear_fwd.cu; the f32 rows of edge_update_g1.cu).
 //
 // A block first takes the row statistics of its rows straight from device
 // memory (Flux convention: s = std + eps, std = 0 where var == 0; a few

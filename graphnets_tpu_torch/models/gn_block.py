@@ -12,12 +12,14 @@ Semantics kept exactly:
 * ``dropout`` is accepted and never applied, like the reference.
 
 Routes: on a uniform slot layout with kernels on, the edge update runs in
-the fused CUDA kernel (``ops/kernels/edge_update``): in inference with the
-edge->node sum in the same pass, under training without it (its backward
-composes the segment-sum, gather and LN->matmul backward kernels) and
-followed by the sorted segment-sum kernel, as ``gn_block.py:357-376`` of
-the JAX package decides.  Every other batch (``PadSpec.bucketed``, the
-sort task's pad) takes the split-linear path (``gn_block.py:123-229,
+the fused CUDA kernel (``ops/kernels/edge_update``) where the JAX package's
+gate admits the shape: in inference with the edge->node sum in the same
+pass where the gate admits that too (``with_agg``), else, and under
+training, without it (its backward composes the segment-sum, gather and
+LN->matmul backward kernels) and followed by the sorted segment-sum
+kernel, as ``gn_block.py:344-376`` of the JAX package decides.  Every
+other batch (``PadSpec.bucketed``, the sort task's pad, a shape the gate
+refuses) takes the split-linear path (``gn_block.py:123-229,
 434-448``): partial products at N and G rows gathered to the edge slots,
 with kernels on the first sorted term deferred to ``sorted_gather_add``
 and the row completed inside ``ln_matmul`` with the f32 sum as its addend,
@@ -281,10 +283,11 @@ class GNBlock(nn.Module):
         gather-after-transform partial sums (with kernels on completed by
         ``sorted_gather_add`` and ``ln_matmul``).  Returns ``(h_ef, agg)``;
         ``agg`` is a kernel's f32 edge->node sum or ``None``.  Under
-        training the uniform kernel writes ``h`` alone (the JAX package
-        measured the fused sum's backward slower than a separate
-        aggregation there); the single-graph kernel keeps the sum unless
-        ``g1_agg_fusion_training`` is off."""
+        training, and where the gate refuses ``with_agg``, the uniform
+        kernel writes ``h`` alone (the JAX package measured the fused sum's
+        backward slower than a separate aggregation there); the
+        single-graph kernel keeps the sum unless ``g1_agg_fusion_training``
+        is off, and writes ``h`` over its dead sender term."""
         from ..ops.kernels.edge_update import (fused_edge_update,
                                                fused_edge_update_agg,
                                                supports_fused_edge_update)
@@ -298,14 +301,18 @@ class GNBlock(nn.Module):
             ts = matmul_f32(nf, w[de:de + dn])
             tr = matmul_f32(nf, w[de + dn:de + 2 * dn])
             tg = matmul_f32(gf, w[de + 2 * dn:])
-            if training:
-                return fused_edge_update(ef, ef_ln, w[:de], ts, tr, tg, b,
-                                         g.senders, g.receivers,
-                                         *g.slot_shape).to(dtype), None
-            h, agg = fused_edge_update_agg(ef, ef_ln, w[:de], ts, tr, tg, b,
-                                           g.senders, g.receivers,
-                                           *g.slot_shape)
-            return h.to(dtype), agg
+            # The sum fuses in inference where the gate admits it too
+            # (``gn_block.py:362-365``); training keeps the separate sum.
+            if not training and supports_fused_edge_update(
+                    E, N, G, de, self.out_dims[0], *g.slot_shape, ef.dtype,
+                    with_agg=True):
+                h, agg = fused_edge_update_agg(ef, ef_ln, w[:de], ts, tr, tg,
+                                               b, g.senders, g.receivers,
+                                               *g.slot_shape)
+                return h.to(dtype), agg
+            return fused_edge_update(ef, ef_ln, w[:de], ts, tr, tg, b,
+                                     g.senders, g.receivers,
+                                     *g.slot_shape).to(dtype), None
         if use_kernels() and G == 1 and de > 0 and dn > 0:
             from ..ops.kernels.edge_update_g1 import (
                 fused_g1_edge_update, fused_g1_edge_update_agg,
@@ -321,7 +328,10 @@ class GNBlock(nn.Module):
                 ts = matmul_f32(nf, w[de:de + dn]).to(pdt)
                 tr = matmul_f32(nf, w[de + dn:de + 2 * dn]).to(pdt)
                 # The senders are in no order: the one random-access
-                # stream of the path; its backward sorts once.
+                # stream of the path; its backward sorts once and saves
+                # only the ids, so ``src`` is dead after the kernel, which
+                # writes h over it where the types match (the JAX kernel's
+                # donation, ``edge_update_g1.py:296-301``).
                 src = scatter.take_rows_sorted_grad(ts, g.senders)
                 gb = torch.zeros(de_o, dtype=torch.float32, device=w.device)
                 if dg > 0:
@@ -333,10 +343,12 @@ class GNBlock(nn.Module):
                             E, N, de, de_o, itemsize, with_agg=True,
                             part_itemsize=part_itemsize)):
                     h, agg = fused_g1_edge_update_agg(
-                        ef, ef_ln, w[:de], src, tr, g.receivers, gb)
+                        ef, ef_ln, w[:de], src, tr, g.receivers, gb,
+                        src_is_dead=True)
                     return h.to(dtype), agg
-                return fused_g1_edge_update(ef, ef_ln, w[:de], src, tr,
-                                            g.receivers, gb).to(dtype), None
+                return fused_g1_edge_update(
+                    ef, ef_ln, w[:de], src, tr, g.receivers, gb,
+                    src_is_dead=True).to(dtype), None
         # The senders are unsorted within each graph but local to it: with
         # many small graphs their backward scatter takes per-graph windows
         # (the windowed kernel) instead of a sort.

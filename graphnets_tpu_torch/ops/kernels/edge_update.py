@@ -5,14 +5,23 @@ slot layouts (counterpart of ``graphnets_tpu/ops/pallas/edge_update.py``).
                 + tg[edge_graph] + b )
     agg = f32 sum of the rounded h over edges, by receiver
 
-Kernel: ``csrc/edge_update.cu``.  It replaces the Pallas kernel of
+Kernel: ``csrc/edge_update.cu`` on the wgmma + TMA core of
+``csrc/edge_wgmma.cuh``.  It replaces the Pallas kernel of
 ``fused_edge_update_agg`` and ``fused_edge_update``
 (``edge_update.py:122-245,308-361``); the second writes h alone.  On the
 H100 it is bound by memory (~30 MB for 4.8 GFLOP at E = 16384,
-de = dout = 384), so it reads every row once, reads the f32 partial rows
-directly instead of the TPU's one-hot gathers, and sums edges into nodes
-with no atomics: a block owns whole receiver segments (receivers ascend)
-and writes each agg row once.  The source note in the ``.cu`` file has the details.
+de = dout = 384), so it reads every row once and normalises it once for all
+output columns, streams W0 in k-chunks (shared memory does not depend on
+de), reads the f32 partial rows directly instead of the TPU's one-hot
+gathers, and sums edges into nodes with no atomics: each 64-row tile sums
+its own rows by receiver (receivers ascend) and a second pass completes the
+nodes that cross a tile boundary, in tile order.  The source notes in the
+``.cu`` / ``.cuh`` files have the details.
+
+:func:`supports_fused_edge_update` is the JAX package's gate
+(``edge_update.py:80-111``), term for term: its tile choice, its VMEM
+budget and the ``with_agg`` term decide which shapes take the kernel in
+both packages.  The CUDA kernel itself serves every width the gate admits.
 
 :func:`fused_edge_update` is differentiable: its backward composes the
 port's other kernels as ``edge_update.py:262-302`` does (the LN->matmul
@@ -42,46 +51,52 @@ __all__ = ["fused_edge_update", "fused_edge_update_plain",
 
 LAUNCHES = 0            # fused_edge_update_agg launches, for the path proof
 LAUNCHES_NO_AGG = 0     # fused_edge_update launches
-_SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
-_EDGES_PER_BLOCK = 128  # target edge rows per block (whole receivers)
+_VMEM_BUDGET = 12 << 20
 
 
-def _smem_bytes(de: int) -> int:
-    """Shared memory of one block, as ``gn_edge_update_agg_smem``."""
-    return de * 136 * 2 + 64 * (de + 8) * 2 + 64 * 132 * 4 + 130 * 4
-
-
-def _has_slot_tile(G: int, n_slots: int, e_slots: int) -> bool:
-    """The JAX package's tile condition (``edge_update.py:80-92``): some
-    divisor ``k`` of G whose ``k`` slots give a lane-aligned edge tile
-    (``k * e_slots % 128 == 0``, at most 8192 rows) and a sublane-aligned
-    node window (``k * n_slots % 8 == 0``, at most 2048 rows)."""
+def _pick_k(G: int, n_slots: int, e_slots: int) -> Optional[int]:
+    """The JAX kernel's tile choice (``edge_update.py:80-92``): edge tile
+    ``k * e_slots`` rows, node window ``k * n_slots`` rows; the first
+    divisor ``k`` of G whose tile reaches 512 rows, else the largest that
+    tiles at all."""
+    best = None
     for k in range(1, G + 1):
+        if G % k:
+            continue
         te, nw = k * e_slots, k * n_slots
-        if G % k == 0 and te % 128 == 0 and nw % 8 == 0 and nw <= 2048 \
-                and te <= 8192:
-            return True
-    return False
+        if te % 128 or nw % 8 or nw > 2048 or te > 8192:
+            continue
+        if te >= 512:
+            return k
+        best = k
+    return best
 
 
 def supports_fused_edge_update(E: int, N: int, G: int, de: int, dout: int,
                                n_slots: int, e_slots: int,
-                               dtype: torch.dtype) -> bool:
-    """Shapes that take the kernel: bf16 edges on a uniform layout of
-    G >= 2 graphs, feature dims multiples of 128, the block's W0 tile plus
-    one 64-row chunk within shared memory (de <= 384), and a layout the JAX
-    package's kernel tiles too (the CUDA kernel needs no such tile; the
-    condition keeps both packages on the same route, since the layouts it
-    refuses take the split-linear path there)."""
+                               dtype: torch.dtype,
+                               with_agg: bool = False) -> bool:
+    """The JAX package's gate (``edge_update.py:95-111``): bf16 edges on a
+    uniform layout of G >= 2 graphs, feature dims multiples of 128, a tile
+    from :func:`_pick_k`, and the TPU kernel's VMEM use within its 12 MiB
+    budget (``with_agg`` adds the f32 sum's double-buffered tile).  The
+    budget is a route rule here: it keeps both packages on the same route
+    and rounding points."""
     if dtype != torch.bfloat16:
         return False
     if G < 2 or N != G * n_slots or E != G * e_slots:
         return False
     if de < 128 or dout < 128 or de % 128 or dout % 128:
         return False
-    if not _has_slot_tile(G, n_slots, e_slots):
+    k = _pick_k(G, n_slots, e_slots)
+    if k is None:
         return False
-    return _smem_bytes(de) <= _SMEM_LIMIT
+    te, nw = k * e_slots, k * n_slots
+    vmem = (te * (de + dout) * 2 + de * dout * 2 + 4 * nw * dout * 2
+            + te * dout * 4 + te * de * 4 + 2 * nw * te * 2)
+    if with_agg:
+        vmem += 2 * nw * dout * 4
+    return vmem <= _VMEM_BUDGET
 
 
 def fused_edge_update_plain(ef, scale, bias, w0, ts, tr, tg, b, senders,
@@ -114,11 +129,12 @@ def fused_edge_update_agg_plain(ef, scale, bias, w0, ts, tr, tg, b,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("edge_update")
-    fn = lib.gn_edge_update_agg
+    fn = lib.gn_edge_update
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.gn_edge_update_tile_rows.restype = ctypes.c_int
     return lib
 
 
@@ -132,9 +148,10 @@ def _launch(ef, scale, bias, w0, ts, tr, tg, b, senders, receivers,
         raise TypeError(f"fused_edge_update: ef must be bfloat16, got "
                         f"{ef.dtype}")
     if not supports_fused_edge_update(E, N, G, de, dout, N // G, e_slots,
-                                      ef.dtype):
+                                      ef.dtype, with_agg=with_agg):
         raise ValueError(f"fused_edge_update: unsupported shape E={E} "
-                         f"N={N} G={G} de={de} dout={dout}")
+                         f"N={N} G={G} de={de} dout={dout} "
+                         f"with_agg={with_agg}")
     expect = {"w0": (w0, (de, dout)), "ts": (ts, (N, dout)),
               "tr": (tr, (N, dout)), "tg": (tg, (G, dout)),
               "senders": (senders, (E,)), "receivers": (receivers, (E,))}
@@ -154,20 +171,25 @@ def _launch(ef, scale, bias, w0, ts, tr, tg, b, senders, receivers,
         if not t.is_cuda or t.device != ef.device:
             raise ValueError("fused_edge_update: all inputs must be on "
                              f"{ef.device}")
-        if not t.is_contiguous():
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("fused_edge_update: inputs must be "
-                             "contiguous")
-    h = torch.empty(E, dout, dtype=torch.bfloat16, device=ef.device)
-    agg = (torch.empty(N, dout, dtype=torch.float32, device=ef.device)
-           if with_agg else None)
-    nodes_per_block = max(1, _EDGES_PER_BLOCK * N // E)
+                             "contiguous and 16-byte aligned")
     lib = _lib()
+    f32 = dict(dtype=torch.float32, device=ef.device)
+    h = torch.empty(E, dout, dtype=torch.bfloat16, device=ef.device)
+    agg = first = last = None
+    if with_agg:
+        tiles = -(-E // lib.gn_edge_update_tile_rows())
+        agg = torch.zeros(N, dout, **f32)
+        first, last = torch.empty(tiles, dout, **f32), \
+            torch.empty(tiles, dout, **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(ef.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gn_edge_update_agg(
-            *[t.data_ptr() for t in args], h.data_ptr(),
-            None if agg is None else agg.data_ptr(),
-            E, N, de, dout, e_slots, nodes_per_block, int(use_ln), stream)
+        err = lib.gn_edge_update(
+            *[t.data_ptr() for t in args], h.data_ptr(), ptr(agg),
+            ptr(first), ptr(last), E, N, de, dout, e_slots, int(use_ln),
+            stream)
     _build.check(lib, err, "fused_edge_update")
     if with_agg:
         LAUNCHES += 1

@@ -5,17 +5,25 @@
                        + [LN](ef[e]) @ W0 )
     agg[n] = f32 sum of the rounded h[e] over the edges with rl[e] == n
 
-Kernel: ``csrc/edge_update_g1.cu``.  It replaces the Pallas kernel of
+Kernel: ``csrc/edge_update_g1.cu``; bf16 rows on the wgmma + TMA core
+of ``csrc/edge_wgmma.cuh``.  It replaces the Pallas kernel of
 ``fused_g1_edge_update`` and ``fused_g1_edge_update_agg``
 (``edge_update_g1.py:119-358``).  On the H100 it is bound by memory (about
 1.7 GB at E = 1,048,576, N = 65,536, 256 -> 256 in bf16, ~0.5 ms), so ef,
-src and h stream once per 128-column tile, the normalised rows and the f32
-partial sum stay on the SM, and the receiver rows of ``tr`` are read
-directly (ascending ``rl`` keeps a tile's window in L2).  The edge->node
-sum is taken per tile for the nodes wholly inside it and through two
-partial rows per tile for the nodes on its boundaries, which a second small
-kernel adds in tile order: no atomics.  The source note in the ``.cu`` file
-has the details.
+src and h stream once, every row is normalised once for all output
+columns, W0 stays in shared memory where it fits, the normalised rows and
+the f32 partial sum stay on the SM, and the receiver rows of ``tr`` are
+read directly (ascending ``rl`` keeps a tile's window in L2).  The
+edge->node sum is taken per tile for the nodes wholly inside it and through
+two partial rows per tile for the nodes on its boundaries, which a second
+small kernel adds in tile order: no atomics.  The source notes in the
+``.cu`` / ``.cuh`` files have the details.
+
+As the JAX package donates ``src`` to ``h`` when their types match
+(``edge_update_g1.py:296-301``), ``GNBlock`` passes ``src_is_dead=True``
+for its own dead sender term: ``h`` is then written over ``src`` (the
+``autograd.Function`` marks it dirty and returns it).  A call without the
+keyword writes a fresh buffer and leaves its arguments untouched.
 
 :func:`supports_g1_edge_update` is the JAX package's gate, term for term
 (``edge_update_g1.py:64-107``), so both packages route the same shapes; the
@@ -41,7 +49,6 @@ from typing import Optional
 
 import torch
 
-from ...nn.core import layer_norm
 from ..ln_linear import (ln_linear_backward_plain, ln_matmul_reference,
                          matmul_f32)
 from . import _build
@@ -134,7 +141,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(ef, scale, bias, w0, src, tr, rl, gb, has_ln: bool,
-            with_agg: bool):
+            with_agg: bool, out=None):
+    """The kernel; ``h`` goes to ``out`` when given (``src`` itself)."""
     global LAUNCHES, LAUNCHES_NO_AGG
     E, de = ef.shape
     N, dout = tr.shape
@@ -169,7 +177,8 @@ def _launch(ef, scale, bias, w0, src, tr, rl, gb, has_ln: bool,
     kind = lambda t: 1 if t.dtype == torch.float32 else 2
     is_f32 = int(ef.dtype == torch.float32)
     lib = _lib()
-    h = torch.empty(E, dout, dtype=ef.dtype, device=ef.device)
+    h = out if out is not None else torch.empty(E, dout, dtype=ef.dtype,
+                                                device=ef.device)
     agg = first = last = None
     if with_agg:
         tiles = -(-E // lib.gn_g1_edge_update_tile_rows(is_f32))
@@ -193,18 +202,24 @@ def _launch(ef, scale, bias, w0, src, tr, rl, gb, has_ln: bool,
     return h
 
 
-def _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, with_agg):
+def _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, with_agg,
+             alias):
     """Kernel, plain version (CPU) or composed reference (outside the
-    gate), as ``_op`` / ``_op2``."""
+    gate), as ``_op`` / ``_op2``; with ``alias`` ``h`` is written over
+    ``src`` (contiguous, of ``ef``'s type) on every route."""
     E, de = ef.shape
     N, dout = tr.shape
     plain = g1_edge_update_agg_plain if with_agg else g1_edge_update_plain
     if (ef.device.type == "cpu" or not supports_g1_edge_update(
             E, N, de, dout, ef.element_size(), with_agg=with_agg,
             part_itemsize=tr.element_size())):
-        return plain(ef, scale, bias, w0, src, tr, rl, gb, has_ln)
+        res = plain(ef, scale, bias, w0, src, tr, rl, gb, has_ln)
+        if not alias:
+            return res
+        src.copy_(res[0] if with_agg else res)
+        return (src, res[1]) if with_agg else src
     return _launch(ef, scale, bias, w0, src.contiguous(), tr.contiguous(),
-                   rl, gb, has_ln, with_agg)
+                   rl, gb, has_ln, with_agg, out=src if alias else None)
 
 
 def _backward_core(ctx, g):
@@ -228,19 +243,30 @@ def _backward_core(ctx, g):
         d_ef = matmul_f32(gc, w0.t()).to(ef.dtype)
         dw = matmul_f32(ef.t(), gc).to(w0.dtype)
         ds, db = torch.zeros_like(scale), torch.zeros_like(bias)
-    return d_ef, ds, db, dw, d_src, d_tr, None, d_gb, None
+    return d_ef, ds, db, dw, d_src, d_tr, None, d_gb, None, None
 
 
-def _save(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln):
+def _save(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln, src_is_dead):
+    """Saves what the backward needs (never ``src``) and says whether ``h``
+    is written over ``src``: only for a dead ``src`` of ``ef``'s type, as
+    the JAX package's donation, and then marks it dirty."""
     ctx.save_for_backward(ef, scale, bias, w0, rl)
     ctx.meta = (tr.shape[0], src.dtype, tr.dtype, gb.dtype, has_ln)
+    alias = (src_is_dead and src.dtype == ef.dtype and src.is_contiguous()
+             and tuple(src.shape) == (ef.shape[0], tr.shape[1]))
+    if alias:
+        ctx.mark_dirty(src)
+    return alias
 
 
 class _G1EdgeUpdate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln):
-        _save(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln)
-        return _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, False)
+    def forward(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln,
+                src_is_dead):
+        alias = _save(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln,
+                      src_is_dead)
+        return _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, False,
+                        alias)
 
     @staticmethod
     def backward(ctx, g):
@@ -249,9 +275,12 @@ class _G1EdgeUpdate(torch.autograd.Function):
 
 class _G1EdgeUpdateAgg(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln):
-        _save(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln)
-        return _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, True)
+    def forward(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln,
+                src_is_dead):
+        alias = _save(ctx, ef, scale, bias, w0, src, tr, rl, gb, has_ln,
+                      src_is_dead)
+        return _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, True,
+                        alias)
 
     @staticmethod
     def backward(ctx, g_h, g_agg):
@@ -273,7 +302,8 @@ def _unpack_ln(ef, ef_ln):
     return ef_ln["scale"], ef_ln["bias"], True
 
 
-def fused_g1_edge_update_agg(ef, ef_ln: Optional[dict], w0, src, tr, rl, gb):
+def fused_g1_edge_update_agg(ef, ef_ln: Optional[dict], w0, src, tr, rl, gb,
+                             *, src_is_dead: bool = False):
     """:func:`fused_g1_edge_update` that also returns the edge->node sum of
     its result, ``agg [N, dout]`` in f32, from the same pass.  The backward
     rounds the agg cotangent to ``ef.dtype`` before gathering it back to
@@ -281,16 +311,23 @@ def fused_g1_edge_update_agg(ef, ef_ln: Optional[dict], w0, src, tr, rl, gb):
     GNBlock does)."""
     scale, bias, has_ln = _unpack_ln(ef, ef_ln)
     return _G1EdgeUpdateAgg.apply(ef, scale, bias, w0, src, tr, rl, gb,
-                                  has_ln)
+                                  has_ln, src_is_dead)
 
 
-def fused_g1_edge_update(ef, ef_ln: Optional[dict], w0, src, tr, rl, gb):
+def fused_g1_edge_update(ef, ef_ln: Optional[dict], w0, src, tr, rl, gb,
+                         *, src_is_dead: bool = False):
     """``LN(ef) @ W0 + src + tr[rl] + gb`` in one pass for a single-graph
     batch in canonical order (``rl`` ascending, every id in ``[0, N)``).
 
     ``ef_ln``: LayerNorm params ``{"scale", "bias"}`` or ``None`` (no LN).
     ``src [E, dout]``: the sender term rows; ``tr [N, dout]``: the
     receiver-side node table (both bf16 or f32); ``gb [dout]``: the f32
-    graph term plus bias.  Returns ``h [E, dout]`` in ``ef.dtype``."""
+    graph term plus bias.  Returns ``h [E, dout]`` in ``ef.dtype``.
+
+    ``src_is_dead`` (internal, passed by ``GNBlock`` alone): the caller
+    owns ``src`` and never reads it again, so ``h`` may be written over it
+    when their types match (the JAX kernel's donation); ``src`` is then
+    returned as ``h``."""
     scale, bias, has_ln = _unpack_ln(ef, ef_ln)
-    return _G1EdgeUpdate.apply(ef, scale, bias, w0, src, tr, rl, gb, has_ln)
+    return _G1EdgeUpdate.apply(ef, scale, bias, w0, src, tr, rl, gb, has_ln,
+                               src_is_dead)

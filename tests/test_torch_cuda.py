@@ -27,7 +27,11 @@ rows: 1e-5 (f32 sums in another order).  The fused FFN backward: dx 2^-6
 f32 pre-activation is within rounding of 0, on f32 rows too; at d = 384
 and 512 by the 2-norm, where one flip at T = 8192 moves a tail element by
 2%), two launches bit-equal.  The windowed sum: two launches bit-equal.  ``random_gather``
-is a copy: bit-equal.
+is a copy: bit-equal.  The two wgmma edge updates at the headline, padded
+and wide uniform layouts and at scaled-down large-graph and
+sampled-subgraph shapes (ragged edge counts through the launcher): the
+tolerances above, both outputs bit-equal on a second launch and when ``h``
+is written over a dead ``src``.
 """
 
 import numpy as np
@@ -736,3 +740,134 @@ def test_sorted_gather_add_matches_plain(cuda, table_dtype, addend_dtype):
     assert torch.equal(ak.grad.cpu(), addend.grad)
     _close_max(tk.grad, table.grad,
                2.0 ** -7 if table_dtype == torch.bfloat16 else 1e-5)
+
+
+# ---- the wgmma edge updates (uniform layouts and the single graph) --------
+
+# (G, n_slots, e_slots, de, dout, padded): the headline, exact and padded;
+# de = 512, which the JAX gate admits and the port refused before; de =
+# 1024, whose rows are held in pieces; a small tile of several graphs.
+_UNIFORM_WIDE = [(8, 128, 2048, 384, 384, False),
+                 (8, 128, 2048, 384, 384, True),
+                 (16, 64, 1024, 512, 512, False),
+                 (16, 32, 512, 1024, 1024, True),
+                 (8, 32, 512, 512, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _UNIFORM_WIDE)
+def test_uniform_edge_update_wgmma_matches_plain(cuda, case):
+    """The uniform update with and without its sum against the plain
+    version on the card: ``h`` one bf16 ulp, ``agg`` 1e-5 against the f32
+    sum of the kernel's own ``h`` (zero for nodes without edges), both
+    bit-equal on a second launch."""
+    G, n_slots, e_slots, de, dout, padded = case
+    E, N = G * e_slots, G * n_slots
+    assert eu.supports_fused_edge_update(E, N, G, de, dout, n_slots,
+                                         e_slots, torch.bfloat16,
+                                         with_agg=True)
+    rng = np.random.default_rng(22)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(cuda)
+    snd, rcv = (t.to(cuda) for t in _uniform_ids(rng, G, n_slots, e_slots,
+                                                 padded))
+    ef = f(E, de)
+    ef[:2] = 0.0
+    ln = {"scale": 1 + 0.1 * f(de), "bias": 0.1 * f(de)}
+    args = (ef.bfloat16(), ln, (f(de, dout) * de ** -0.5).bfloat16(),
+            f(N, dout), f(N, dout), f(G, dout), f(dout), snd, rcv, n_slots,
+            e_slots)
+    plain = eu.fused_edge_update_plain(args[0], ln["scale"], ln["bias"],
+                                       *args[2:9], e_slots)
+    before = (eu.LAUNCHES, eu.LAUNCHES_NO_AGG)
+    h, agg = eu.fused_edge_update_agg(*args)
+    h2, agg2 = eu.fused_edge_update_agg(*args)
+    h3 = eu.fused_edge_update(*args)
+    torch.cuda.synchronize()
+    assert (eu.LAUNCHES, eu.LAUNCHES_NO_AGG) == (before[0] + 2,
+                                                 before[1] + 1)
+    _close_max(h, plain, 2.0 ** -7)
+    assert torch.equal(h, h2) and torch.equal(agg, agg2)
+    assert torch.equal(h3, h)
+    own = torch.zeros_like(agg).index_add_(0, rcv.long(), h.float())
+    _close_max(agg, own, 1e-5)
+    empty = torch.bincount(rcv.long(), minlength=N) == 0
+    assert not agg[empty].any()
+
+
+# (E, N, d, parts, receivers): the large graph scaled down (uniform
+# receivers, bf16 partials, W0 resident); the sampled subgraph scaled down
+# (f32 partials, a hub over many 64-row tiles, empty nodes, pad edges);
+# ragged edge counts (a last tile of 40 rows; a last 128-row tile with an
+# empty half), which the gate refuses but the kernel takes; d = 512 (W0
+# through the ring).
+_G1_WIDE = [(65536, 4096, 256, torch.bfloat16, False),
+            (7040, 7120, 256, torch.float32, True),
+            (1000, 96, 256, torch.bfloat16, True),
+            (1088, 96, 256, torch.float32, True),
+            (4096, 512, 512, torch.bfloat16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _G1_WIDE)
+def test_g1_edge_update_wgmma_matches_plain(cuda, case):
+    """The single-graph wgmma kernel, called through its launcher (so the
+    ragged counts reach it), against the plain version on the card: ``h``
+    one bf16 ulp, ``agg`` 1e-5 of the f32 sum of its own ``h`` with zero
+    rows for empty nodes, bit-equal on a second launch and when ``h`` is
+    written over ``src``."""
+    E, N, d, parts, pads = case
+    rng = np.random.default_rng(23)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(cuda)
+    ef = f(E, d)
+    ef[:3] = 0.0
+    ef = ef.bfloat16()
+    scale, bias = 1 + 0.1 * f(d), 0.1 * f(d)
+    w0 = (f(d, d) * d ** -0.5).bfloat16()
+    src, tr, gb = f(E, d).to(parts), f(N, d).to(parts), f(d)
+    rl = _sorted_receivers(rng, E, N, pads).to(cuda)
+    plain = g1.g1_edge_update_plain(ef, scale, bias, w0, src, tr, rl, gb)
+    run = lambda with_agg, out=None: g1._launch(
+        ef, scale, bias, w0, src if out is None else out, tr, rl, gb, True,
+        with_agg, out=out)
+    kept = src.clone()
+    h, agg = run(True)
+    h2, agg2 = run(True)
+    h3 = run(False)
+    torch.cuda.synchronize()
+    assert torch.equal(src, kept)
+    _close_max(h, plain, 2.0 ** -7)
+    assert torch.equal(h, h2) and torch.equal(agg, agg2)
+    assert torch.equal(h3, h)
+    own = torch.zeros_like(agg).index_add_(0, rl.long(), h.float())
+    _close_max(agg, own, 1e-5)
+    empty = torch.bincount(rl.long(), minlength=N) == 0
+    assert not agg[empty].any()
+    if parts == torch.bfloat16:
+        dead = src.clone()
+        ha, agga = run(True, out=dead)
+        torch.cuda.synchronize()
+        assert ha.data_ptr() == dead.data_ptr()
+        assert torch.equal(ha, h) and torch.equal(agga, agg)
+
+
+@pytest.mark.cuda
+def test_g1_public_call_writes_over_a_dead_src_only(cuda):
+    """On the card a public call leaves ``src`` as it was; with
+    ``src_is_dead`` the result lands in ``src`` and equals it."""
+    E, N, d = 2048, 256, 256
+    rng = np.random.default_rng(24)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(cuda)
+    ln = {"scale": 1 + 0.1 * f(d), "bias": 0.1 * f(d)}
+    args = [f(E, d).bfloat16(), ln, (f(d, d) * d ** -0.5).bfloat16(),
+            f(E, d).bfloat16(), f(N, d).bfloat16(),
+            _sorted_receivers(rng, E, N, True).to(cuda), f(d)]
+    kept = args[3].clone()
+    h, agg = g1.fused_g1_edge_update_agg(*args)
+    assert torch.equal(args[3], kept) and h.data_ptr() != args[3].data_ptr()
+    ha, agga = g1.fused_g1_edge_update_agg(*args, src_is_dead=True)
+    torch.cuda.synchronize()
+    assert ha.data_ptr() == args[3].data_ptr()
+    assert torch.equal(ha, h) and torch.equal(agga, agg)

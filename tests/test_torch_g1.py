@@ -578,3 +578,117 @@ def test_g1_stack_train_step_matches_jax(monkeypatch, route):
                     np.abs(grads_k[n] - grads_u[n]).max())
         assert np.isfinite(_np(p.grad)).all() and err <= bound + 1e-12, \
             (n, err, bound)
+
+
+# ---- h written over a dead sender term (the JAX kernel's donation) --------
+
+@pytest.mark.parametrize("with_agg", [False, True])
+@pytest.mark.parametrize("parts", ["bf16", "f32"])
+def test_fused_g1_edge_update_src_is_dead_aliases(kernels_on, parts,
+                                                  with_agg):
+    """A public call writes a fresh ``h`` and leaves ``src`` as it was;
+    with ``src_is_dead`` and ``src`` of ``ef``'s type, ``h`` is ``src``
+    itself (same storage, same values); with f32 partials it is not."""
+    E, N, d = 512, 64, 128
+    a = _g1_inputs(60, E, N, d, d, "pads")
+    fn = (pt_g1.fused_g1_edge_update_agg if with_agg
+          else pt_g1.fused_g1_edge_update)
+    first = lambda out: out[0] if with_agg else out
+    args = _torch_args(a, torch.bfloat16, _DT[parts][0], True)
+    src = args[3]
+    kept = src.clone()
+    public = fn(*args)
+    assert torch.equal(src, kept)
+    assert first(public).data_ptr() != src.data_ptr()
+    dead = src.clone()
+    out = fn(*args[:3], dead, *args[4:], src_is_dead=True)
+    aliased = first(out).data_ptr() == dead.data_ptr()
+    assert aliased == (parts == "bf16")
+    if not aliased:
+        assert torch.equal(dead, kept)
+    assert torch.equal(first(out), first(public))
+    if with_agg:
+        assert torch.equal(out[1], public[1])
+
+
+def _alias_spy(monkeypatch):
+    """Records, per call of the single-graph kernel functions, whether
+    ``h`` came back in ``src``'s storage and whether the caller said its
+    ``src`` was dead."""
+    seen = []
+    for name in ("fused_g1_edge_update", "fused_g1_edge_update_agg"):
+        def spy(*a, _real=getattr(pt_g1, name), **k):
+            ptr = a[3].data_ptr()
+            out = _real(*a, **k)
+            h = out[0] if isinstance(out, tuple) else out
+            seen.append((h.data_ptr() == ptr, k.get("src_is_dead", False)))
+            return out
+        monkeypatch.setattr(pt_g1, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("parts", ["bf16", "f32"])
+def test_gnblock_g1_writes_h_over_dead_src(kernels_on, monkeypatch, parts,
+                                           training):
+    """``GNBlock`` hands its gathered sender term over as dead: with bf16
+    partials (the gather gate pinned on in both packages) ``h`` lands in
+    its storage, with f32 partials it does not; the output matches the
+    JAX ``GNBlock`` as ``test_gnblock_g1_matches_jax`` holds it."""
+    N, E, d = 64, 512, 128
+    on = parts == "bf16"
+    monkeypatch.setattr(j_config.get_config(), "bf16_gather_partials", on)
+    monkeypatch.setattr(pt_config.get_config(), "bf16_gather_partials", on)
+    gj, _, gp, _ = _g1_batches(53, N, E, d, "bf16", pad_edges=100)
+    block_j = gn.GNBlock((d, d, d), (d, d, d))
+    params = block_j.init(jax.random.PRNGKey(4))
+    cast = jax.tree_util.tree_map(lambda p: p.astype(jnp.bfloat16), params)
+    y_j = block_j.apply(cast, gj, training=training)
+    block_p = pt.GNBlock((d, d, d), (d, d, d), device="cpu")
+    pt.from_jax_params(jax.tree_util.tree_map(np.asarray, params), block_p)
+    block_p.to(torch.bfloat16)
+    seen = _alias_spy(monkeypatch)
+    with torch.no_grad():
+        y_p = block_p(gp, training=training)
+    assert seen == [(on, True)]
+    for key, mask in (("ef", gj.edge_mask), ("nf", gj.node_mask),
+                      ("gf", gj.graph_mask)):
+        m = np.asarray(mask)
+        _close(_np(getattr(y_p, key))[m], _np(getattr(y_j, key))[m], 3e-2,
+               key)
+
+
+@pytest.mark.parametrize("agg_training", [True, False])
+def test_g1_alias_leaves_gradients_unchanged(kernels_on, monkeypatch,
+                                             agg_training):
+    """A training step's gradients through the aliased sender term are
+    bit-equal to those of the same step with a fresh ``h`` buffer."""
+    N, E, d = 64, 512, 128
+    monkeypatch.setattr(pt_config.get_config(), "bf16_gather_partials", True)
+    monkeypatch.setattr(pt_config.get_config(), "g1_agg_fusion_training",
+                        agg_training)
+    _, _, gp, _ = _g1_batches(54, N, E, d, "bf16", pad_edges=60)
+    block = pt.GNBlock((d, d, d), (d, d, d), device="cpu",
+                       generator=torch.Generator().manual_seed(5))
+    block.to(torch.bfloat16)
+
+    def grads(alias):
+        if not alias:
+            for name in ("fused_g1_edge_update", "fused_g1_edge_update_agg"):
+                real = getattr(pt_g1, name)
+                monkeypatch.setattr(
+                    pt_g1, name,
+                    lambda *a, _real=real, src_is_dead=False, **k:
+                        _real(*a, **k))
+        block.zero_grad()
+        y = block(gp, training=True)
+        loss = sum(getattr(y, k).float().square().mean()
+                   for k in ("ef", "nf", "gf"))
+        loss.backward()
+        return {n: p.grad.clone() for n, p in block.named_parameters()}
+
+    with_alias = grads(True)
+    without = grads(False)
+    assert with_alias.keys() == without.keys()
+    for name in with_alias:
+        assert torch.equal(with_alias[name], without[name]), name

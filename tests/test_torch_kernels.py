@@ -193,7 +193,7 @@ def test_kernel_gates():
     assert not pt_eu.supports_fused_edge_update(2048, 128, 1, 384, 384, 128,
                                                 2048, bf)   # G = 1
     assert not pt_eu.supports_fused_edge_update(16384, 1024, 8, 512, 384,
-                                                128, 2048, bf)  # smem
+                                                128, 2048, bf)  # VMEM budget
     assert not pt_eu.supports_fused_edge_update(16384, 1024, 8, 96, 384,
                                                 128, 2048, bf)
     for rows in (8, 1024, 16384):

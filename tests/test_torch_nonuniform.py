@@ -513,8 +513,8 @@ def test_fused_edge_update_gate_matches_jax(G, n_slots, e_slots):
     args = (G * e_slots, G * n_slots, G, 128, 128, n_slots, e_slots)
     assert pt_eu.supports_fused_edge_update(*args, torch.bfloat16) == \
         j_eu.supports_fused_edge_update(*args, jnp.bfloat16)
-    assert pt_eu._has_slot_tile(G, n_slots, e_slots) == \
-        (j_eu._pick_k(G, n_slots, e_slots) is not None)
+    assert pt_eu._pick_k(G, n_slots, e_slots) == \
+        j_eu._pick_k(G, n_slots, e_slots)
 
 
 def test_fused_edge_update_gate_refuses_what_jax_refuses():
