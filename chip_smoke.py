@@ -14,8 +14,8 @@ random gather):
    for ``sm_90a`` (all sources at once) and print the build time and the
    compiler's register/spill report; every instance of the ``wgmma`` / TMA
    kernels (the fused FFN forward and backward, the LN->matmul backward's
-   two passes, the core of both fused edge updates) must show 0 spill
-   bytes;
+   two passes, the core of both fused edge updates and of ``ln_matmul``'s
+   bf16 rows) must show 0 spill bytes;
 3. hold each kernel against its plain torch version on the card, at the
    shapes the main path gives it: the fused edge update on the headline
    layout and on a padded uniform layout, and at de = dout = 512 (16
@@ -80,7 +80,8 @@ B. run the headline model on a bucket-padded batch (``bench.py``'s eight
    ``sorted_gather_add``, 3 LN backwards, 6 sorted and 3 windowed segment
    sums and 3 sorted gathers.  The kernels of this route are held against
    their plain versions in phase 3 too: ``ln_matmul`` at [16384, 384]
-   bf16 with an f32 addend and without, and at [512, 384] f32; the LN
+   bf16 with an f32 addend and without, and at [512, 384] f32, each
+   bit-equal on a second launch; the LN
    backward at [512, 384] f32; ``sorted_gather_add`` with a [1056, 384]
    f32 table and an f32 addend (bit-equal); the segment sums on the
    bucketed layout, whose last window holds the padding, on bf16 rows
@@ -139,7 +140,11 @@ D. run sampled training (``benchmarks/bench_arxiv.py``: a synthetic graph
    pure route's under phase 4b's rule, every loss be finite, and every step
    launch the single-graph edge update twice.  Print both routes' losses
    on the same batches, the step time with and without the host sampler
-   and a profile;
+   and a profile.  The sorted sum ([56,320, 256] bf16 into 56,960
+   segments), the sorted gather and ``sorted_gather_add`` are held against
+   their plain versions in phase 3 at this route's shape: the first
+   batch's receivers, ~51,670 of whose slots are pad edges on its pad
+   node, with ~51,800 empty node slots behind it;
 R. run ``random_gather`` through its entry point ([65,536, 256] bf16 table,
    1,048,576 random ids) against ``index_select``: bit-equal, one launch;
    print both times and rates;
@@ -185,10 +190,13 @@ def log(msg):
 
 # The wgmma / TMA kernels whose ptxas report must show no spills: the
 # fused FFN forward and backward, the LN->matmul backward's passes and the
-# two fused edge updates' core (edge_wgmma.cuh, every instance of both).
+# core of the two fused edge updates and of ln_matmul's bf16 rows
+# (edge_wgmma.cuh, every instance of the three: ln_matmul's are the
+# instances with its LnMatmul policy).
 TC_KERNELS = ("ln_ffn_residual_kernel", "ffn_bwd_gemm_kernel",
               "ln_bwd_rows_tc_kernel", "ln_bwd_dw_tc_kernel",
               "edge_update_tc_kernel")
+TC_POLICIES = ("Uniform", "Single", "LnMatmul")
 
 
 def tensor_core_spills(logs):
@@ -581,7 +589,10 @@ def check_gather(torch, ga, g, seed, D=D, large=False):
     with torch.no_grad():
         out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    bms, by = bound_ms(N * D * 2 + E * 4 + E * D * 2, 0)
+    # The table rows this run's ids need (a sampled batch's pad edges all
+    # read one row), each read once.
+    rows = int(torch.unique(g.receivers).numel())
+    bms, by = bound_ms(rows * D * 2 + E * 4 + E * D * 2, 0)
     return {"shape": f"table [{N}, {D}] bf16 -> {E} rows",
             "max_err": max_err(out, ref), "tol": 0.0,
             "ok": bool(torch.equal(out, ref)),
@@ -648,7 +659,8 @@ def check_ln_backward(torch, ll, lnp, T, seed, dtype=None, D=D, large=False,
 
 
 def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype, D=D):
-    """``ln_matmul`` at T rows, d = dout = D, against its plain version.
+    """``ln_matmul`` at T rows, d = dout = D, against its plain version,
+    and bit-equal on a second launch.  The first three rows have var == 0.
     bf16 rows: the completed row within one bf16 ulp at the largest
     magnitude (a normalised value may round the other way after a
     differently ordered f32 sum), the f32 partial within 1e-3 of it; f32
@@ -665,10 +677,11 @@ def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype, D=D):
     plain = lambda: lnp.ln_matmul_reference(*args, addend=addend)
     with torch.no_grad():
         before = ll.FWD_LAUNCHES
-        out, ref = kernel(), plain()
+        out, ref, again = kernel(), plain(), kernel()
         torch.cuda.synchronize()
-        if ll.FWD_LAUNCHES != before + 1:
+        if ll.FWD_LAUNCHES != before + 2:
             raise SystemExit("ln_matmul did not launch its kernel")
+        equal = torch.equal(out, again)
         err = max_err(out, ref)
         if dtype == torch.float32:
             rel = 1e-4
@@ -685,12 +698,13 @@ def check_ln_matmul(torch, ll, lnp, T, seed, dtype, addend_dtype, D=D):
     name = lambda t: str(t).replace("torch.", "")
     return {"shape": f"T={T} d={D} dout={D} {name(dtype)} addend="
                      f"{name(addend_dtype)}", "max_err": err, "tol": tol,
-            "ok": (err <= tol and out.dtype == ref.dtype
+            "bit_equal_relaunch": equal,
+            "ok": (err <= tol and out.dtype == ref.dtype and equal
                    and bool(torch.isfinite(out.float()).all())),
             **times, "bound_ms": bms, "bound_by": by}
 
 
-def check_gather_add(torch, ga, g, seed):
+def check_gather_add(torch, ga, g, seed, D=D):
     """``sorted_gather_add`` of an [N, D] f32 table by the receivers of
     ``g`` onto an [E, D] f32 addend (the deferred receivers term of the
     bucketed edge update): one f32 add of the same two values, bit-equal
@@ -710,7 +724,8 @@ def check_gather_add(torch, ga, g, seed):
         if ga.ADD_LAUNCHES != before + 1:
             raise SystemExit("sorted_gather_add did not launch its kernel")
         times = timed(torch, kernel, plain)
-    bms, by = bound_ms(N * D * 4 + E * 4 + 2 * E * D * 4, 0,
+    rows = int(torch.unique(g.receivers).numel())
+    bms, by = bound_ms(rows * D * 4 + E * 4 + 2 * E * D * 4, 0,
                        flops_f32=E * D)
     return {"shape": f"table [{N}, {D}] f32 -> {E} rows + f32 addend",
             "max_err": max_err(out, ref), "tol": 0.0,
@@ -1445,7 +1460,17 @@ def arxiv_shaped_graph(pt, seed=0):
                                   labels.astype(np.int64))
 
 
-def sampled_phase(torch, pt, zero_counts, read_counts):
+def sampled_batch(pt, graph):
+    """The first batch of phase D's sampler (the same seed and seeds):
+    56,960 node / 56,320 edge slots whose receivers ascend and end in the
+    pad node's ~51,670 pad edges."""
+    sampler = pt.NeighborSampler(graph, fanouts=AX_FANOUTS,
+                                 batch_size=AX_BATCH, seed=1,
+                                 emit_node_ids=True)
+    return next(sampler.epoch(np.arange(graph.num_nodes)))
+
+
+def sampled_phase(torch, pt, zero_counts, read_counts, graph, build_s):
     """Phase D: sampled training on the arxiv-shaped graph
     (``benchmarks/bench_arxiv.py``): ``NeighborSampler((10, 10), batch 512,
     emit_node_ids)`` -> ``EncodeProcessDecode((0, 128, 0) -> (256,) * 3 ->
@@ -1456,9 +1481,6 @@ def sampled_phase(torch, pt, zero_counts, read_counts):
     finite, with the pure route's losses on the same batches beside them; the single-graph kernel launched
     twice a step."""
     import copy
-    t0 = time.perf_counter()
-    graph = arxiv_shaped_graph(pt)
-    build_s = time.perf_counter() - t0
     sampler = pt.NeighborSampler(graph, fanouts=AX_FANOUTS,
                                  batch_size=AX_BATCH, seed=1,
                                  emit_node_ids=True)
@@ -1715,8 +1737,9 @@ def main() -> int:
     spills = tensor_core_spills(logs)
     for fn, (stores, loads) in sorted(spills.items()):
         log(f"  spills of {fn}: {stores} bytes stored, {loads} loaded")
-    if len(spills) < len(TC_KERNELS) or any(
-            st or ld for st, ld in spills.values()):
+    if (len(spills) < len(TC_KERNELS)
+            or any(st or ld for st, ld in spills.values())
+            or not all(any(k in fn for fn in spills) for k in TC_POLICIES)):
         raise SystemExit(f"the tensor-core kernels must build without "
                          f"spills: {spills}")
 
@@ -1812,6 +1835,16 @@ def main() -> int:
                                    D=LG_D, large=True)
     gather_cases.append(check_gather(torch, ga, g_large, 61, D=LG_D,
                                      large=True))
+    # The sampled route's (D): the first batch's receivers, ~51,670 of
+    # whose 56,320 slots are pad edges on the pad node.
+    t0 = time.perf_counter()
+    ax_graph = arxiv_shaped_graph(pt)
+    ax_build_s = time.perf_counter() - t0
+    g_samp = sampled_batch(pt, ax_graph).graph
+    seg_samp = check_segment_sums(torch, ss, g_samp, 80, which=("sorted",),
+                                  D=LG_D)
+    gather_cases.append(check_gather(torch, ga, g_samp, 81, D=LG_D))
+    gather_add_samp = check_gather_add(torch, ga, g_samp, 82, D=LG_D)
     # The repaired wide rows of ln_matmul and its backward: d = dout = 512
     # and 1024 in bf16, 640 in f32.
     lnm_cases += [check_ln_matmul(torch, ll, lnp, T_E, 62, bf, f32, D=512),
@@ -1823,8 +1856,9 @@ def main() -> int:
     checks = (edge_cases + ffn_cases + edge_h_cases
               + list(seg_cases.values()) + list(seg_bucket.values())
               + list(seg_bucket32.values()) + list(seg_sort32.values())
-              + list(seg_large.values())
-              + gather_cases + ln_cases + lnm_cases + [gather_add_case]
+              + list(seg_large.values()) + list(seg_samp.values())
+              + gather_cases + ln_cases + lnm_cases
+              + [gather_add_case, gather_add_samp]
               + g1_cases + ffn_bwd_cases + [rg_case])
     for c in checks:
         log("check: " + json.dumps(c))
@@ -1925,7 +1959,8 @@ def main() -> int:
     del g_large
 
     # D. Sampled training on the arxiv-shaped graph.
-    samp = sampled_phase(torch, pt, zero_counts, read_counts)
+    samp = sampled_phase(torch, pt, zero_counts, read_counts, ax_graph,
+                         ax_build_s)
     log(f"sampled training: {samp['step_ms']:.4f} ms a step on the device "
         f"path alone (batches sampled beforehand), "
         f"{samp['step_ms'] + samp['sample_ms']:.4f} ms with the host "
@@ -1983,7 +2018,8 @@ def main() -> int:
         kernel_entry("sorted_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("segment_sum"),
                      [seg_cases["sorted"], seg_bucket["sorted"],
-                      seg_bucket32["sorted"], seg_large["sorted"]]),
+                      seg_bucket32["sorted"], seg_large["sorted"],
+                      seg_samp["sorted"]]),
         kernel_entry("windowed_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("windowed"),
                      [seg_cases["windowed"], seg_bucket["windowed"],
@@ -1999,7 +2035,7 @@ def main() -> int:
                      lnm_cases),
         kernel_entry("sorted_gather_add", src + "gather.cu",
                      ref + "gather.py:226", by_path("gather_add"),
-                     [gather_add_case]),
+                     [gather_add_case, gather_add_samp]),
         kernel_entry("fused_g1_edge_update_agg", src + "edge_update_g1.cu",
                      ref + "edge_update_g1.py:338", by_path("edge_g1_agg"),
                      g1_agg_cases),

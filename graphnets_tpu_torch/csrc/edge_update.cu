@@ -42,6 +42,8 @@ struct Uniform {
   // nothing staged.
   static constexpr bool kPreSum = false;
   static constexpr bool kStaged = false;
+  static constexpr bool kStagedF32 = false;
+  static constexpr bool kOutF32 = false;
 
   struct Row {
     const float* s;

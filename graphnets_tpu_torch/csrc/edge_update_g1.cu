@@ -81,6 +81,8 @@ struct Single {
   int N;
 
   static constexpr bool kStaged = !kSrcF32;
+  static constexpr bool kStagedF32 = false;
+  static constexpr bool kOutF32 = false;
   static constexpr bool kPreSum = kStaged && !kTrF32;
 
   struct Row {

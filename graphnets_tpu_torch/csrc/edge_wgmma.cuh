@@ -1,13 +1,17 @@
 // The wgmma + TMA core of the two fused edge updates (edge_update.cu, the
-// uniform slot layouts; edge_update_g1.cu, a single graph), bf16 rows:
+// uniform slot layouts; edge_update_g1.cu, a single graph) and of
+// ln_matmul's bf16 rows (ln_linear_fwd.cu):
 //
 //   h[e]   = bf16( epilogue( f32(bf16(LN(ef[e])) @ W0), partials of e ) )
 //   agg[n] = f32 sum of the ROUNDED h[e] over the edges with receiver n
 //
 // The epilogue is the caller's (a policy type with receiver(e), row(e) and
 // apply(row, c, a0, a1, staged), or pre(row, c, staged) for the terms that
-// come before the product; kStaged: a bf16 partial read through the
-// staging tile, whose pair is `staged`); the core does the rest.
+// come before the product; kStaged / kStagedF32: a bf16 / f32 [E, dout]
+// partial read through the staging tile, whose pair is `staged`; kOutF32:
+// h is the f32 sum, not rounded); the core does the rest.  ln_matmul's
+// policy has no receivers and no agg: h = bf16(product + addend) with the
+// addend staged in its stored type, or the f32 product alone.
 //
 // What bounds it on the H100: bytes.  At the large graph (E = 1,048,576,
 // 256 -> 256) ~1.7 GB against 137 GFLOP; at the uniform headline
@@ -36,8 +40,10 @@
 //   * Output columns go in passes of 128: per k16 step one wgmma m64n128k16
 //     a warpgroup, f32 accumulators in registers (64 a thread).
 //   * Epilogue of a pass, on a 16 KB staging tile laid out as two TMA boxes
-//     (no bank conflicts for the fragment writes or the column reads): a
-//     bf16 [E, dout] partial (the single graph's sender term) is loaded
+//     (no bank conflicts for the fragment writes or the column reads; 32 KB
+//     as four boxes of 32 f32 columns where an f32 partial comes in or f32
+//     values go out): a [E, dout] partial (the single graph's bf16 sender
+//     term, ln_matmul's addend) is loaded
 //     into it by TMA during the products, and the terms that come before
 //     the product in the caller's order are summed while the products run;
 //     the caller's sum, rounded once to bf16, replaces the staged values
@@ -153,6 +159,19 @@ __device__ __forceinline__ uint32_t hs_off(int r, int cc) {
                     ((((cc & 63) >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2);
 }
 
+// The same for an f32 tile: four 32-column atoms.
+__device__ __forceinline__ uint32_t hs_off_f32(int r, int cc) {
+  return (uint32_t)((cc >> 5) * 8192 + r * 128 +
+                    ((((cc & 31) >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4);
+}
+
+// Bytes of a warpgroup's staging tile: f32 partials in or f32 values out
+// take twice the bf16 tile.
+template <class Epi>
+__host__ __device__ constexpr int stage_bytes() {
+  return Epi::kStagedF32 || Epi::kOutF32 ? 2 * kHs : kHs;
+}
+
 template <class Epi, bool kLn>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_update_tc_kernel(const __grid_constant__ CUtensorMap efmap,
@@ -172,7 +191,8 @@ edge_update_tc_kernel(const __grid_constant__ CUtensorMap efmap,
   const int S = p.stages, de = p.de, dout = p.dout, kp = p.kp;
   const int nk = de / 64, nkp = kp / 64, nq = de / kp;
   const int passes = dout / kCols, items_tile = passes * nk;
-  constexpr bool staged_src = Epi::kStaged;
+  constexpr bool staged_src = Epi::kStaged || Epi::kStagedF32;
+  constexpr int kHsW = stage_bytes<Epi>();  // a warpgroup's staging tile
   const uint32_t full = base + p.off_bars;
   const uint32_t empty = full + 8 * kMaxStages;
   const uint32_t wbar = empty + 8 * kMaxStages;
@@ -183,8 +203,8 @@ edge_update_tc_kernel(const __grid_constant__ CUtensorMap efmap,
   const uint32_t a_bytes = (uint32_t)kRows * kp * 2;
   const uint32_t a_s = base + p.off_a + wg * a_bytes;
   unsigned char* a_g = smem + p.off_a + wg * a_bytes;
-  unsigned char* hs = smem + p.off_hs + wg * kHs;
-  const uint32_t hs_s = base + p.off_hs + wg * kHs;
+  unsigned char* hs = smem + p.off_hs + wg * kHsW;
+  const uint32_t hs_s = base + p.off_hs + wg * kHsW;
   int* rls = reinterpret_cast<int*>(smem + p.off_rls) + wg * kRows;
   float* st_mean = reinterpret_cast<float*>(smem + p.off_stats) + wg * 2 * kRows;
   float* st_den = st_mean + kRows;
@@ -231,9 +251,21 @@ edge_update_tc_kernel(const __grid_constant__ CUtensorMap efmap,
   auto load_src = [&](int i) {
     const int t64 = tile64_of(i / passes), c0 = (i % passes) * kCols;
     if (i >= my_tiles * passes || t64 * kRows >= E) return;
-    mbar_expect_tx(sbar, kHs);
-    tma_load(hs_s, &smap, sbar, c0, t64 * kRows);
-    tma_load(hs_s + 8192, &smap, sbar, c0 + 64, t64 * kRows);
+    constexpr int boxes = Epi::kStagedF32 ? 4 : 2;
+    mbar_expect_tx(sbar, kHsW);
+    for (int b = 0; b < boxes; ++b)
+      tma_load(hs_s + 8192 * b, &smap, sbar, c0 + (kCols / boxes) * b,
+               t64 * kRows);
+  };
+  // The staged partial's pair at row r, columns cc, cc + 1 of the pass.
+  auto staged_pair = [&](int r, int cc) {
+    if constexpr (Epi::kStagedF32)
+      return *reinterpret_cast<const float2*>(hs + hs_off_f32(r, cc));
+    else if constexpr (Epi::kStaged)
+      return __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hs + hs_off(r, cc)));
+    else
+      return make_float2(0.f, 0.f);
   };
   if (tid == 0 && my_tiles > 0) {
     if (S == 0) {
@@ -382,11 +414,7 @@ edge_update_tc_kernel(const __grid_constant__ CUtensorMap efmap,
 #pragma unroll
             for (int j = 0; j < 16; ++j) {
               const int cc = 8 * j + 2 * (lane & 3);
-              float2 sv = make_float2(0.f, 0.f);
-              if (staged_src)
-                sv = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(hs + hs_off(r, cc)));
-              pre[half][j] = epi.pre(rw, c0 + cc, sv);
+              pre[half][j] = epi.pre(rw, c0 + cc, staged_pair(r, cc));
             }
           }
         }
@@ -399,50 +427,66 @@ edge_update_tc_kernel(const __grid_constant__ CUtensorMap efmap,
 
       // Epilogue: the caller's partials in its order, one rounding, into
       // the staging tile (over the staged partial: each element is written
-      // by the thread that read it).  Thread (warp wl, lane) holds rows
-      // 16 wl + lane / 4 (+ 8) and columns 8 j + 2 (lane % 4) (+ 1) of the
-      // pass.  Every load comes before the first store to the staging tile
-      // (stores through a generic pointer would order later loads behind
-      // them).
-      uint32_t packed[2][16];
+      // by the thread that read it, or, where an f32 partial sits under the
+      // bf16 result, after the warpgroup has read all of it).  Thread (warp
+      // wl, lane) holds rows 16 wl + lane / 4 (+ 8) and columns 8 j + 2
+      // (lane % 4) (+ 1) of the pass.  Every load comes before the first
+      // store to the staging tile (stores through a generic pointer would
+      // order later loads behind them).
+      if constexpr (Epi::kOutF32) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = 16 * wl + (lane >> 2) + 8 * half;
-        if (r < rows) {
-          const auto rw = epi.row(row0 + r, dout);
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * wl + (lane >> 2) + 8 * half;
+          if (r < rows) {
+            const auto rw = epi.row(row0 + r, dout);
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int cc = 8 * j + 2 * (lane & 3);
-            const float a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
-            float2 v;
-            if constexpr (Epi::kPreSum) {
-              v = make_float2(pre[half][j].x + a0, pre[half][j].y + a1);
-            } else {
-              float2 sv = make_float2(0.f, 0.f);
-              if (staged_src)
-                sv = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(hs + hs_off(r, cc)));
-              v = epi.apply(rw, c0 + cc, a0, a1, sv);
+            for (int j = 0; j < 16; ++j) {
+              const int cc = 8 * j + 2 * (lane & 3);
+              *reinterpret_cast<float2*>(hs + hs_off_f32(r, cc)) =
+                  epi.apply(rw, c0 + cc, acc[4 * j + 2 * half],
+                            acc[4 * j + 2 * half + 1], make_float2(0.f, 0.f));
             }
-            packed[half][j] = pack_bf16(v.x, v.y);
           }
         }
-      }
+      } else {
+        uint32_t packed[2][16];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = 16 * wl + (lane >> 2) + 8 * half;
-        if (r < rows) {
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * wl + (lane >> 2) + 8 * half;
+          if (r < rows) {
+            const auto rw = epi.row(row0 + r, dout);
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
-            *reinterpret_cast<uint32_t*>(
-                hs + hs_off(r, 8 * j + 2 * (lane & 3))) = packed[half][j];
+            for (int j = 0; j < 16; ++j) {
+              const int cc = 8 * j + 2 * (lane & 3);
+              const float a0 = acc[4 * j + 2 * half],
+                          a1 = acc[4 * j + 2 * half + 1];
+              float2 v;
+              if constexpr (Epi::kPreSum)
+                v = make_float2(pre[half][j].x + a0, pre[half][j].y + a1);
+              else
+                v = epi.apply(rw, c0 + cc, a0, a1, staged_pair(r, cc));
+              packed[half][j] = pack_bf16(v.x, v.y);
+            }
+          }
+        }
+        if constexpr (Epi::kStagedF32) wg_sync(1 + wg);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * wl + (lane >> 2) + 8 * half;
+          if (r < rows) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+              *reinterpret_cast<uint32_t*>(
+                  hs + hs_off(r, 8 * j + 2 * (lane & 3))) = packed[half][j];
+          }
         }
       }
       fence_proxy_async();  // the staging tile, before the TMA store reads it
       wg_sync(1 + wg);
       if (tw == 0 && rows > 0) {  // rows past E are not written
-        tma_store(&hmap, hs_s, c0, row0);
-        tma_store(&hmap, hs_s + 8192, c0 + 64, row0);
+        constexpr int boxes = Epi::kOutF32 ? 4 : 2;
+        for (int b = 0; b < boxes; ++b)
+          tma_store(&hmap, hs_s + 8192 * b, c0 + (kCols / boxes) * b, row0);
         bulk_commit();
       }
       if (agg != nullptr && rows > 0) {
@@ -541,15 +585,16 @@ edge_agg_boundary_kernel(const int* __restrict__ rl,
 
 // ---- host side -------------------------------------------------------------
 
-// The shared-memory plan for widths de, dout (multiples of 128): W0
-// resident with whole rows if both fit, else a ring of as many stages as
-// fit (2-6) with whole rows, else rows held kp columns at a time (the
-// largest multiple of 64 dividing de that fits beside a 4-stage ring).
-inline int plan(Plan* p, int E, int de, int dout) {
+// The shared-memory plan for widths de, dout (multiples of 128) and a
+// warpgroup's staging tile of hs_bytes: W0 resident with whole rows if
+// both fit, else a ring of as many stages as fit (2-6) with whole rows,
+// else rows held kp columns at a time (the largest multiple of 64 dividing
+// de that fits beside a ring of 4, 3 or 2 stages).
+inline int plan(Plan* p, int E, int de, int dout, int hs_bytes) {
   p->de = de;
   p->dout = dout;
   p->tiles = (E + 2 * kRows - 1) / (2 * kRows);
-  const size_t fixed = 2 * (size_t)kHs + 2 * kRows * 4 + 2 * 2 * kRows * 4 +
+  const size_t fixed = 2 * (size_t)hs_bytes + 2 * kRows * 4 + 2 * 2 * kRows * 4 +
                        (2 * kMaxStages + 5) * 8 + 1024;
   auto a_bytes = [](int kp) { return (size_t)2 * kRows * kp * 2; };
   size_t w = 0;
@@ -576,7 +621,7 @@ inline int plan(Plan* p, int E, int de, int dout) {
   if (p->stages != 0) w = (size_t)p->stages * kItem;
   p->off_a = (uint32_t)w;
   p->off_hs = p->off_a + (uint32_t)a_bytes(p->kp);
-  p->off_rls = p->off_hs + 2 * kHs;
+  p->off_rls = p->off_hs + 2 * hs_bytes;
   p->off_stats = p->off_rls + 2 * kRows * 4;
   p->off_bars = p->off_stats + 2 * 2 * kRows * 4;
   p->smem = p->off_bars + (2 * kMaxStages + 5) * 8 + 1024;
@@ -593,10 +638,11 @@ inline int num_sms() {
 }
 
 // Launches the core (and, with agg, the boundary pass) on `stream`.  agg
-// [N, dout] f32 zero-filled by the caller; part_first / part_last
-// [ceil(E / 64), dout] f32 scratch; `rl` the ascending receivers; `staged`
-// the bf16 [E, dout] partial the epilogue reads through the staging tile
-// (Epi::kStaged), else null.
+// [N, dout] f32 zero-filled by the caller, or null (then part_first,
+// part_last and rl are unused); part_first / part_last [ceil(E / 64), dout]
+// f32 scratch; `rl` the ascending receivers; `staged` the bf16 (f32 with
+// Epi::kStagedF32) [E, dout] partial the epilogue reads through the staging
+// tile (Epi::kStaged), else null; h bf16 (f32 with Epi::kOutF32).
 template <class Epi>
 int launch(const Epi& epi, const void* ef, const void* w0, const void* scale,
            const void* bias, const void* staged, void* h, void* agg,
@@ -604,12 +650,15 @@ int launch(const Epi& epi, const void* ef, const void* w0, const void* scale,
            int de, int dout, int has_ln, cudaStream_t stream) {
   Plan p;
   int e;
-  if ((e = plan(&p, E, de, dout)) != 0) return e;
+  if ((e = plan(&p, E, de, dout, stage_bytes<Epi>())) != 0) return e;
   CUtensorMap em, wm, hm, sm;
+  const int h_bytes = Epi::kOutF32 ? 4 : 2;
   if ((e = make_map(&em, ef, E, de, 64)) != 0) return e;
   if ((e = make_map(&wm, w0, de, dout, 64)) != 0) return e;
-  if ((e = make_map(&hm, h, E, dout, 64)) != 0) return e;
-  if ((e = make_map(&sm, staged != nullptr ? staged : h, E, dout, 64)) != 0)
+  if ((e = make_map(&hm, h, E, dout, 64, h_bytes)) != 0) return e;
+  if ((e = staged != nullptr
+               ? make_map(&sm, staged, E, dout, 64, Epi::kStagedF32 ? 4 : 2)
+               : make_map(&sm, h, E, dout, 64, h_bytes)) != 0)
     return e;
   auto kernel = has_ln ? edge_update_tc_kernel<Epi, true>
                        : edge_update_tc_kernel<Epi, false>;

@@ -267,11 +267,12 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A tensor map of the row-major bf16 [rows, cols] matrix at `ptr` whose
-// boxes are [box_rows, 64] (128 bytes a row, 128-byte swizzle); reads past
-// the matrix return zeros.  Returns 0 or a cudaError_t.
+// A tensor map of the row-major bf16 (or, with elem_bytes = 4, f32)
+// [rows, cols] matrix at `ptr` whose boxes are [box_rows, 128 bytes] (64
+// bf16 or 32 f32 values a row, 128-byte swizzle); reads past the matrix
+// return zeros.  Returns 0 or a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                    int box_rows) {
+                    int box_rows, int elem_bytes = 2) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   // The encoder is a driver call and needs the context of the pointer's
@@ -283,10 +284,14 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
   if (err == cudaSuccess) err = cudaSetDevice(attr.device);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes),
+                             (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map,
+                        elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2,
                         const_cast<void*>(ptr), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -8,28 +8,48 @@
 //
 // every output row written once (zero rows included), rounded once.
 //
-// What bounds it on the H100: at the main-path shape (x [16384, 384] bf16
-// into 1024 segments) it reads 12.6 MB and writes 0.8 MB for ~6 MFLOP of
-// adds, so memory bounds it: ~4.0 us at 3.35 TB/s.  The TPU kernel turned
-// the scatter into one-hot matmuls on the MXU; here each row is read once
-// with 8- or 16-byte loads and added on the CUDA cores, with no atomics, so
-// the result is deterministic.
+// What bounds it on the H100: bytes, and the latency of reaching them.  At
+// the main-path shape (x [16384, 384] bf16 into 1024 segments) it reads
+// 12.6 MB and writes 0.8 MB for ~6 MFLOP of adds: ~4.0 us at 3.35 TB/s.  At
+// the large graph ([1,048,576, 256] bf16 into 65,536) 570 MB, ~0.17 ms; at
+// a sampled subgraph ([56,320, 256] into 56,960, a pad node holding ~51,670
+// rows and ~51,800 empty segments behind it) 28.8 MB read and 29.2 MB
+// written, ~17 us.  The TPU kernel turned the scatter into one-hot matmuls
+// on the MXU; here each row is read once with 16-byte loads and added on the
+// CUDA cores, with no float atomics, so the result is deterministic.
 //
-// Sorted ids (receivers, ascending): one warp owns one segment, finds its
-// edge range by binary search and walks it in order, each lane holding up
-// to four 4-column f32 accumulators in registers.  A segment of more than
-// kLong rows (a hub node of a power-law graph; the pad node of a sampled
-// subgraph, which collects every pad edge) would leave one warp walking
-// tens of thousands of rows while the card idles, so its warp skips it and
-// blocks take it instead: the rows are cut into chunks of kLong, a block
-// per chunk (further blocks of the same launch) sums the part of a long
-// segment that lies in its chunk (a long segment always holds a chunk's
-// first or last row), and in a second small launch the block whose chunk
-// holds the segment's first row adds the parts in chunk order.  Still no
-// atomics, and the order of the sums depends only on the ids.  A chunk
-// block first reads two ids that a long segment would have to hold
-// (maybe_long) and ends there, before any search, if neither matches: with
-// no long segment the chunk blocks cost two loads each.
+// Sorted ids (receivers, ascending), chunk-balanced as the TPU kernel's
+// fixed edge windows are: a block owns a chunk of R rows (R = 64 * 2^k,
+// chosen on the host so that there are about two blocks an SM) and a slab
+// of up to 32 x NJ 16-byte column vectors, whatever the segment lengths.  It
+// stages the chunk's ids in shared memory with coalesced loads (no search
+// over the ids), and each of its 8 warps walks R / 8 rows in order, a lane
+// holding NJ column vectors, in batches of 8 / NJ rows with two batches'
+// loads in flight (both first ones issued before the ids arrive, and a
+// batch's registers refilled as soon as its rows are added).  A run of
+// equal ids is summed in edge order in f32 registers: a run inside a
+// warp's rows is written out at once; the runs that touch a warp's first
+// or last row go to shared memory and are added in warp order by the warp
+// where they start.  A run that touches the chunk's first or last row and
+// continues into the next chunk goes to a partial row of the chunk
+// (part_first / part_last); every chunk it spans adds to a counter of its
+// segment (the first chunk -(c0 + 1), the last c1, the others -1: the sum
+// is 0 only once all have arrived, so the counter is zero again for the
+// next launch, and a replayed CUDA graph finds it so), and the last to
+// arrive adds the partial rows in chunk order, its 8 warps over contiguous
+// eighths with a batch of rows in flight, then the eighths in order.  One
+// launch, no per-segment search, and the order of every sum depends only on
+// the ids.  Empty segments between two ids are zeroed by the warp that sees
+// the gap, unless its chunk is wide (its edge ids span more segments than
+// it has rows); those below the first id and above the last (a sampled
+// batch's ~51,800 nodes past its pad node) and those inside the first 8
+// wide chunks (the ~3,300 between its last real receiver and the pad node)
+// by all blocks, an equal share each (zeroed by one warp, they took most of
+// the time at that shape).
+// Rejected: a warp a segment, its range found by two binary searches over
+// all E ids, and segments of more than 256 rows cut into chunks added in a
+// second launch: 0.0114 ms at the main-path shape and 0.280 ms
+// at the large graph (chip_smoke.py, H100 80GB HBM3, 700 W).
 //
 // Windowed ids (senders: unsorted within a graph but local to it, with
 // [G+1] node and edge offsets): a block owns a tile of kWinNodes segments
@@ -53,152 +73,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kChunks = 4;   // 128-column chunks a lane holds at once
-constexpr int kLong = 256;   // rows above which a segment leaves its warp
-
-// Whether the segment `n` that holds row r may have more than kLong rows:
-// such a segment holds row r - kLong / 2 or row r + kLong / 2 (if it starts
-// after the first it has kLong + 1 rows from there on, which reach past the
-// second).
-__device__ __forceinline__ bool maybe_long(const int* seg, int E, int r,
-                                           int n) {
-  constexpr int kHalf = kLong / 2;
-  return (r >= kHalf && seg[r - kHalf] == n) ||
-         (r + kHalf < E && seg[r + kHalf] == n);
-}
-
-// The rows [*r0, *r1) of chunk `b` that belong to the long segment holding
-// the chunk's first (which = 0) or last (which = 1) row, and that
-// segment's range [*e0, *e1); false if there is no such long segment (the
-// last row's is looked at only when it differs from the first row's).
-__device__ __forceinline__ bool long_part(const int* seg, int E, int S, int b,
-                                          int which, int* n, int* e0, int* e1,
-                                          int* r0, int* r1) {
-  const int begin = b * kLong, end = min(E, begin + kLong);
-  const int first = seg[begin], last = seg[end - 1];
-  if (which == 1 && last == first) return false;
-  *n = which == 0 ? first : last;
-  if (*n < 0 || *n >= S) return false;
-  if (!maybe_long(seg, E, which == 0 ? begin : end - 1, *n)) return false;
-  *e0 = gn::lower_bound(seg, E, *n);
-  *e1 = *e0 + gn::lower_bound(seg + *e0, E - *e0, *n + 1);
-  if (*e1 - *e0 <= kLong) return false;
-  *r0 = max(*e0, begin);
-  *r1 = min(*e1, end);
-  return true;
-}
-
-// part[(b * 2 + which) * D + c] = f32 sum of the long segment's rows in
-// chunk b.  The block's threads split into groups of D / 4 (4 columns a
-// thread); group j takes the rows r0 + j, r0 + j + groups, ..., and the
-// groups' sums are added in group order.
-template <typename T>
-__device__ void long_segment_parts(const T* __restrict__ x,
-                                   const int* __restrict__ seg,
-                                   float* __restrict__ part, int E, int S,
-                                   int D, int b) {
-  __shared__ float4 sums[kThreads];
-  const int tid = threadIdx.x;
-  const int per_row = D / 4;
-  const int groups = per_row >= kThreads ? 1 : kThreads / per_row;
-  const int group = tid / per_row, lane = tid % per_row;
-  for (int which = 0; which < 2; ++which) {
-    int n, e0, e1, r0, r1;
-    if (!long_part(seg, E, S, b, which, &n, &e0, &e1, &r0, &r1)) continue;
-    for (int c0 = 0; c0 < per_row; c0 += kThreads) {
-      const int c = (c0 + lane) * 4;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (group < groups && c < D) {
-#pragma unroll 4
-        for (int r = r0 + group; r < r1; r += groups) {
-          const float4 v = gn::load4(x + (size_t)r * D + c);
-          acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-        }
-      }
-      if (groups > 1) {
-        sums[tid] = acc;
-        __syncthreads();
-        if (group == 0) {
-          for (int j = 1; j < groups; ++j) {
-            const float4 v = sums[j * per_row + lane];
-            acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-          }
-        }
-        __syncthreads();
-      }
-      if (group == 0 && c < D)
-        gn::store4(part + ((size_t)b * 2 + which) * D + c, acc);
-    }
-  }
-}
-
-// Blocks [0, seg_blocks) give a warp to each segment; the blocks after
-// them take a chunk of rows each for the long segments' parts.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sorted_segment_sum_kernel(const T* __restrict__ x, const int* __restrict__ seg,
-                          T* __restrict__ out, float* __restrict__ part,
-                          int E, int S, int D, int seg_blocks) {
-  if ((int)blockIdx.x >= seg_blocks) {
-    long_segment_parts(x, seg, part, E, S, D, (int)blockIdx.x - seg_blocks);
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (n >= S) return;
-  const int e0 = gn::lower_bound(seg, E, n);
-  const int e1 = e0 + gn::lower_bound(seg + e0, E - e0, n + 1);
-  if (e1 - e0 > kLong) return;  // the long-segment kernels write this row
-  for (int c0 = 0; c0 < D; c0 += 128 * kChunks) {
-    float4 acc[kChunks];
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int e = e0; e < e1; ++e) {
-      const T* row = x + (size_t)e * D;
-#pragma unroll
-      for (int j = 0; j < kChunks; ++j) {
-        const int c = c0 + j * 128 + lane * 4;
-        if (c < D) {
-          const float4 v = gn::load4(row + c);
-          acc[j].x += v.x; acc[j].y += v.y; acc[j].z += v.z; acc[j].w += v.w;
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      const int c = c0 + j * 128 + lane * 4;
-      if (c < D) gn::store4(out + (size_t)n * D + c, acc[j]);
-    }
-  }
-}
-
-// out[n] = the parts of long segment n, added in chunk order, rounded once;
-// by the block of the chunk that holds the segment's first row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-long_segment_combine_kernel(const int* __restrict__ seg,
-                            const float* __restrict__ part,
-                            T* __restrict__ out, int E, int S, int D) {
-  const int b = blockIdx.x;
-  for (int which = 0; which < 2; ++which) {
-    int n, e0, e1, r0, r1;
-    if (!long_part(seg, E, S, b, which, &n, &e0, &e1, &r0, &r1)) continue;
-    if (e0 / kLong != b) continue;  // an earlier chunk's block owns it
-    const int last_chunk = (e1 - 1) / kLong;
-    for (int c = threadIdx.x * 4; c < D; c += kThreads * 4) {
-      float4 acc = gn::load4(part + ((size_t)b * 2 + which) * D + c);
-      // Every later chunk holds the segment at its first row.
-#pragma unroll 4
-      for (int u = b + 1; u <= last_chunk; ++u) {
-        const float4 v = gn::load4(part + (size_t)u * 2 * D + c);
-        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-      }
-      gn::store4(out + (size_t)n * D + c, acc);
-    }
-  }
-}
 
 constexpr int kWinNodes = 16;    // segments a block (windowed)
 constexpr int kWinWarps = 8;
@@ -423,20 +297,431 @@ windowed_segment_sum_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
-int launch_sorted(const void* x, const void* seg, void* out, void* part,
-                  int E, int S, int D, cudaStream_t stream) {
-  const int per_block = kThreads / 32;
-  const int seg_blocks = (S + per_block - 1) / per_block;
-  const int chunks = E > kLong ? (E + kLong - 1) / kLong : 0;
-  sorted_segment_sum_kernel<T><<<seg_blocks + chunks, kThreads, 0, stream>>>(
-      (const T*)x, (const int*)seg, (T*)out, (float*)part, E, S, D,
-      seg_blocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 0) return err;
-  long_segment_combine_kernel<T><<<chunks, kThreads, 0, stream>>>(
-      (const int*)seg, (const float*)part, (T*)out, E, S, D);
+
+// ---- sorted ids ------------------------------------------------------------
+
+constexpr int kSumWarps = 8;
+constexpr int kMaxChunk = 2048;  // rows of a chunk at most (its staged ids)
+constexpr int kMaxWide = 8;      // wide chunks whose gaps all blocks share
+constexpr int kMaxShare = 4096;  // chunks at most for that sharing
+
+// One warp's NJ column vectors of a row, as f32 sums.
+template <int NJ, int VEC>
+struct Acc {
+  float v[NJ][VEC];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) v[j][t] = 0.f;
+  }
+  // Shared rows of 32 NJ VEC floats, value t of vector (j, lane) at
+  // t * 32 NJ + 32 j + lane (no bank conflicts).
+  __device__ __forceinline__ void stash(float* row, int lane) const {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) row[t * 32 * NJ + 32 * j + lane] = v[j][t];
+  }
+  __device__ __forceinline__ void load(const float* row, int lane) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) v[j][t] = row[t * 32 * NJ + 32 * j + lane];
+  }
+  __device__ __forceinline__ void add(const float* row, int lane) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) v[j][t] += row[t * 32 * NJ + 32 * j + lane];
+  }
+};
+
+// Blocks: (chunk, slab).  part_first / part_last [chunks, D] f32 scratch;
+// counters [S * slabs] int32, zero at launch and left zero; spans
+// [2 * S * slabs] int32 scratch: for a run that crosses a chunk edge, its
+// first chunk (times 2, plus 1 where the run is that chunk's last run and
+// not its first) and its last chunk.
+template <typename T, int VEC, int NJ>
+__global__ void __launch_bounds__(kSumWarps * 32, 2)
+sorted_segment_sum_kernel(const T* __restrict__ x, const int* __restrict__ seg,
+                          T* __restrict__ out, float* __restrict__ part_first,
+                          float* __restrict__ part_last, int* counters,
+                          int* spans, int E, int S, int D, int R) {
+  using V = Vec<T, VEC>;
+  using A = Acc<NJ, VEC>;
+  constexpr int kAhead = 8 / NJ;          // rows of a batch (two in flight)
+  constexpr int kSlab = 32 * NJ;          // column vectors of a slab
+  constexpr int kRow = kSlab * VEC;       // floats of a stashed row
+  __shared__ int ids[kMaxChunk];
+  __shared__ int nbr[4];                  // ids before / after, first, last
+  __shared__ float first_sum[kSumWarps][kRow];  // a warp's first run
+  __shared__ float last_sum[kSumWarps][kRow];   // and its last, if another
+  __shared__ float chunk_sum[2][kRow];    // the chunk's first / last run
+  __shared__ int glob[2][3];              // per chunk-edge run: kind, edges, last
+  __shared__ int wide[kMaxWide + 1];      // the shared wide chunks, and count
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = blockIdx.x, y = blockIdx.y;
+  const int chunks = gridDim.x, slabs = gridDim.y;
+  const size_t r0 = (size_t)c * R;
+  const int rows = E > 0 ? min(R, E - (int)r0) : 0;
+  const int nvec = D / VEC;
+  bool vok[NJ];
+  int col[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int v = y * kSlab + 32 * j + lane;
+    vok[j] = v < nvec;
+    col[j] = v * VEC;
+  }
+  auto valid = [&](int n) { return n >= 0 && n < S; };
+  // The id before chunk u (u = 0: the first id; u = chunks: the last id).
+  auto edge_id = [&](int u) {
+    return u == 0 ? seg[0] : seg[min((size_t)E, (size_t)u * R) - 1];
+  };
+  // Ids strictly between a and b that are segments: a chunk whose edge ids
+  // span more of them than it has rows is wide (its gaps may be long).
+  auto inner = [&](int a, int b) { return max(0, min(b, S) - max(a + 1, 0)); };
+  auto write_row = [&](int n, const A& a) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (vok[j]) V::store(out + (size_t)n * D + col[j], a.v[j]);
+  };
+  A zeros;
+  zeros.zero();
+  // Segments strictly between ids a and b (an empty gap), by this warp.
+  auto zero_gap = [&](int a, int b) {
+    for (int n = max(a + 1, 0); n < min(b, S); ++n) write_row(n, zeros);
+  };
+
+  // The warp's rows [l0, l1) of the chunk; their first batch is in flight
+  // while the ids are staged.
+  const int sub = R / kSumWarps;
+  const int l0 = warp * sub, l1 = min(rows, l0 + sub);
+  using Batch = typename V::Raw[kAhead][NJ];
+  Batch raw[2];
+  auto load_batch = [&](Batch& r, int l) {
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (l + k < l1 && vok[j])
+          r[k][j] = V::load(x + (r0 + l + k) * D + col[j]);
+  };
+  if (l0 < l1) {
+    load_batch(raw[0], l0);
+    load_batch(raw[1], l0 + kAhead);
+  }
+  for (int i = tid; i < rows; i += kSumWarps * 32) ids[i] = seg[r0 + i];
+  if (tid == 0) {
+    nbr[0] = c > 0 ? seg[r0 - 1] : 0;
+    nbr[1] = (int)r0 + rows < E ? seg[r0 + rows] : 0;
+    nbr[2] = E > 0 ? seg[0] : 0;
+    nbr[3] = E > 0 ? seg[E - 1] : 0;
+  }
+  // Which chunks are wide, where there are at most 2 x 256 (their ids
+  // arrive with the chunk's own).
+  const bool early = E > 0 && chunks <= 2 * kSumWarps * 32;
+  bool wide_early[2] = {false, false};
+  if (early)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int u = tid + i * kSumWarps * 32;
+      if (u < chunks) wide_early[i] = inner(edge_id(u), edge_id(u + 1)) > R;
+    }
+  __syncthreads();
+  const bool has_prev = c > 0, has_next = (int)r0 + rows < E;
+  const int lo_c = c > 0 ? nbr[0] : nbr[2];
+  const bool own_wide = rows > 0 && inner(lo_c, ids[rows - 1]) > R;
+
+  // Segments below the first id and above the last: an equal share a block.
+  {
+    const int head_end = E > 0 ? min(max(nbr[2], 0), S) : S;
+    const int tail_begin =
+        E > 0 ? min(max(nbr[3], head_end - 1), S - 1) + 1 : S;
+    const long long total = (long long)head_end + (S - tail_begin);
+    const long long z0 = total * c / chunks, z1 = total * (c + 1) / chunks;
+    for (long long i = z0 + warp; i < z1; i += kSumWarps) {
+      const int n = i < head_end ? (int)i
+                                 : tail_begin + (int)(i - head_end);
+      write_row(n, zeros);
+    }
+  }
+
+  // Walk the warp's rows in order.
+  if (l0 < l1) {
+    A acc;
+    acc.zero();
+    int cur = ids[l0];
+    if (r0 + l0 > 0 && !own_wide) zero_gap(l0 > 0 ? ids[l0 - 1] : nbr[0], cur);
+    bool first = true;
+    auto add_batch = [&](const Batch& r, int l) {
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        if (l + k >= l1) break;
+        const int n = ids[l + k];
+        if (n != cur) {
+          if (first) acc.stash(first_sum[warp], lane);
+          else if (valid(cur)) write_row(cur, acc);
+          if (!own_wide) zero_gap(cur, n);
+          first = false;
+          cur = n;
+          acc.zero();
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          if (vok[j]) V::add(acc.v[j], r[k][j]);
+      }
+    };
+    // Two batches in flight: a batch's buffer is refilled as soon as its
+    // rows are added.
+    for (int l = l0; l < l1; l += 2 * kAhead) {
+      add_batch(raw[0], l);
+      load_batch(raw[0], l + 2 * kAhead);
+      if (l + kAhead >= l1) break;
+      add_batch(raw[1], l + kAhead);
+      load_batch(raw[1], l + 3 * kAhead);
+    }
+    acc.stash(first ? first_sum[warp] : last_sum[warp], lane);
+  }
+  // (With at most 512 chunks, whether any is wide comes with this barrier.)
+  const bool any_early = __syncthreads_or(wide_early[0] || wide_early[1]);
+
+  // Runs that cross warps, added in warp order by the warp where they start;
+  // those that touch the chunk's first or last row go on to chunk_sum.
+  const int pieces = (rows + sub - 1) / sub;
+  auto pfirst = [&](int p) { return ids[p * sub]; };
+  auto plast = [&](int p) { return ids[min(rows, p * sub + sub) - 1]; };
+  auto gather = [&](int n, int p) {
+    A s;
+    s.load(n == pfirst(p) ? first_sum[p] : last_sum[p], lane);
+    int p1 = p;
+    if (plast(p) == n) {
+      for (int q = p + 1; q < pieces && pfirst(q) == n; ++q) {
+        s.add(first_sum[q], lane);
+        p1 = q;
+        if (plast(q) != n) break;
+      }
+    }
+    if (p == 0 && pfirst(0) == n) s.stash(chunk_sum[0], lane);
+    else if (p1 == pieces - 1 && plast(pieces - 1) == n)
+      s.stash(chunk_sum[1], lane);
+    else if (valid(n)) write_row(n, s);
+  };
+  if (warp < pieces) {
+    const int nf = pfirst(warp), nl = plast(warp);
+    if (warp == 0 || plast(warp - 1) != nf) gather(nf, warp);
+    if (nl != nf) gather(nl, warp);
+  }
+  __syncthreads();
+  if (rows == 0) return;
+
+  // The chunk's first run (0) and last run (1, if another): complete here,
+  // or a partial row for the last chunk of the run to arrive.
+  const int nA = ids[0], nB = ids[rows - 1];
+  if (tid < 2) {
+    const int n = tid == 0 ? nA : nB;
+    const bool mine = tid == 0 || nB != nA;
+    const bool from_prev = has_prev && nbr[0] == n && tid == 0;
+    const bool to_next = has_next && nbr[1] == n && (tid == 1 || nA == nB);
+    // kind: 0 none, 1 complete here, 2 crosses a chunk edge
+    glob[tid][0] = !mine || !valid(n) ? 0 : (from_prev || to_next ? 2 : 1);
+    glob[tid][1] = (from_prev ? 1 : 0) | (to_next ? 2 : 0);
+    glob[tid][2] = 0;
+  }
+  __syncthreads();
+  for (int w = 0; w < 2; ++w) {
+    const int kind = glob[w][0];
+    if (kind == 0 || warp != w) continue;
+    A s;
+    s.load(chunk_sum[w], lane);
+    if (kind == 1) {
+      write_row(w == 0 ? nA : nB, s);
+    } else {
+      float* part = (w == 0 ? part_first : part_last) + (size_t)c * D;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (vok[j])
+#pragma unroll
+          for (int t = 0; t < VEC; t += 4)
+            *reinterpret_cast<float4*>(part + col[j] + t) = make_float4(
+                s.v[j][t], s.v[j][t + 1], s.v[j][t + 2], s.v[j][t + 3]);
+    }
+  }
+  // Only a chunk with a crossing run publishes partial rows (a fence waits
+  // for the block's stores, so the others skip it).
+  const bool crossing = glob[0][0] == 2 || glob[1][0] == 2;
+  if (crossing) {
+    __threadfence();
+    __syncthreads();
+  }
+  if (tid < 2 && glob[tid][0] == 2) {
+    const int edges = glob[tid][1];
+    const size_t slot = (size_t)(tid == 0 ? nA : nB) * slabs + y;
+    int add = -1;
+    if (!(edges & 1)) {  // the run's first chunk: its last run, or its only
+      spans[2 * slot] = 2 * c + tid;
+      add -= c;
+    }
+    if (!(edges & 2)) {  // the run's last chunk
+      spans[2 * slot + 1] = c;
+      add += c + 1;
+    }
+    __threadfence();
+    glob[tid][2] = atomicAdd(counters + slot, add) + add == 0;
+  }
+  if (crossing) __syncthreads();
+
+  // The last chunk of a crossing run to arrive adds its partial rows in
+  // chunk order: the warps take contiguous eighths, then warp 0 adds the
+  // eighths in order.  The counter is back at 0.
+  for (int w = 0; w < 2; ++w) {
+    if (!glob[w][2]) continue;
+    __threadfence();
+    const int n = w == 0 ? nA : nB;
+    const size_t slot = (size_t)n * slabs + y;
+    const int s0 = __ldcg(spans + 2 * slot), c1 = __ldcg(spans + 2 * slot + 1);
+    const int c0 = s0 >> 1, K = c1 - c0 + 1;
+    const int a = c0 + K * warp / kSumWarps;
+    const int b = c0 + K * (warp + 1) / kSumWarps;
+    A s;
+    s.zero();
+    // kBatch partial rows' loads in flight, then their adds in order.
+    constexpr int kBatch = NJ == 1 ? 8 : 2;
+    for (int u0 = a; u0 < b; u0 += kBatch) {
+      float4 v[kBatch][NJ][VEC / 4];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int u = u0 + q;
+        const float* row =
+            (u == c0 && (s0 & 1) ? part_last : part_first) + (size_t)u * D;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int t = 0; t < VEC / 4; ++t)
+            if (u < b && vok[j])
+              v[q][j][t] = __ldcg(
+                  reinterpret_cast<const float4*>(row + col[j] + 4 * t));
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int t = 0; t < VEC / 4; ++t)
+            if (u0 + q < b && vok[j]) {
+              s.v[j][4 * t] += v[q][j][t].x;
+              s.v[j][4 * t + 1] += v[q][j][t].y;
+              s.v[j][4 * t + 2] += v[q][j][t].z;
+              s.v[j][4 * t + 3] += v[q][j][t].w;
+            }
+    }
+    s.stash(first_sum[warp], lane);
+    __syncthreads();
+    if (warp == 0) {
+      s.load(first_sum[0], lane);
+      for (int q = 1; q < kSumWarps; ++q) s.add(first_sum[q], lane);
+      write_row(n, s);
+    }
+    __syncthreads();
+  }
+
+  // Empty segments inside wide chunks (a sampled batch's ~3,300 node slots
+  // between its last real receiver and its pad node): every block zeroes an
+  // equal slice of the id span of each of the first kMaxWide wide chunks,
+  // an id where a binary search over that chunk's staged ids finds no row;
+  // a wide chunk past them zeroes its own span.
+  auto zero_span = [&](int lo, int hi, int rw, int part, int parts) {
+    const int a = max(lo + 1, 0), b = min(hi, S);
+    if (b <= a) return;
+    const long long span = b - a;
+    const int s0 = a + (int)(span * part / parts);
+    const int s1 = a + (int)(span * (part + 1) / parts);
+    for (int n = s0 + warp; n < s1; n += kSumWarps) {
+      int lo_i = 0, hi_i = rw;
+      while (lo_i < hi_i) {
+        const int mid = (lo_i + hi_i) >> 1;
+        if (ids[mid] < n) lo_i = mid + 1; else hi_i = mid;
+      }
+      if (lo_i == rw || ids[lo_i] != n) write_row(n, zeros);
+    }
+  };
+  if (early && !any_early) return;  // no wide chunk (own_wide is false)
+  unsigned char* flags = reinterpret_cast<unsigned char*>(&first_sum[0][0]);
+  const bool share = chunks <= kMaxShare;
+  int any = 0;
+  if (early) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int u = tid + i * kSumWarps * 32;
+      if (u < chunks) flags[u] = wide_early[i];
+    }
+    any = 1;
+  } else if (share) {
+    for (int u = tid; u < chunks; u += kSumWarps * 32) {
+      const bool w = inner(edge_id(u), edge_id(u + 1)) > R;
+      flags[u] = w;
+      any |= w;
+    }
+  }
+  if (!__syncthreads_or(any)) {
+    if (own_wide) zero_span(lo_c, ids[rows - 1], rows, 0, 1);
+    return;
+  }
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < chunks && n < kMaxWide; base += 32) {
+      unsigned m = __ballot_sync(0xffffffffu,
+                                 base + lane < chunks && flags[base + lane]);
+      for (; m != 0 && n < kMaxWide; ++n) {
+        if (lane == 0) wide[n] = base + __ffs(m) - 1;
+        m &= m - 1;
+      }
+    }
+    if (lane == 0) wide[kMaxWide] = n;
+  }
+  __syncthreads();
+  const int nw = wide[kMaxWide];
+  bool listed = false;
+  for (int i = 0; i < nw; ++i) listed |= wide[i] == c;
+  if (own_wide && !listed) zero_span(lo_c, ids[rows - 1], rows, 0, 1);
+  for (int i = 0; i < nw; ++i) {
+    const int w = wide[i];
+    const int rw = min(R, E - w * R);
+    __syncthreads();  // ids[] and nbr are free
+    for (int j = tid; j < rw; j += kSumWarps * 32) ids[j] = seg[(size_t)w * R + j];
+    if (tid == 0) {
+      nbr[0] = edge_id(w);
+      nbr[1] = edge_id(w + 1);
+    }
+    __syncthreads();
+    zero_span(nbr[0], nbr[1], rw, c, chunks);
+  }
+}
+
+template <typename T, int VEC, int NJ>
+int launch_sorted_as(const void* x, const void* seg, void* out, void* part,
+                     void* counters, void* spans, int E, int S, int D, int R,
+                     cudaStream_t stream) {
+  const int chunks = E > 0 ? (E + R - 1) / R : 1;
+  const int slabs = (D / VEC + 32 * NJ - 1) / (32 * NJ);
+  sorted_segment_sum_kernel<T, VEC, NJ>
+      <<<dim3(chunks, slabs), kSumWarps * 32, 0, stream>>>(
+          (const T*)x, (const int*)seg, (T*)out, (float*)part,
+          (float*)part + (size_t)chunks * D, (int*)counters, (int*)spans, E,
+          S, D, R);
   return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_sorted(const void* x, const void* seg, void* out, void* part,
+                  void* counters, void* spans, int E, int S, int D, int R,
+                  cudaStream_t stream) {
+  return D / VEC > 32
+             ? launch_sorted_as<T, VEC, 2>(x, seg, out, part, counters, spans,
+                                           E, S, D, R, stream)
+             : launch_sorted_as<T, VEC, 1>(x, seg, out, part, counters, spans,
+                                           E, S, D, R, stream);
 }
 
 template <typename T, int VEC>
@@ -451,25 +736,35 @@ int launch_windowed(const void* x, const void* seg, const void* node_off,
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
 // Both entry points launch on `stream` and return cudaGetLastError().
 // Preconditions, checked by the Python wrapper: x [E, D] contiguous, bf16
 // (is_bf16 = 1) or f32, D % 4 == 0; int32 ids; out [S or N, D] of x's type.
-// Sorted: ids ascending (rows with ids outside [0, S) are dropped); part is
-// f32 scratch of 2 * ceil(E / long_rows) * D values (unused, and may be
-// null, when E <= long_rows).
+// Sorted: ids ascending (rows with ids outside [0, S) are dropped); R rows
+// a chunk, a multiple of 8 up to 2048; part f32 scratch of
+// 2 * ceil(E / R) * D values; counters int32 [S * slabs], zero (the kernel
+// leaves them zero); spans int32 scratch [2 * S * slabs], where slabs =
+// ceil(D / VEC / (32 NJ)) (VEC 8 for bf16 rows with D % 8 == 0, else 4;
+// NJ 2 where D / VEC > 32, else 1).
 // Windowed: node_off / edge_off [G + 1] ascending, and every edge of
 // edge_off[b]:edge_off[b+1] has its id in node_off[b]:node_off[b+1].
-extern "C" int gn_sorted_segment_sum_long_rows() { return kLong; }
-
 extern "C" int gn_sorted_segment_sum(const void* x, const void* seg,
-                                     void* out, void* part, int E, int S,
-                                     int D, int is_bf16, void* stream) {
+                                     void* out, void* part, void* counters,
+                                     void* spans, int E, int S, int D, int R,
+                                     int is_bf16, void* stream) {
+  if (R < kSumWarps || R > kMaxChunk || R % kSumWarps != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16
-             ? launch_sorted<__nv_bfloat16>(x, seg, out, part, E, S, D, s)
-             : launch_sorted<float>(x, seg, out, part, E, S, D, s);
+  if (!is_bf16)
+    return launch_sorted<float, 4>(x, seg, out, part, counters, spans, E, S,
+                                   D, R, s);
+  return D % 8 == 0
+             ? launch_sorted<__nv_bfloat16, 8>(x, seg, out, part, counters,
+                                               spans, E, S, D, R, s)
+             : launch_sorted<__nv_bfloat16, 4>(x, seg, out, part, counters,
+                                               spans, E, S, D, R, s);
 }
 
 extern "C" int gn_windowed_segment_sum(const void* x, const void* seg,

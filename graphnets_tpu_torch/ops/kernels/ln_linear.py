@@ -9,8 +9,14 @@ partial comes back, with it ``(product + addend)`` rounded once to
 ``x.dtype``.  The normalised ``[T, d]`` rows never reach device memory.
 On the H100 the bucketed headline shape (T = 16384, d = dout = 384, bf16
 rows, f32 addend) is bound by memory (~50.6 MB for 4.8 GFLOP, ~15 us); the
-sort task's (T = 512, f32) by f32 operations (~3 us).  bf16 rows run on
-the tensor cores (WMMA), f32 rows on the CUDA cores in true f32.
+sort task's (T = 512, f32) by f32 operations (~2.3 us).  bf16 rows run on
+the ``wgmma`` + TMA core of the edge updates (``csrc/edge_wgmma.cuh``:
+persistent blocks, x read once and normalised once for all of ``dout``,
+the addend staged by TMA during the products); f32 rows on the CUDA cores
+in true f32, on a grid that :func:`f32_plan` sizes to fill the card.
+Rejected: the WMMA tile that normalised x once per 128 output columns
+(0.0861 ms at the bucketed headline shape, 0.0291 ms at the sort task's;
+H100 80GB HBM3, 700 W).
 
 Backward kernel: ``csrc/ln_linear_bwd.cu``.  It replaces the Pallas kernel
 ``_bwd_kernel`` (``ln_linear.py:165-246``), with its arithmetic: the LN
@@ -34,7 +40,7 @@ their plain versions (``ops.ln_linear``) for CPU tensors only; a CUDA
 tensor launches the kernel or raises.  A shape outside
 :func:`supports_ln_matmul` takes the plain composition on any device, as
 in the JAX package; the gate is the JAX package's (``ln_linear.py:81-85``),
-for bf16 and f32 rows.  Neither kernel's shared memory depends on ``dout``.
+for bf16 and f32 rows.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ from ..ln_linear import ln_linear_backward_plain, ln_matmul_reference
 from . import _build
 
 __all__ = ["ln_matmul", "supports_ln_matmul", "ln_linear_backward",
-           "supports_ln_linear_backward", "LAUNCHES", "FWD_LAUNCHES"]
+           "supports_ln_linear_backward", "f32_plan", "LAUNCHES",
+           "FWD_LAUNCHES"]
 
 LAUNCHES = 0            # backward launches, for proving the path was taken
 FWD_LAUNCHES = 0        # ln_matmul (forward) launches
@@ -125,11 +132,22 @@ def _tc_plan(T: int, d: int, dout: int, sms: int):
     return row_blocks, -(-T // rows_per_split), rows_per_split
 
 
+def f32_plan(T: int, dout: int, sms: int = 132):
+    """``(tile_rows, tile_cols, blocks)`` of ``ln_matmul``'s f32 rows:
+    32 x 128 tiles where they give every SM a block, else 16 x 64 (the
+    sort task's T = 512, dout = 384: 192 blocks instead of 48)."""
+    for rows, cols in ((32, 128), (16, 64)):
+        blocks = -(-T // rows) * (dout // cols)
+        if blocks >= sms:
+            break
+    return rows, cols, blocks
+
+
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("ln_linear_fwd")
     fn = lib.gn_ln_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -240,12 +258,18 @@ def _launch_forward(x, scale, bias, w, addend):
                                      else 2)
     out = torch.empty(T, dout, device=x.device,
                       dtype=torch.float32 if addend is None else x.dtype)
+    is_f32 = x.dtype == torch.float32
+    tile_rows = 0
+    if is_f32:
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        tile_rows = f32_plan(T, dout, sms)[0]
     lib = _fwd_lib()
     with torch.cuda.device(x.device):
         err = lib.gn_ln_matmul(
             *[t.data_ptr() for t in args],
             None if addend is None else addend.data_ptr(), out.data_ptr(),
-            T, d, dout, int(x.dtype == torch.float32), kind,
+            T, d, dout, int(is_f32), kind, tile_rows,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "ln_matmul")
     FWD_LAUNCHES += 1

@@ -7,15 +7,22 @@ Kernel: ``csrc/segment_sum.cu``.  It replaces the Pallas kernel of
 ``sorted_segment_sum`` and ``windowed_segment_sum``
 (``segment_sum.py:62-221``).
 On the H100 both are bound by memory (~13.4 MB at E = 16384, d = 384 into
-1024 segments, ~4 us), so each edge row is read once and summed on the
-CUDA cores in a fixed order, with no atomics: a warp owns a sorted segment
-(binary search over the ascending ids; a segment of more than 256 rows,
-such as the pad node of a sampled subgraph, is cut into chunks summed by a
-block each and added in chunk order), and a windowed tile of 16
-segments sorts the edges of its graphs' window that are its own by
-segment (a stable counting sort in shared memory) and adds each segment's
-rows in edge order in registers.  The source note in the ``.cu`` file has
-the details.
+1024 segments, ~4 us; ~570 MB, ~0.17 ms, at the large graph's 1,048,576
+rows), so each edge row is read once with 16-byte loads and summed on the
+CUDA cores in a fixed order, with no float atomics.  Sorted ids: a block
+owns a fixed chunk of rows (:func:`sorted_plan`: 64 x 2^k rows, about two
+blocks an SM), stages their ids once and sums each run of equal ids in
+edge order; a run that crosses a chunk edge leaves a partial row, and the
+last of its chunks to finish (a self-resetting counter of its segment)
+adds the partial rows in chunk order: one launch, the same work a block
+whatever the segment lengths (a sampled batch's pad node takes ~51,670 of
+56,320 rows).  Rejected: a warp a segment with two binary searches over
+all E ids and a second launch for long segments (0.0114 ms at the headline
+shape, 0.280 ms at the large graph; H100 80GB HBM3, 700 W).  Windowed ids:
+a tile of 16 segments sorts the edges of its graphs' window that are its
+own by segment (a stable counting sort in shared memory) and adds each
+segment's rows in edge order in registers.  The source note in the ``.cu``
+file has the details.
 
 :func:`sorted_segment_sum` is differentiable; its backward is the sorted
 gather (``segment_sum.py:233-239``).  :func:`windowed_segment_sum` is not
@@ -34,11 +41,14 @@ from . import _build
 
 __all__ = ["sorted_segment_sum", "sorted_segment_sum_plain",
            "windowed_segment_sum", "windowed_segment_sum_plain",
-           "supports_sorted_segment_sum", "LAUNCHES", "WINDOWED_LAUNCHES"]
+           "supports_sorted_segment_sum", "sorted_plan", "LAUNCHES",
+           "WINDOWED_LAUNCHES"]
 
 LAUNCHES = 0            # sorted kernel launches, for proving the path
 WINDOWED_LAUNCHES = 0   # windowed kernel launches
 _DTYPES = (torch.bfloat16, torch.float32)
+_MIN_CHUNK, _MAX_CHUNK = 64, 2048    # rows of a sorted-sum chunk
+_counters: dict = {}    # device -> the sorted kernel's int32 counters
 
 
 def supports_sorted_segment_sum(num_rows: int, num_segments: int,
@@ -47,6 +57,24 @@ def supports_sorted_segment_sum(num_rows: int, num_segments: int,
     lane-aligned rows, a row count divisible by 128."""
     return (dim % 128 == 0 and num_rows >= 128 and num_rows % 128 == 0
             and num_segments >= 1)
+
+
+def sorted_plan(num_rows: int, dim: int, dtype=torch.bfloat16,
+                sms: int = 132):
+    """``(rows_per_chunk, chunks, slabs)`` of the sorted kernel, whose
+    blocks are chunks x column slabs.  A slab is 32 lanes' 16-byte vectors
+    (4 values: f32, or bf16 with ``dim % 8 != 0``; else 8), or 64 lanes'
+    where a row has more than 32.  Chunks are 64 x 2^k rows (at most 2048),
+    the smallest that give at most two blocks an SM.  Scratch:
+    ``2 * chunks * dim`` f32 partial values, and a counter and two span
+    slots per segment and slab."""
+    vec = 8 if dtype == torch.bfloat16 and dim % 8 == 0 else 4
+    per_slab = 64 if dim // vec > 32 else 32
+    slabs = -(-(dim // vec) // per_slab)
+    rows = _MIN_CHUNK
+    while -(-num_rows // rows) * slabs > 2 * sms and rows < _MAX_CHUNK:
+        rows *= 2
+    return rows, max(1, -(-num_rows // rows)), slabs
 
 
 def _sum_f32(x: torch.Tensor, seg: torch.Tensor,
@@ -78,10 +106,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("segment_sum")
     if lib.gn_sorted_segment_sum.argtypes is None:
         lib.gn_sorted_segment_sum.argtypes = \
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gn_sorted_segment_sum.restype = ctypes.c_int
-        lib.gn_sorted_segment_sum_long_rows.argtypes = []
-        lib.gn_sorted_segment_sum_long_rows.restype = ctypes.c_int
         lib.gn_windowed_segment_sum.argtypes = \
             [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -106,21 +132,35 @@ def _check(what: str, x: torch.Tensor, ids) -> None:
                          f"expected ({x.shape[0]},)")
 
 
+def _zeroed_counters(n: int, device) -> torch.Tensor:
+    """``n`` int32 counters that are zero, kept per device: the kernel
+    leaves them zero, so a replayed CUDA graph finds them zeroed.  A
+    larger buffer replaces a smaller one, which stays allocated: a CUDA
+    graph captured with it still uses it."""
+    bufs = _counters.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1 << 16), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
 def _launch_sorted(x, seg, num_segments: int) -> torch.Tensor:
     global LAUNCHES
     _check("sorted_segment_sum", x, (seg,))
     E, D = x.shape
     out = torch.empty(num_segments, D, dtype=x.dtype, device=x.device)
     lib = _lib()
-    # Scratch for the segments too long for one warp: two partial rows per
-    # chunk of rows.
-    long_rows = lib.gn_sorted_segment_sum_long_rows()
-    part = (torch.empty(2 * -(-E // long_rows), D, dtype=torch.float32,
-                        device=x.device) if E > long_rows else None)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, chunks, slabs = sorted_plan(E, D, x.dtype, sms)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(2 * chunks, D, **f32)
+    counters = _zeroed_counters(num_segments * slabs, x.device)
+    spans = torch.empty(2 * num_segments * slabs, dtype=torch.int32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.gn_sorted_segment_sum(
-            x.data_ptr(), seg.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), E, num_segments, D,
+            x.data_ptr(), seg.data_ptr(), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), spans.data_ptr(), E, num_segments, D, rows,
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sorted_segment_sum")

@@ -31,7 +31,10 @@ is a copy: bit-equal.  The two wgmma edge updates at the headline, padded
 and wide uniform layouts and at scaled-down large-graph and
 sampled-subgraph shapes (ragged edge counts through the launcher): the
 tolerances above, both outputs bit-equal on a second launch and when ``h``
-is written over a dead ``src``.
+is written over a dead ``src``.  The sorted sum on the layouts of
+``tests/segment_layouts.py``: one bf16 ulp (f32: 1e-5), two launches and
+two replays of a CUDA graph bit-equal.  ``ln_matmul`` on its ``wgmma``
+core: its tolerances above, two launches bit-equal.
 """
 
 import numpy as np
@@ -46,6 +49,7 @@ from graphnets_tpu_torch.ops.kernels import gather as ga
 from graphnets_tpu_torch.ops.kernels import ln_linear as ll
 from graphnets_tpu_torch.ops.kernels import random_gather as rg
 from graphnets_tpu_torch.ops.kernels import segment_sum as ss
+from segment_layouts import LAYOUTS, layout
 
 
 @pytest.fixture
@@ -202,6 +206,59 @@ def test_segment_sums_match_plain(cuda, dtype, padded, n_slots):
     assert out.dtype == win.dtype == dtype
     _close_max(out, ss.sorted_segment_sum_plain(x, rcv, N), tol)
     _close_max(win, ss.windowed_segment_sum_plain(x, snd, N, *wins), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 256, 12])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_sorted_segment_sum_layouts(cuda, name, dtype, d):
+    """The chunked kernel on every layout of ``tests/segment_layouts.py``
+    (a pad node with 90% of the rows and empty segments behind it, a hub
+    across chunks, empty runs, ids outside [0, S), segments ending on
+    chunk edges, E = 128): one launch a call, two launches bit-equal (a
+    fixed summation order, no float atomics), within one bf16 ulp of the
+    largest magnitude (f32: 1e-5) of the plain sum; d = 12 takes the
+    4-value vectors of bf16 rows, d = 384 in f32 two column slabs."""
+    ids, S = layout(name)
+    x = torch.from_numpy(np.random.default_rng(25).normal(
+        size=(ids.size, d)).astype(np.float32)).to(dtype)
+    seg = torch.from_numpy(ids)
+    args = (x.to(cuda), seg.to(cuda), S)
+    before = ss.LAUNCHES
+    out = ss.sorted_segment_sum(*args)
+    assert ss.LAUNCHES == before + 1
+    again = ss.sorted_segment_sum(*args)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)
+    _close_max(out, ss.sorted_segment_sum_plain(x, seg, S),
+               2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pad_node", "hub", "headline"])
+def test_sorted_segment_sum_replays_in_a_cuda_graph(cuda, name):
+    """Captured once and replayed twice, the kernel gives its eager result
+    bit for bit: the counters of the runs that cross chunks are back at 0
+    after every launch."""
+    ids, S = layout(name)
+    x = torch.randn(ids.size, 256, device=cuda).to(torch.bfloat16)
+    seg = torch.from_numpy(ids).to(cuda)
+    ref = ss.sorted_segment_sum(x, seg, S)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.sorted_segment_sum(x, seg, S)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.sorted_segment_sum(x, seg, S)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
 
 
 # Windowed-sum layouts: (node count, edge count) a graph.  The sort
@@ -467,9 +524,9 @@ def test_ln_matmul_f32_wide_rows_launch_or_raise(cuda, d):
 
 @pytest.mark.cuda
 def test_ln_matmul_bf16_rows_past_shared_memory_warn_once(cuda, caplog):
-    """bf16 rows at d = 512: the kernel's shared memory does not depend on
-    the width, so it runs (no plain composition on the card) and nothing
-    is logged."""
+    """bf16 rows at d = 512: the kernel takes every width of the gate
+    (rows too wide for its shared memory are held in pieces), so it runs
+    (no plain composition on the card) and nothing is logged."""
     T, d = 64, 512
     x = torch.randn(T, d, device=cuda).bfloat16()
     v = torch.ones(d, device=cuda)
@@ -521,6 +578,36 @@ def test_ln_matmul_wide_rows_match_plain(cuda, T, d, dout, dtype, addend):
     _close_max(out, ref, tol)
     for o, r, t in zip(bw, bref, tols):
         _close_max(o, r, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("addend", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,dout", [(1000, 384, 384), (264, 384, 256),
+                                      (264, 1024, 128), (1000, 128, 640)])
+def test_ln_matmul_wgmma_relaunch_bit_equal(cuda, T, d, dout, addend):
+    """bf16 rows on the ``wgmma`` core: T not a multiple of 64 (1000, 264:
+    a partial last tile, a warpgroup with no rows), var == 0 rows, an f32
+    or a bf16 addend or none (the f32 product out), rows held whole or in
+    pieces: within the tolerances of ``test_ln_matmul_matches_plain``, one
+    launch a call, and a second launch bit-equal."""
+    rng = np.random.default_rng(26)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x = f(T, d)
+    x[:5] = 0.0  # var == 0 rows
+    x[7] = 3.0
+    args = [x.bfloat16(), 1 + 0.1 * f(d), 0.1 * f(d),
+            (f(d, dout) * d ** -0.5).bfloat16()]
+    add = None if addend is None else f(T, dout).to(addend)
+    ref = lnp.ln_matmul_reference(*args, addend=add)
+    dev = [t.to(cuda) for t in args]
+    dev_add = None if add is None else add.to(cuda)
+    before = ll.FWD_LAUNCHES
+    out = ll.ln_matmul(*dev, addend=dev_add)
+    again = ll.ln_matmul(*dev, addend=dev_add)
+    torch.cuda.synchronize()
+    assert ll.FWD_LAUNCHES == before + 2
+    assert out.dtype == ref.dtype and torch.equal(out, again)
+    _close_max(out, ref, 1e-3 if add is None else 2.0 ** -7)
 
 
 def _sorted_receivers(rng, E, N, pads):
