@@ -55,11 +55,18 @@ random gather):
    (the CPU tests' rule: a bf16 ulp that flips a relu moves a gradient of
    the 8-row graph set by far more than 5e-2).  The loss over 5 steps
    must stay finite.  Print the eager step time, edges/s and a profile of
-   one step;
+   one step.  Then the same step captured as a CUDA graph
+   (``capture_step``, the port's ``jax.jit``) against the eager step from
+   the same state on the same batch: loss within 1e-5 relative, every
+   parameter after the step within 1e-5 of its largest magnitude plus a
+   tenth of the learning rate, ten finite replays; print both times;
 A. run the sort-task flagship (``examples/sort_torch.py``: encoder ->
    2 GNCores -> decoder at (384, 384, 384), batch 4, f32, AdamW(3e-4), on
    ``sort_pad_spec`` batches from the host generator: N = 41, E = 512,
-   G = 5, not a uniform layout) through ``train_sort``: one step on the
+   G = 5, not a uniform layout) through ``train_sort``, whose step is
+   captured as a CUDA graph and replayed (the counters count the calls
+   that pass through the wrappers: its warm-ups and its capture): one
+   step on the
    kernel route and one on the plain route (kernels off) from the same
    seed, whose losses must agree within 1e-4 relative and whose gradients
    within 1e-3 of each tensor's largest magnitude (f32 sums in another
@@ -78,7 +85,8 @@ B. run the headline model on a bucket-padded batch (``bench.py``'s eight
    magnitude; then the train step of phase 4b on that batch, with 4b's
    limits on the loss and the gradients, and per step 3 ``ln_matmul``, 3
    ``sorted_gather_add``, 3 LN backwards, 6 sorted and 3 windowed segment
-   sums and 3 sorted gathers.  The kernels of this route are held against
+   sums and 3 sorted gathers, and its captured variant under 4b's check.
+   The kernels of this route are held against
    their plain versions in phase 3 too: ``ln_matmul`` at [16384, 384]
    bf16 with an f32 addend and without, and at [512, 384] f32, each
    bit-equal on a second launch; the LN
@@ -97,12 +105,16 @@ C. run the single large graph (``benchmarks/bench_large_graph.py``: one
    fused FFN 6 times (edge and node sets; the 1-row graph set composes) and
    match the pure route within 5e-2 of each feature set's largest
    magnitude; then the train step (f32 masters, random bf16 targets,
-   ``graph_loss_nf_ef``, AdamW(3e-4)) through ``make_train_step``: per step
+   ``graph_loss_nf_ef``, AdamW(3e-4)) through ``make_train_step``, first
+   with every core under ``remat`` (``GNCoreList(remat=True)``: its peak
+   memory, each core's forward launched twice, loss within 1e-5 relative
+   and gradients within 1e-2 of each tensor's largest magnitude of the
+   step without remat), then without: per step
    3 single-graph edge updates, 6 FFN forwards and 6 FFN backwards, 3 LN
    backwards, 6 sorted segment sums (d tr, and the senders' sort-once
    scatter) and 3 sorted gathers (the agg cotangent).  Loss and gradients
-   against the pure route's f32 twin (it and the bf16 twin run under
-   per-core activation checkpointing so that they fit): each gradient no
+   against the pure route's f32 twin (it and the bf16 twin are
+   ``GNCoreList(remat=True)`` models, so that they fit): each gradient no
    further from the twin's, in the 2-norm, than 5e-2 of the twin's norm or
    1.5 times the pure bf16 route's own distance from it, and the loss
    likewise (its random-normal targets make it a sum with heavy
@@ -140,11 +152,20 @@ D. run sampled training (``benchmarks/bench_arxiv.py``: a synthetic graph
    pure route's under phase 4b's rule, every loss be finite, and every step
    launch the single-graph edge update twice.  Print both routes' losses
    on the same batches, the step time with and without the host sampler
-   and a profile.  The sorted sum ([56,320, 256] bf16 into 56,960
-   segments), the sorted gather and ``sorted_gather_add`` are held against
+   (the native one, in line) and a profile.  The sorted sum ([56,320,
+   256] bf16 into 56,960 segments), the sorted gather and ``sorted_gather_add`` are held against
    their plain versions in phase 3 at this route's shape: the first
    batch's receivers, ~51,670 of whose slots are pad edges on its pad
    node, with ~51,800 empty node slots behind it;
+E. run sampled training as the JAX package runs it, at D's shape: the
+   native sampler (its ms a batch beside the numpy path's), batches from a
+   ``PrefetchPool`` of 2 workers (pinned CPU batches copied to the card on
+   the workers' own streams) into the step captured as a CUDA graph; the
+   captured step against the eager one under 4b's check, the pool's
+   batches element for element against in-line native samplers with the
+   same seeds, every loss finite; print the captured and the eager step,
+   the pipeline's seeds/s beside phase D's in-line number and the busy
+   share;
 R. run ``random_gather`` through its entry point ([65,536, 256] bf16 table,
    1,048,576 random ids) against ``index_select``: bit-equal, one launch;
    print both times and rates;
@@ -886,7 +907,18 @@ def train_phase(torch, pt, g, expect, zero_counts, read_counts, what):
     prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: step(g, y),
                                                   host_rows)
     host_rows.sort(reverse=True)
-    return {"launches": launches, "loss": loss, "pure_loss": pure_loss,
+
+    def build():
+        gen = torch.Generator().manual_seed(0)
+        m = pt.GNCoreList([pt.GNCore((D, D, D), generator=gen)
+                           for _ in range(N_CORES)])
+        return m, pt.make_train_step(m, pt.adamw(m.parameters(), 3e-4),
+                                     compute_dtype=torch.bfloat16)
+
+    captured = captured_check(torch, pt, build, (g, y), 3e-4, expect,
+                              zero_counts, read_counts, what)
+    return {"launches": launches, "captured": captured,
+            "loss": loss, "pure_loss": pure_loss,
             "worst_grad": worst, "losses": losses, "step_ms": step_ms,
             "pure_step_ms": pure_step_ms, "prof_rows": prof_rows,
             "host_rows": host_rows, "busy_ms": busy_ms, "wall_ms": wall_ms,
@@ -920,6 +952,12 @@ def log_train(what, train, n_edges, where):
         f"on), {len(train['host_rows'])} kinds:")
     for host_ms, count, name in train["host_rows"][:12]:
         log(f"  {host_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    cap = train["captured"]
+    log(f"{what} captured as a CUDA graph: {cap['captured_ms']:.4f} ms a "
+        f"step ({n_edges / cap['captured_ms'] * 1e3:.4e} edges/s) against "
+        f"{cap['eager_ms']:.4f} ms eager, kernel route; busy share "
+        f"{min(1.0, train['busy_ms'] / cap['captured_ms']):.3f} (profiled "
+        f"kernel time of an eager step / captured time); {where}")
 
 
 SORT_STEPS, SORT_EVAL_BATCHES = 30, 4
@@ -963,19 +1001,23 @@ def sort_phase(torch, pt, zero_counts, read_counts):
     res = run(SORT_STEPS)
     launches = read_counts()
     log(f"sort train launches over {SORT_STEPS} steps: {launches} (first "
-        f"step alone: {first_launches})")
-    want = {k: 0 for k in launches}
+        f"step alone: {first_launches}); the step was captured "
+        f"{res.step.captures} time(s) and replayed {res.step.replays} times")
     # Per step: the two cores' ln_matmul and LN backward, and the windowed
     # sum behind the senders gather of the encoder and of each core (512
     # rows of width 384 pass its gate; the decoder's width 2 does not).
-    want.update(ln_matmul=2 * SORT_STEPS, ln_backward=2 * SORT_STEPS,
-                windowed=3 * SORT_STEPS)
-    one = {k: v // SORT_STEPS for k, v in want.items()}
-    if launches != want or first_launches != one:
+    # train_sort captures its step: the counters count the calls that pass
+    # through the wrappers (the warm-ups and the capture); the replays
+    # launch the captured kernels without them.
+    one = dict(ln_matmul=2, ln_backward=2, windowed=3)
+    want = lambda calls: {k: one.get(k, 0) * calls for k in launches}
+    if (launches != want(res.step.traced_calls)
+            or first_launches != want(first.step.traced_calls)
+            or res.step.captures != 1 or res.step.replays != SORT_STEPS):
         raise SystemExit(f"train_sort did not launch ln_matmul and the LN "
                          f"backward twice a step, the windowed sum 3 times "
-                         f"and nothing else: {launches}, first step "
-                         f"{first_launches}")
+                         f"and nothing else, or did not replay one captured "
+                         f"step: {launches}, first step {first_launches}")
     if not all(np.isfinite(v) for v in res.metrics.values()):
         raise SystemExit(f"non-finite sort metrics: {res.metrics}")
 
@@ -1010,10 +1052,13 @@ def sort_phase(torch, pt, zero_counts, read_counts):
     pure_step_ms = cuda_ms(torch, lambda: step(x, y), iters=10)
     pure_rows, pure_busy_ms, _ = profile_forward(torch, lambda: step(x, y))
     pt.enable_kernels(True)
+    captured = pt.capture_step(step)
+    captured_ms = cuda_ms(torch, lambda: captured(x, y), iters=10)
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: res.model(x), iters=10)
         fwd_graph_ms = graph_ms(torch, lambda: res.model(x), iters=10)
     return {"launches": launches, "first_launches": first_launches,
+            "captured_step_ms": captured_ms,
             "eval_launches": eval_launches, "loss": loss,
             "plain_loss": plain_loss, "worst_grad": worst,
             "metrics": res.metrics, "steps_per_sec": res.steps_per_sec,
@@ -1237,6 +1282,59 @@ def want_counts(launches, expect, what):
                          f"({want}): {launches}")
 
 
+def out_loss(out):
+    """The loss of a step's output (``make_train_step``'s metrics, or
+    ``make_node_classification_step``'s loss)."""
+    return out["loss"] if isinstance(out, dict) else out
+
+
+def captured_check(torch, pt, build, args, lr, per_step, zero_counts,
+                   read_counts, what):
+    """``pt.capture_step`` of a training step against the same step run
+    eagerly, from the same state (``build()`` makes the model and its step
+    afresh from one seed) on the same batch: the loss within 1e-5 relative
+    and every parameter after the step within 1e-5 of its largest
+    magnitude plus a tenth of the learning rate (the rule of
+    ``test_node_classification_trajectory_matches_jax``; the graph pools'
+    f32 atomics allow no more); ten replays with finite losses; the
+    captured and the eager step's times (CUDA events over 10 calls after
+    3, the captured one's input copies and output clones included).  The
+    counters, set to 0 before the first call, must read ``per_step`` times
+    the calls that passed through the kernel wrappers (the warm-ups and
+    the capture; a replay launches the captured kernels without them)."""
+    model_c, step_c = build()
+    model_e, step_e = build()
+    cap = pt.capture_step(step_c)
+    zero_counts()
+    loss_c = float(out_loss(cap(*args)))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want_counts(launches, {k: v * cap.traced_calls
+                           for k, v in per_step.items()}, f"captured {what}")
+    loss_e = float(out_loss(step_e(*args)))
+    worst = (0.0, "")
+    for (n, p), q in zip(model_c.named_parameters(), model_e.parameters()):
+        if p.numel():
+            bound = 1e-5 * float(q.abs().max()) + 0.1 * lr
+            worst = max(worst, (float((p - q).abs().max()) / bound, n))
+    rel = abs(loss_c - loss_e) / abs(loss_e)
+    losses = [float(out_loss(cap(*args))) for _ in range(10)]
+    log(f"captured {what}: {cap.captures} graph, {cap.traced_calls} calls "
+        f"through the wrappers, launches {launches}; loss {loss_c:.7f} vs "
+        f"eager {loss_e:.7f} ({rel:.3e} relative, tolerance 1e-5); worst "
+        f"parameter {worst[1]} at {worst[0]:.4f} of its bound (1e-5 x its "
+        f"largest magnitude + 0.1 x lr); losses of 10 replays {losses}")
+    if (not np.isfinite(loss_c) or rel > 1e-5 or worst[0] > 1.0
+            or not all(np.isfinite(losses))):
+        raise SystemExit(f"the captured {what} disagrees with the eager one")
+    captured_ms = cuda_ms(torch, lambda: cap(*args), iters=10)
+    eager_ms = cuda_ms(torch, lambda: step_e(*args), iters=10)
+    return {"launches": launches, "traced_calls": cap.traced_calls,
+            "loss": loss_c, "eager_loss": loss_e, "loss_rel": rel,
+            "worst_param": worst, "replay_losses": losses,
+            "captured_ms": captured_ms, "eager_ms": eager_ms}
+
+
 def large_forward_phase(torch, pt, g, zero_counts, read_counts):
     """Phase C, forward: 3 GNCores at (256, 256, 256) with seeded bf16
     params on the large graph; counters set to 0 just before and read just
@@ -1279,38 +1377,24 @@ def large_forward_phase(torch, pt, g, zero_counts, read_counts):
             "path_err": path_err}
 
 
-def remat_grads(torch, pt, model, x, y, compute_dtype=None):
+def loss_and_grads(torch, pt, model, x, y, compute_dtype=None):
     """Loss and parameter gradients of ``graph_loss_nf_ef(model(x), y)``
-    for a GNCoreList ``model`` with every core under activation
-    checkpointing: the same function and gradients as the plain backward,
-    with one core's activations alive at a time.  The pure-route twins of
-    the large-graph step run so, since their saved [E, 4d] activations
-    would not fit beside each other in f32.  The parameters are cast to
-    ``compute_dtype`` for the forward, as ``make_train_step`` casts them."""
+    under training, the parameters cast to ``compute_dtype`` for the
+    forward as ``make_train_step`` casts them.  The pure-route twins of the
+    large-graph step are ``GNCoreList(remat=True)`` models: their saved
+    [E, 4d] activations would not fit beside each other in f32, and under
+    ``remat`` one core's are alive at a time."""
     from torch.func import functional_call
-    from torch.utils.checkpoint import checkpoint
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    g = x
-    for name, core in model.named_children():
-        names = [n for n in params if n.startswith(name + ".")]
-        cast = [params[n] if compute_dtype is None
-                else params[n].to(compute_dtype) for n in names]
-
-        def run(ef, nf, gf, *ps, core=core, names=names, g=g, cut=len(name) + 1):
-            out = functional_call(
-                core, {n[cut:]: p for n, p in zip(names, ps)},
-                (g.with_features(ef=ef, nf=nf, gf=gf),), {"training": True})
-            return out.ef, out.nf, out.gf
-
-        ef, nf, gf = checkpoint(run, g.ef, g.nf, g.gf, *cast,
-                                use_reentrant=False)
-        g = g.with_features(ef=ef, nf=nf, gf=gf)
-    loss = pt.graph_loss_nf_ef(g, y)
+    run = params if compute_dtype is None else {
+        n: p.to(compute_dtype) for n, p in params.items()}
+    loss = pt.graph_loss_nf_ef(
+        functional_call(model, run, (x,), {"training": True}), y)
     loss.backward()
     return float(loss.detach()), {n: (torch.zeros_like(p) if p.grad is None
-                             else p.grad) for n, p in params.items()}
+                                      else p.grad) for n, p in params.items()}
 
 
 def large_train_phase(torch, pt, g, zero_counts, read_counts):
@@ -1329,16 +1413,35 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
     gen = torch.Generator().manual_seed(0)
     model = pt.GNCoreList([pt.GNCore((d, d, d), generator=gen)
                            for _ in range(LG_CORES)])
-    twin = copy.deepcopy(model)
+    twin, remat = copy.deepcopy(model), copy.deepcopy(model)
+    twin.remat = remat.remat = True
     step = pt.make_train_step(model, pt.adamw(model.parameters(), 3e-4),
                               compute_dtype=torch.bfloat16)
+    remat_step = pt.make_train_step(remat, pt.adamw(remat.parameters(), 3e-4),
+                                    compute_dtype=torch.bfloat16)
     pt.enable_kernels(True)
+    # The kernel route's step with every core under remat, from the same
+    # state: its peak memory, and its loss and gradients against the step
+    # without remat below.
+    gib = lambda b: b / 2 ** 30
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    m_remat = remat_step(g, y)
+    torch.cuda.synchronize()
+    remat_launches = read_counts()
+    remat_peak_gb = gib(torch.cuda.max_memory_allocated())
+    remat_own_gb = gib(torch.cuda.max_memory_allocated() - base)
+    remat_grads = {n: p.grad.clone() for n, p in remat.named_parameters()}
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     m = step(g, y)
     torch.cuda.synchronize()
     launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = gib(torch.cuda.max_memory_allocated())
+    own_gb = gib(torch.cuda.max_memory_allocated() - base)
     log(f"large-graph train step launches: {launches}")
     want_counts(launches, dict(edge_g1_agg=LG_CORES, ffn=2 * LG_CORES,
                                ffn_backward=2 * LG_CORES,
@@ -1346,17 +1449,32 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
                                segment_sum=2 * LG_CORES, gather=LG_CORES),
                 "large-graph train step")
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    loss, remat_loss = float(m["loss"]), float(m_remat["loss"])
+    remat_worst = max((float((remat_grads[n] - t).abs().max())
+                       / max(float(t.abs().max()), 1e-30), n)
+                      for n, t in grads.items())
+    log(f"large-graph train step with remat: launches {remat_launches}; "
+        f"loss {remat_loss:.6f} vs {loss:.6f} without (tolerance 1e-5 "
+        f"relative); worst gradient {remat_worst[1]} off by "
+        f"{remat_worst[0]:.3e} of its largest magnitude (tolerance 1e-2); "
+        f"peak device memory {remat_peak_gb:.4f} GiB against {peak_gb:.4f} "
+        f"GiB without, of which the step's own (above what was allocated "
+        f"before it) {remat_own_gb:.4f} against {own_gb:.4f} GiB")
+    if (abs(remat_loss - loss) > 1e-5 * abs(loss) or remat_worst[0] > 1e-2
+            or remat_launches["edge_g1_agg"] != 2 * LG_CORES):
+        raise SystemExit("the large-graph step with remat disagrees with "
+                         "the step without, or did not recompute each core")
+    del remat_grads
     pt.enable_kernels(False)
-    pure_loss, pure = remat_grads(torch, pt, twin, g, y, torch.bfloat16)
+    pure_loss, pure = loss_and_grads(torch, pt, twin, g, y, torch.bfloat16)
     pure = {n: t.clone() for n, t in pure.items()}
     f32 = lambda t: t.float()
-    f32_loss, grads32 = remat_grads(
+    f32_loss, grads32 = loss_and_grads(
         torch, pt, twin,
         g.with_features(ef=f32(g.ef), nf=f32(g.nf), gf=f32(g.gf)),
         y.with_features(ef=f32(y.ef), nf=f32(y.nf)))
     torch.cuda.synchronize()
     pt.enable_kernels(True)
-    loss = float(m["loss"])
     # Phase 4b holds the kernel route to the pure bf16 route, by the largest
     # element of the difference, within the larger of 5e-2 of the tensor's
     # largest magnitude and the pure route's own bf16-vs-f32 distance.  Here
@@ -1410,9 +1528,11 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
     prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: step(g, y))
     pt.enable_kernels(False)
     pure_step_ms = cuda_ms(
-        torch, lambda: remat_grads(torch, pt, twin, g, y, torch.bfloat16),
+        torch, lambda: loss_and_grads(torch, pt, twin, g, y, torch.bfloat16),
         iters=2, warmup=0)
     pt.enable_kernels(True)
+    remat_step_ms = cuda_ms(torch, lambda: remat_step(g, y), iters=3,
+                            warmup=0)
     # The same step with the fused edge->node sum off under training.
     cfg = get_config()
     cfg.g1_agg_fusion_training = False
@@ -1438,7 +1558,11 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
             "losses": losses,
             "step_ms": step_ms, "pure_step_ms": pure_step_ms,
             "off_step_ms": off_step_ms, "prof_rows": prof_rows,
-            "busy_ms": busy_ms, "wall_ms": wall_ms, "peak_gb": peak_gb}
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "peak_gb": peak_gb,
+            "remat_launches": remat_launches, "remat_loss": remat_loss,
+            "remat_worst_grad": remat_worst, "remat_peak_gb": remat_peak_gb,
+            "own_gb": own_gb, "remat_own_gb": remat_own_gb,
+            "remat_step_ms": remat_step_ms}
 
 
 def arxiv_shaped_graph(pt, seed=0):
@@ -1582,6 +1706,131 @@ def sampled_phase(torch, pt, zero_counts, read_counts, graph, build_s):
             "pure_step_ms": pure_ms, "prof_rows": prof_rows,
             "busy_ms": busy_ms, "wall_ms": wall_ms, "shape": shape,
             "graph_build_s": build_s}
+
+
+# Phase E: prefetch workers and the batches each produces.
+E_WORKERS, E_BATCHES = 2, 16
+
+
+def pipeline_phase(torch, pt, zero_counts, read_counts, graph, per_step):
+    """Phase E: sampled training as the JAX package runs it, at phase D's
+    shape: the native sampler (it must be built), batches from a
+    ``PrefetchPool`` of ``E_WORKERS`` workers whose samplers emit pinned
+    CPU batches that the workers copy to the card on streams of their own,
+    and the step captured as a CUDA graph (``capture_step`` of
+    ``make_node_classification_step``, Adam(1e-3), bf16 compute).  Checks:
+    the captured step against the eager one (:func:`captured_check`), the
+    pool's batches element for element against in-line native samplers
+    with the same seeds, every pipeline loss finite, and the launch
+    counters (0 before the pipeline's capture, read after its last step)
+    ``per_step`` times the calls through the wrappers.  Times: the native
+    sampler's ms a batch beside the numpy path's, the captured step beside
+    the eager one, the pipeline's seeds/s beside the same captured step fed
+    by an in-line sampler, and the busy share."""
+    import itertools
+    import os
+    from graphnets_tpu_torch.runtime import native
+    from graphnets_tpu_torch.utils.tree import tensors
+    if not native.available():
+        raise SystemExit("phase E needs the native runtime")
+    seeds = np.arange(graph.num_nodes)
+
+    def sampler(seed, **kw):
+        return pt.NeighborSampler(graph, fanouts=AX_FANOUTS,
+                                  batch_size=AX_BATCH, seed=seed,
+                                  emit_node_ids=True, **kw)
+
+    def batch_ms(n):
+        it = sampler(1, device="cpu").epoch(seeds)
+        next(it)  # the epoch's shuffle
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    native_ms = batch_ms(10)
+    old = os.environ.get("GRAPHNETS_TPU_TORCH_NATIVE")
+    os.environ["GRAPHNETS_TPU_TORCH_NATIVE"] = "0"
+    try:
+        numpy_ms = batch_ms(3)
+    finally:
+        if old is None:
+            del os.environ["GRAPHNETS_TPU_TORCH_NATIVE"]
+        else:
+            os.environ["GRAPHNETS_TPU_TORCH_NATIVE"] = old
+    log(f"sampler, a batch of {AX_BATCH} seeds at fanouts {AX_FANOUTS}: "
+        f"native {native_ms:.4f} ms ({native.library_path().name}, "
+        f"{os.cpu_count()} threads), numpy path {numpy_ms:.4f} ms")
+
+    feat = pt.device_feature_table(graph, torch.bfloat16)
+    args = lambda b: (b.graph, b.node_ids, b.labels, b.label_mask,
+                      b.seed_local_idx, feat)
+
+    def build():
+        model = pt.EncodeProcessDecode(
+            (0, AX_FEAT, 0), (AX_HIDDEN,) * 3, (1, AX_CLASSES, 0),
+            n_cores=AX_CORES, generator=torch.Generator().manual_seed(0))
+        return model, pt.make_node_classification_step(
+            model, pt.adam(model.parameters(), 1e-3), AX_CLASSES,
+            compute_dtype=torch.bfloat16)
+
+    pt.enable_kernels(True)
+    b0 = next(sampler(1, device="cuda").epoch(seeds))
+    check = captured_check(torch, pt, build, args(b0), 1e-3, per_step,
+                           zero_counts, read_counts, "sampled step")
+
+    # The pipeline: the step is captured before the workers start (a
+    # capture refuses the allocations of other threads).
+    _, step = build()
+    cap = pt.capture_step(step)
+    zero_counts()
+    cap(*args(b0))
+    torch.cuda.synchronize()
+
+    def factory(wid):
+        it = sampler(100 + wid, device="cpu", pin_memory=True).epoch(seeds)
+        for i, b in enumerate(itertools.islice(it, E_BATCHES)):
+            yield wid, i, b
+
+    got, losses = [], []
+    t0 = time.perf_counter()
+    for wid, i, b in pt.PrefetchPool(factory, num_workers=E_WORKERS):
+        losses.append(cap(*args(b)))
+        got.append((wid, i, b))
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) / len(got) * 1e3
+    launches = read_counts()
+    want_counts(launches, {k: v * cap.traced_calls
+                           for k, v in per_step.items()}, "phase E")
+    losses = [float(v) for v in losses]
+    if len(got) != E_WORKERS * E_BATCHES or not all(np.isfinite(losses)):
+        raise SystemExit(f"phase E: {len(got)} batches, losses {losses}")
+    ref = {w: list(itertools.islice(
+        sampler(100 + w, device="cpu").epoch(seeds), E_BATCHES))
+        for w in range(E_WORKERS)}
+    for wid, i, b in got:
+        want = tensors(ref[wid][i])
+        have = tensors(b)
+        if len(want) != len(have) or not all(
+                h.is_cuda and torch.equal(h.cpu(), w)
+                for h, w in zip(have, want)):
+            raise SystemExit(f"phase E: batch {i} of worker {wid} differs "
+                             f"from the in-line sampler's")
+
+    # The same captured step fed by one in-line native sampler on the card.
+    it = sampler(200, device="cuda").epoch(seeds)
+    next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(E_BATCHES):
+        cap(*args(next(it)))
+    torch.cuda.synchronize()
+    inline_ms = (time.perf_counter() - t0) / E_BATCHES * 1e3
+    replay_ms = cuda_ms(torch, lambda: cap(*args(b0)), iters=10)
+    return {"native_ms": native_ms, "numpy_ms": numpy_ms, "check": check,
+            "launches": launches, "losses": losses, "pipe_ms": pipe_ms,
+            "inline_ms": inline_ms, "replay_ms": replay_ms,
+            "batches": len(got), "replays": cap.replays}
 
 
 # The GNCore training gates re-measured by ``--gates``: JAX's settings
@@ -1901,7 +2150,8 @@ def main() -> int:
         f"kernels of {sort['busy_ms']:.4f} ms, busy share "
         f"{sort['busy_ms'] / sort['step_ms']:.3f} (kernel time / eager "
         f"time); pure route {sort['pure_kernels_per_step']} kernels of "
-        f"{sort['pure_busy_ms']:.4f} ms; forward {sort['fwd_ms']:.4f} ms "
+        f"{sort['pure_busy_ms']:.4f} ms; the step captured as a CUDA graph "
+        f"{sort['captured_step_ms']:.4f} ms; forward {sort['fwd_ms']:.4f} ms "
         f"eager, {sort['fwd_graph_ms']:.4f} ms as a CUDA graph; {where}")
     for dev_ms, count, name in sort["prof_rows"][:10]:
         log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
@@ -1952,8 +2202,11 @@ def main() -> int:
         f"{sum(r[1] for r in ltrain['prof_rows'])} kernels, "
         f"{ltrain['busy_ms']:.4f} ms of {ltrain['wall_ms']:.4f} ms wall, "
         f"busy share {ltrain['busy_ms'] / ltrain['wall_ms']:.3f}; peak "
-        f"device memory of the first step {ltrain['peak_gb']:.4f} GiB; "
-        f"{where}")
+        f"device memory of the first step {ltrain['peak_gb']:.4f} GiB "
+        f"({ltrain['own_gb']:.4f} its own); with every core under remat "
+        f"{ltrain['remat_step_ms']:.4f} ms, peak "
+        f"{ltrain['remat_peak_gb']:.4f} GiB ({ltrain['remat_own_gb']:.4f} "
+        f"its own); {where}")
     for dev_ms, count, name in ltrain["prof_rows"][:15]:
         log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
     del g_large
@@ -1964,7 +2217,7 @@ def main() -> int:
     log(f"sampled training: {samp['step_ms']:.4f} ms a step on the device "
         f"path alone (batches sampled beforehand), "
         f"{samp['step_ms'] + samp['sample_ms']:.4f} ms with the host "
-        f"sampler ({samp['sample_ms']:.4f} ms a batch, numpy, not "
+        f"sampler ({samp['sample_ms']:.4f} ms a batch, native, not "
         f"overlapped): {AX_BATCH / (samp['step_ms'] + samp['sample_ms']) * 1e3:.4e} "
         f"seeds/s; pure route {samp['pure_step_ms']:.4f} ms a step; losses "
         f"{samp['losses']}; profile of one step: "
@@ -1972,6 +2225,26 @@ def main() -> int:
         f"{samp['busy_ms']:.4f} ms of {samp['wall_ms']:.4f} ms wall; {where}")
     for dev_ms, count, name in samp["prof_rows"][:12]:
         log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+
+    # E. Sampled training as the JAX package runs it: native sampler,
+    # prefetch workers, the captured step.
+    pipe = pipeline_phase(torch, pt, zero_counts, read_counts, ax_graph,
+                          samp["first_launches"])
+    chk = pipe["check"]
+    log(f"sampled step captured as a CUDA graph: {chk['captured_ms']:.4f} ms "
+        f"against {chk['eager_ms']:.4f} ms eager; {where}")
+    log(f"sampled pipeline: {pipe['batches']} batches from {E_WORKERS} "
+        f"prefetch workers (native sampler, pinned batches) into the "
+        f"captured step: {pipe['pipe_ms']:.4f} ms a batch = "
+        f"{AX_BATCH / pipe['pipe_ms'] * 1e3:.4e} seeds/s; the captured step "
+        f"fed by an in-line native sampler {pipe['inline_ms']:.4f} ms = "
+        f"{AX_BATCH / pipe['inline_ms'] * 1e3:.4e} seeds/s; phase D's eager "
+        f"step with the in-line sampler "
+        f"{samp['step_ms'] + samp['sample_ms']:.4f} ms = "
+        f"{AX_BATCH / (samp['step_ms'] + samp['sample_ms']) * 1e3:.4e} "
+        f"seeds/s; a replay alone {pipe['replay_ms']:.4f} ms, busy share of "
+        f"the pipeline {min(1.0, pipe['replay_ms'] / pipe['pipe_ms']):.3f}; "
+        f"launches {pipe['launches']}; losses {pipe['losses']}; {where}")
 
     # R. random_gather through its entry point, against index_select.
     from graphnets_tpu_torch.ops.kernels.random_gather import random_gather
@@ -2003,6 +2276,10 @@ def main() -> int:
              "large_train_step": ltrain["launches"],
              "large_train_step_no_agg": ltrain["off_launches"],
              "sampled_train_step": samp["first_launches"],
+             "train_step_captured": train["captured"]["launches"],
+             "bucketed_train_step_captured": btrain["captured"]["launches"],
+             "large_train_step_remat": ltrain["remat_launches"],
+             "sampled_pipeline": pipe["launches"],
              "random_gather": rg_launches}
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src, ref = "graphnets_tpu_torch/csrc/", "graphnets_tpu/ops/pallas/"
@@ -2079,6 +2356,7 @@ def main() -> int:
                     "large_forward": slim(lfwd),
                     "large_train_step": slim(ltrain),
                     "sampled_train": slim(samp),
+                    "sampled_pipeline": pipe,
                     "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

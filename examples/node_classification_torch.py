@@ -3,16 +3,21 @@
 (``graphnets_tpu_torch``): the GraphSAGE-style workflow.
 
 ``LargeGraph`` CSC store -> fixed-fanout ``NeighborSampler`` (static
-shapes, host numpy) -> feature table resident on the device ->
+shapes, the native host sampler) -> feature table resident on the device ->
 ``EncodeProcessDecode`` -> masked cross-entropy on the seed nodes -> Adam,
 with held-out validation accuracy.  It trains on a synthetic
 citation-shaped graph (power-law in-degree, features weakly correlated with
-the labels), in f32.  It runs on a CUDA device unless ``--device cpu`` is
-given, and exits 0 iff the validation accuracy clears 0.5.
+the labels), in f32, or on an OGB node-property dataset in its raw on-disk
+layout (``--ogb-root``).  On the card the step is captured as a CUDA graph
+and replayed (``capture_step``, the counterpart of the JAX example's
+``jax.jit``).  It runs on a CUDA device unless ``--device cpu`` is given,
+and exits 0 iff the validation accuracy clears 0.5.
 
 Usage:
     python examples/node_classification_torch.py --steps 200
     python examples/node_classification_torch.py --steps 200 --device cpu
+    python examples/node_classification_torch.py --ogb-root DIR \
+        --ogb-name ogbn-arxiv
 """
 
 import argparse
@@ -29,7 +34,8 @@ from graphnets_tpu_torch.data.large_graph import (LargeGraph,
                                                   device_feature_table)
 from graphnets_tpu_torch.models.encode_process_decode import \
     EncodeProcessDecode
-from graphnets_tpu_torch.training.train import make_node_classification_step
+from graphnets_tpu_torch.training.train import (adam, capture_step,
+                                                make_node_classification_step)
 from graphnets_tpu_torch.utils.config import resolve_device
 
 
@@ -78,12 +84,22 @@ def main(argv=None) -> float:
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--ogb-root", default=None,
+                    help="on-disk OGB root dir (raw csv layout)")
+    ap.add_argument("--ogb-name", default="ogbn-arxiv")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    g, splits, n_classes = synthetic_citation_graph()
-    print(f"synthetic citation graph: {g.num_nodes} nodes, {g.num_edges} "
-          f"edges, {n_classes} classes; device {device}")
+    if args.ogb_root:
+        from graphnets_tpu_torch.data.ogb import load_ogb_node_dataset
+        ds = load_ogb_node_dataset(args.ogb_root, args.ogb_name)
+        g, splits, n_classes = ds.graph, ds.splits, ds.num_classes
+        print(f"loaded {ds.name}: {g.num_nodes} nodes, {g.num_edges} "
+              f"edges, {n_classes} classes; device {device}")
+    else:
+        g, splits, n_classes = synthetic_citation_graph()
+        print(f"synthetic citation graph: {g.num_nodes} nodes, "
+              f"{g.num_edges} edges, {n_classes} classes; device {device}")
     sampler = NeighborSampler(g, fanouts=tuple(args.fanouts),
                               batch_size=args.batch, seed=1,
                               emit_node_ids=True, device=device)
@@ -92,8 +108,9 @@ def main(argv=None) -> float:
         (0, g.node_feat.shape[1], 0), (args.hidden,) * 3, (1, n_classes, 0),
         n_cores=args.cores, device=device,
         generator=torch.Generator().manual_seed(0))
-    opt = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
-    step = make_node_classification_step(model, opt, n_classes)
+    opt = adam(model.parameters(), lr=args.lr)
+    step = capture_step(make_node_classification_step(model, opt,
+                                                       n_classes))
 
     t0 = time.time()
     it = iter(sampler.epoch(splits["train"]))

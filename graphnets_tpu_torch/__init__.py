@@ -15,11 +15,18 @@ task: ``EncodeProcessDecode``, the host data generator, ``train_sort`` and
 ``sort_accuracy``; and the single large graph (G = 1): the one-pass
 single-graph edge update with its edge->node sum, training through the
 fused LN->FFN->residual kernel's own backward, the host neighbour sampler
-(``LargeGraph``, ``NeighborSampler``) and the node-classification step.
+(``LargeGraph``, ``NeighborSampler``) and the node-classification step;
+and sampled training as the JAX package runs it: the native C++ runtime
+(``runtime/``), prefetch threads, the OGB loader, ``remat`` and the training
+step captured as a CUDA graph (``capture_step``, the counterpart of
+``jax.jit``).
 """
 
 from .data.large_graph import (LargeGraph, NeighborSampler, SampledBatch,
                                csc_from_coo, device_feature_table)
+from .data.ogb import (OGBNodeDataset, load_ogb_node_dataset,
+                       save_ogb_node_dataset)
+from .data.prefetch import PrefetchIterator, PrefetchPool, prefetch
 from .data.sort_task import (SortTaskConfig, gen_sample, get_batch,
                              sort_pad_spec)
 from .graph import GraphsTuple, PadSpec, adjacency_matrices, batch, unbatch
@@ -47,9 +54,9 @@ from .training.losses import (graph_accuracy, graph_loss_nf_ef,
                               masked_accuracy, masked_logit_crossentropy,
                               per_graph_correct)
 from .training.evaluate import sort_accuracy
-from .training.train import (SortTrainResult, adamw,
-                             make_node_classification_step, make_train_step,
-                             train_sort)
+from .training.train import (CapturedStep, SortTrainResult, adam, adamw,
+                             capture_step, make_node_classification_step,
+                             make_train_step, train_sort)
 from .utils.config import enable_kernels, use_kernels
 
 __version__ = "0.1.0"
@@ -68,4 +75,7 @@ __all__ = [
     "get_batch", "sort_pad_spec", "train_sort", "SortTrainResult",
     "sort_accuracy", "LargeGraph", "NeighborSampler", "SampledBatch",
     "csc_from_coo", "device_feature_table", "make_node_classification_step",
+    "adam", "capture_step", "CapturedStep", "OGBNodeDataset",
+    "load_ogb_node_dataset", "save_ogb_node_dataset", "prefetch",
+    "PrefetchIterator", "PrefetchPool",
 ]

@@ -10,39 +10,33 @@ on a pad node behind every real one, both capacities rounded to multiples
 of 128.  That layout is what the single-graph edge-update kernel and the
 sorted segment sum rest on.
 
-The sampling runs in numpy on the host, with the same ``default_rng``
-stream as the JAX package's numpy path, so both packages draw the same
-batches from one seed.  The JAX package's native (C++) sampler and its
-prefetch thread are not ported.
+The sampling runs on the host where the JAX package's does: each layer
+through the native runtime (``runtime/native.sample_layer``, threaded, each
+frontier node on its own (seed, position)-keyed stream, the seed drawn from
+the sampler's ``default_rng``), the features through its threaded row
+gather, and the CSC through its counting sort; under
+``GRAPHNETS_TPU_TORCH_NATIVE=0`` all three take the JAX module's numpy
+paths.  Either way both packages draw the same batches from one seed.  A
+sampler asked for the CPU emits CPU tensors, in page-locked memory with
+``pin_memory=True``, which ``data/prefetch`` moves to the card on a stream
+of its own while the device runs the step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..graph import GraphsTuple
+from ..runtime import native
+from ..runtime.native import csc_from_coo
 from ..utils.config import resolve_device
 
 __all__ = ["LargeGraph", "NeighborSampler", "SampledBatch",
            "csc_from_coo", "device_feature_table"]
-
-
-def csc_from_coo(senders: np.ndarray, receivers: np.ndarray, n: int
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """``(indptr [n + 1], src [E])``: the edges grouped by receiver in a
-    stable order, and each receiver's edge range."""
-    senders = np.ascontiguousarray(senders, np.int64)
-    receivers = np.ascontiguousarray(receivers, np.int64)
-    order = np.argsort(receivers, kind="stable")
-    src = senders[order]
-    indptr = np.zeros(n + 1, np.int64)
-    np.add.at(indptr, receivers + 1, 1)
-    np.cumsum(indptr, out=indptr)
-    return indptr, src
 
 
 @dataclasses.dataclass
@@ -108,18 +102,23 @@ class NeighborSampler:
     the sampled frontier nodes layer by layer.  Edges point from a sampled
     neighbour to the node it was sampled for, so an L-layer stack gives
     every seed an L-hop receptive field.  Batches land on ``device``
-    (``cuda`` unless the caller passes another).
+    (``cuda`` unless the caller passes another); on the CPU,
+    ``pin_memory=True`` puts them in page-locked memory.
     """
 
     def __init__(self, g: LargeGraph, fanouts: Sequence[int],
                  batch_size: int, seed: int = 0,
-                 emit_node_ids: bool = False, device=None):
+                 emit_node_ids: bool = False, device=None,
+                 pin_memory: bool = False):
         self.g = g
         self.fanouts = tuple(fanouts)
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.emit_node_ids = emit_node_ids
         self.device = resolve_device(device)
+        if pin_memory and self.device.type != "cpu":
+            raise ValueError("pin_memory is for batches emitted on the CPU")
+        self.pin_memory = pin_memory
         caps_nodes = [batch_size]
         caps_edges = []
         cur = batch_size
@@ -131,6 +130,38 @@ class NeighborSampler:
         # kernel gates want 32- and 128-aligned row counts.
         self.max_nodes = ((int(sum(caps_nodes)) + 1 + 127) // 128) * 128
         self.max_edges = ((int(sum(caps_edges)) + 127) // 128) * 128
+
+    def _layer(self, frontier: np.ndarray, frontier_pos: np.ndarray,
+               f: int):
+        """Up to ``f`` incoming edges of each frontier node, without
+        replacement: ``(sources, receiver positions)``."""
+        g = self.g
+        if native.available() and len(frontier):
+            return native.sample_layer(
+                g.indptr, g.src, np.asarray(frontier, np.int64),
+                np.asarray(frontier_pos, np.int64), f,
+                int(self.rng.integers(1, 2 ** 62)))
+        deg = g.in_degree(np.asarray(frontier, np.int64)) \
+            if len(frontier) else np.zeros(0, np.int64)
+        new_src, e_r = [], []
+        for i, v in enumerate(frontier):
+            d = deg[i]
+            if d == 0:
+                continue
+            k = min(f, int(d))
+            sel = self.rng.choice(int(d), size=k, replace=False)
+            s_ = g.src[g.indptr[v]: g.indptr[v + 1]][sel]
+            new_src.append(s_)
+            e_r.append(np.full(len(s_), frontier_pos[i]))
+        if not new_src:
+            return np.zeros((0,), np.int64), np.zeros((0,), np.int64)
+        return np.concatenate(new_src), np.concatenate(e_r)
+
+    def _emit(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cpu":
+            return t.to(self.device)
+        return t.pin_memory() if self.pin_memory else t
 
     def sample(self, seeds: np.ndarray) -> SampledBatch:
         g = self.g
@@ -146,25 +177,7 @@ class NeighborSampler:
         frontier_pos = np.arange(n_seeds)
         next_pos_start = n_seeds
         for f in self.fanouts:
-            # Up to f incoming edges per frontier node, without replacement.
-            deg = g.in_degree(np.asarray(frontier, np.int64)) \
-                if len(frontier) else np.zeros(0, np.int64)
-            new_src, e_r = [], []
-            for i, v in enumerate(frontier):
-                d = deg[i]
-                if d == 0:
-                    continue
-                k = min(f, int(d))
-                sel = self.rng.choice(int(d), size=k, replace=False)
-                s_ = g.src[g.indptr[v]: g.indptr[v + 1]][sel]
-                new_src.append(s_)
-                e_r.append(np.full(len(s_), frontier_pos[i]))
-            if new_src:
-                srcs = np.concatenate(new_src)
-                recv = np.concatenate(e_r)
-            else:
-                srcs = np.zeros((0,), np.int64)
-                recv = np.zeros((0,), np.int64)
+            srcs, recv = self._layer(frontier, frontier_pos, f)
             pos = next_pos_start + np.arange(len(srcs))
             senders_l.append(pos)
             receivers_l.append(recv)
@@ -190,37 +203,35 @@ class NeighborSampler:
         senders[E:] = N
         receivers[E:] = N
 
-        dev = self.device
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        emit = self._emit
         node_ids = nf = None
         if self.emit_node_ids:
             ids = np.full(NP, g.num_nodes, np.int32)  # the pad row
             ids[:N] = all_nodes
-            node_ids = to_dev(ids)
+            node_ids = emit(ids)
         else:
             feat = np.zeros((NP, g.node_feat.shape[1]), np.float32)
-            feat[:N] = g.node_feat[all_nodes]
-            nf = to_dev(feat)
+            native.gather_rows(g.node_feat, all_nodes, out=feat[:N])
+            nf = emit(feat)
 
         graph = GraphsTuple(
-            senders=to_dev(senders), receivers=to_dev(receivers),
-            node_graph=torch.zeros(NP, dtype=torch.int32, device=dev),
-            edge_graph=torch.zeros(EP, dtype=torch.int32, device=dev),
-            n_node=torch.tensor([N], dtype=torch.int32, device=dev),
-            n_edge=torch.tensor([E], dtype=torch.int32, device=dev),
-            node_mask=to_dev(np.arange(NP) < N),
-            edge_mask=to_dev(np.arange(EP) < E),
-            graph_mask=torch.ones(1, dtype=torch.bool, device=dev),
+            senders=emit(senders), receivers=emit(receivers),
+            node_graph=emit(np.zeros(NP, np.int32)),
+            edge_graph=emit(np.zeros(EP, np.int32)),
+            n_node=emit(np.array([N], np.int32)),
+            n_edge=emit(np.array([E], np.int32)),
+            node_mask=emit(np.arange(NP) < N),
+            edge_mask=emit(np.arange(EP) < E),
+            graph_mask=emit(np.ones(1, bool)),
             ef=None, nf=nf, gf=None)
         labels = None
         if g.labels is not None:
             lab = np.zeros(B, np.int64)
             lab[:n_seeds] = g.labels[seeds]
-            labels = to_dev(lab)
+            labels = emit(lab)
         return SampledBatch(
-            graph=graph,
-            seed_local_idx=torch.arange(B, dtype=torch.int32, device=dev),
-            labels=labels, label_mask=to_dev(np.arange(B) < n_seeds),
+            graph=graph, seed_local_idx=emit(np.arange(B, dtype=np.int32)),
+            labels=labels, label_mask=emit(np.arange(B) < n_seeds),
             node_ids=node_ids)
 
     def epoch(self, train_nodes: np.ndarray, shuffle: bool = True):

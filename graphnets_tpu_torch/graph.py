@@ -14,8 +14,10 @@ Conventions kept from the JAX package (they define parity):
 * Padded slots never contaminate real ones: aggregations mask them, and
   padded edges target padding nodes (the pad-targets-pad rule).
 
-Index work runs on the host in numpy; the finished arrays move to
-``device`` at the end (``cuda`` unless the caller passes another).
+Index work runs on the host: the canonical COO through the native runtime
+(``runtime/native.batch_coo``, numpy under
+``GRAPHNETS_TPU_TORCH_NATIVE=0``), the rest in numpy; the finished arrays
+move to ``device`` at the end (``cuda`` unless the caller passes another).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .runtime import native
 from .utils.config import resolve_device
 
 __all__ = ["GraphsTuple", "PadSpec", "batch", "unbatch",
@@ -151,26 +154,6 @@ class GraphsTuple:
 # ---------------------------------------------------------------------------
 
 
-def _adj_to_coo(adj: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Edges of one adjacency matrix in canonical (column-major) order; an
-    entry counts as an edge iff it equals 1."""
-    rr, ss = np.nonzero((np.asarray(adj) == 1).T)
-    return ss.astype(np.int32), rr.astype(np.int32)
-
-
-def _batch_coo(adjs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Canonical COO of a list of adjacency matrices, global node ids."""
-    offs = np.concatenate([[0], np.cumsum([a.shape[0] for a in adjs])])
-    ss, rs, ne = [], [], []
-    for i, a in enumerate(adjs):
-        s, r = _adj_to_coo(a)
-        ss.append(s + np.int32(offs[i]))
-        rs.append(r + np.int32(offs[i]))
-        ne.append(len(s))
-    cat = (lambda x: np.concatenate(x) if x else np.zeros(0, np.int32))
-    return cat(ss), cat(rs), np.array(ne, np.int32)
-
-
 def _as_feature_list(x, B: int, what: str) -> Optional[List[np.ndarray]]:
     if x is None:
         return None
@@ -269,7 +252,7 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
                 f"adjacency has {e} edges (entries == 1)")
 
     n_node = np.array([a.shape[0] for a in adj_mats], dtype=np.int32)
-    senders, receivers, n_edge = _batch_coo(adj_mats)
+    senders, receivers, n_edge = native.batch_coo(adj_mats)
     N, E, G = int(n_node.sum()), int(n_edge.sum()), B
 
     if pad is None:

@@ -4,8 +4,9 @@ of ``graphnets_tpu/models/encode_process_decode.py``).
 An encoder ``GNBlock`` lifts the input dims to the core dims, a stack of
 residual ``GNCore`` processes them, and a decoder ``GNBlock`` maps to the
 output dims.  Zero-width feature sets are legal at both ends (the sort
-task: ``(0, vocab, 0) -> core_dims -> (2, 2, 0)``).  The JAX package's
-``remat`` option is not ported.
+task: ``(0, vocab, 0) -> core_dims -> (2, 2, 0)``).  ``remat=True`` runs
+each core under activation checkpointing (:class:`GNCoreList`), as the JAX
+package's ``remat`` runs each under ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -31,17 +32,19 @@ class EncodeProcessDecode(nn.Module):
     def __init__(self, x_dims: Tuple[int, int, int],
                  core_dims: Tuple[int, int, int],
                  y_dims: Tuple[int, int, int], n_cores: int = 2,
-                 dropout: float = 0.0, *, device=None, dtype=torch.float32,
+                 dropout: float = 0.0, remat: bool = False, *, device=None,
+                 dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.x_dims, self.core_dims = tuple(x_dims), tuple(core_dims)
         self.y_dims, self.n_cores, self.dropout = tuple(y_dims), n_cores, \
             dropout
+        self.remat = remat
         kw = dict(device=device, dtype=dtype,
                   generator=init_generator(generator))
         self.encoder = GNBlock(x_dims, core_dims, **kw)
         self.core = GNCoreList([GNCore(core_dims, dropout, **kw)
-                                for _ in range(n_cores)])
+                                for _ in range(n_cores)], remat=remat)
         self.decoder = GNBlock(core_dims, y_dims, **kw)
 
     def forward(self, g: GraphsTuple, training: bool = False,

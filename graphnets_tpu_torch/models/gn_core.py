@@ -185,10 +185,22 @@ class GNCoreList(nn.Module):
     A module passed more than once (``[GNCore(dims)] * 3``, as with the JAX
     package's stateless descriptors) is copied, so every position owns its
     parameters; the copies start from the same weights.
+
+    ``remat=True`` runs each core under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
+    each core in ``jax.checkpoint``: the activations inside a core are
+    recomputed in the backward instead of stored, so training memory
+    scales with one core instead of the stack.  Dropout draws from an
+    explicit generator, which checkpointing's own RNG stash does not
+    cover: the generator's state at the start of each core is kept and
+    restored for the recompute (and the generator put back after it), so
+    the recompute draws the forward's masks, as JAX passes the core's key
+    into the checkpoint.  Loss and gradients equal ``remat=False``'s.
     """
 
-    def __init__(self, cores: Sequence[nn.Module]):
+    def __init__(self, cores: Sequence[nn.Module], remat: bool = False):
         super().__init__()
+        self.remat = remat
         seen = set()
         for i, core in enumerate(cores):
             if id(core) in seen:
@@ -199,5 +211,52 @@ class GNCoreList(nn.Module):
     def forward(self, g: GraphsTuple, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> GraphsTuple:
         for core in self.children():
-            g = core(g, training=training, generator=generator)
+            if self.remat and torch.is_grad_enabled():
+                g = _checkpointed(core, g, training, generator)
+            else:
+                g = core(g, training=training, generator=generator)
         return g
+
+
+def _checkpointed(core: nn.Module, g: GraphsTuple, training: bool,
+                  generator: Optional[torch.Generator]) -> GraphsTuple:
+    """``core(g)`` under non-reentrant activation checkpointing.  The
+    core's parameters as they are now (the compute-dtype casts that a
+    training step's ``functional_call`` swaps in) are inputs of the
+    checkpoint, so the recompute in the backward, which runs after that
+    call has put the masters back, uses the same tensors.  The recompute
+    replays ``generator`` from the state the forward began with.  The
+    models draw nothing from the default generators, so checkpointing's
+    own RNG stash is off."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    names, values = zip(*core.named_parameters())
+
+    def run(x, *params):
+        return functional_call(core, dict(zip(names, params)), (x,),
+                               {"training": training, "generator": generator})
+
+    fn = run
+    if generator is not None and training:
+        if (generator.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise NotImplementedError(
+                "remat with dropout on a CUDA generator is not supported "
+                "under CUDA-graph capture")
+        start = generator.get_state()
+        calls = [0]
+
+        def fn(x, *params):
+            calls[0] += 1
+            if calls[0] == 1:
+                return run(x, *params)
+            after = generator.get_state()
+            generator.set_state(start)
+            try:
+                return run(x, *params)
+            finally:
+                generator.set_state(after)
+
+    return checkpoint(fn, g, *values, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -222,9 +222,11 @@ def _forward(ef, scale, bias, w0, src, tr, rl, gb, has_ln, with_agg,
                    rl, gb, has_ln, with_agg, out=src if alias else None)
 
 
-def _backward_core(ctx, g):
-    """``_bwd_core`` (``edge_update_g1.py:398-428``)."""
-    ef, scale, bias, w0, rl = ctx.saved_tensors
+def _backward_core(ctx, saved, g):
+    """``_bwd_core`` (``edge_update_g1.py:398-428``).  ``saved`` is
+    ``ctx.saved_tensors``, unpacked once by the caller (activation
+    checkpointing lets a backward unpack them only once)."""
+    ef, scale, bias, w0, rl = saved
     n_nodes, src_dtype, tr_dtype, gb_dtype, has_ln = ctx.meta
     g = g.contiguous()
     d_src = g.to(src_dtype)
@@ -270,7 +272,7 @@ class _G1EdgeUpdate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _backward_core(ctx, g)
+        return _backward_core(ctx, ctx.saved_tensors, g)
 
 
 class _G1EdgeUpdateAgg(torch.autograd.Function):
@@ -284,14 +286,15 @@ class _G1EdgeUpdateAgg(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_h, g_agg):
-        rl = ctx.saved_tensors[4]
+        saved = ctx.saved_tensors
+        rl = saved[4]
         # agg = segment_sum(h): its pullback is the sorted gather, taken in
         # h's type and added to g_h in f32 with one rounding
         # (``edge_update_g1.py:478-480``).
         gh = (g_h.float()
               + sorted_gather(g_agg.to(g_h.dtype).contiguous(), rl).float()
               ).to(g_h.dtype)
-        return _backward_core(ctx, gh)
+        return _backward_core(ctx, saved, gh)
 
 
 def _unpack_ln(ef, ef_ln):

@@ -18,13 +18,19 @@ are not ported.
 :func:`make_node_classification_step` is the step of sampled training on a
 large graph (``data/large_graph``): a device gather of the node features,
 the seed nodes' masked cross-entropy, and the optimizer step.
+
+:func:`capture_step` is the port's ``jax.jit(step, donate_argnums=0)``:
+on the card it captures a step as a CUDA graph, one per input structure,
+and replays it, so a step costs one graph launch on the host instead of a
+Python walk over ~1,400 kernel launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,20 +40,38 @@ from torch.func import functional_call
 from ..data.sort_task import SortTaskConfig, get_batch, sort_pad_spec
 from ..graph import GraphsTuple
 from ..models.encode_process_decode import EncodeProcessDecode
-from ..utils.config import resolve_device
+from ..utils.config import get_config, resolve_device
+from ..utils.tree import map_tensors, structure, tensors
 from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
                      masked_logit_crossentropy)
 
-__all__ = ["adamw", "make_train_step", "make_node_classification_step",
+__all__ = ["adam", "adamw", "make_train_step",
+           "make_node_classification_step", "capture_step", "CapturedStep",
            "train_sort", "SortTrainResult"]
+
+
+def _on_cuda(params) -> bool:
+    return bool(params) and all(p.is_cuda for p in params)
 
 
 def adamw(params: Iterable[torch.Tensor], lr: float = 3e-4
           ) -> torch.optim.AdamW:
     """``optax.adamw(lr)`` in torch: betas (0.9, 0.999), eps 1e-8 and
-    weight decay 1e-4 (torch's default decay is 1e-2)."""
+    weight decay 1e-4 (torch's default decay is 1e-2).  On CUDA
+    parameters it is ``capturable``, so :func:`capture_step` can take its
+    update into a CUDA graph."""
+    params = list(params)
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
+                             weight_decay=1e-4, capturable=_on_cuda(params))
+
+
+def adam(params: Iterable[torch.Tensor], lr: float = 1e-3
+         ) -> torch.optim.Adam:
+    """``optax.adam(lr)`` in torch: betas (0.9, 0.999), eps 1e-8;
+    ``capturable`` on CUDA parameters, as :func:`adamw`."""
+    params = list(params)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=_on_cuda(params))
 
 
 def make_train_step(
@@ -94,6 +118,9 @@ def make_train_step(
                 "graph_acc": graph_accuracy(pred, y),
             }
 
+    # What capture_step restores after its warm-up calls.
+    step.model, step.optimizer = model, optimizer
+    step.generators = () if generator is None else (generator,)
     return step
 
 
@@ -126,7 +153,10 @@ def make_node_classification_step(
             n: p.to(compute_dtype) for n, p in params.items()}
         pred = functional_call(model, run, (graph,), {"training": True})
         logits = pred.nf.index_select(0, seed_idx)
-        onehot = torch.nn.functional.one_hot(labels.long(), n_classes)
+        # jax.nn.one_hot: a label outside [0, n_classes) (an OGB dataset's
+        # -1 for an unlabelled node) is a row of zeros.
+        onehot = labels.long()[:, None] == torch.arange(
+            n_classes, device=labels.device)
         loss = masked_logit_crossentropy(logits, onehot, label_mask)
         loss.backward()
         for p in params.values():
@@ -135,18 +165,160 @@ def make_node_classification_step(
         optimizer.step()
         return loss.detach()
 
+    step.model, step.optimizer, step.generators = model, optimizer, ()
     return step
+
+
+class CapturedStep:
+    """A training step captured as CUDA graphs: the port's
+    ``jax.jit(step, donate_argnums=0)`` (see :func:`capture_step`).
+
+    ``step`` is a step built by :func:`make_train_step` or
+    :func:`make_node_classification_step` (it carries its ``model``,
+    ``optimizer`` and dropout ``generators``).  The first call for a given
+    input structure (every tensor's shape, dtype and device, the host
+    metadata of a ``GraphsTuple``: ``homogeneous``, ``slot_shape``,
+    ``pad_aliases_real``, ..., and the port's switches in
+    ``utils/config``) warms the step up and captures it; later calls copy
+    their inputs into the captured ones and replay.  That is one graph per
+    bucket shape, as jit retraces, and every graph draws on one memory pool.
+
+    The warm-up runs ``WARMUP_CALLS`` steps on a side stream: they build
+    the kernel libraries, open ``libcuda`` for the TMA descriptors'
+    ``cuTensorMapEncodeTiled`` and grow the sorted sum's counters, work
+    that belongs outside a capture.  Then the parameters, the optimizer's state (its step counts
+    too) and the generators are put back as they were before the warm-up,
+    so no warm-up step counts.  The capture runs under
+    ``capture_error_mode="global"``; a refused call raises, and nothing
+    falls back to eager on the card.  A step on CPU tensors runs eagerly:
+    the caller asked for the CPU.
+
+    Outputs are fresh tensors, as jit's are.  After a replay the
+    parameters and the optimizer's state hold the step's update; the
+    parameters' ``.grad`` belong to the graph and are not the step's
+    output.  The optimizer must be ``Adam`` or ``AdamW``: their fresh state
+    is all zeros, which is what the restore writes into the state the
+    warm-up created (``capturable=True`` on CUDA, as :func:`adam` and
+    :func:`adamw` make it).
+
+    ``captures``, ``replays`` and ``traced_calls`` (eager calls of the step
+    itself: warm-ups and captures, the calls that pass through the kernel
+    wrappers' launch counters) count what happened.
+    """
+
+    WARMUP_CALLS = 2
+
+    def __init__(self, step: Callable):
+        self.step = step
+        self.model: nn.Module = step.model
+        self.optimizer: torch.optim.Optimizer = step.optimizer
+        self.generators = tuple(step.generators)
+        if not isinstance(self.optimizer, (torch.optim.Adam,
+                                           torch.optim.AdamW)):
+            raise TypeError("capture_step restores Adam / AdamW state only, "
+                            f"got {type(self.optimizer).__name__}")
+        self._graphs: Dict[Any, Tuple] = {}
+        self._pool = None
+        self.captures = self.replays = self.traced_calls = 0
+
+    def __call__(self, *args):
+        flat = tensors(args)
+        if not any(t.is_cuda for t in flat):
+            return self.step(*args)
+        if not all(t.is_cuda for t in flat):
+            raise ValueError("capture_step: the inputs mix CPU and CUDA "
+                             "tensors")
+        key = (structure(args), dataclasses.astuple(get_config()))
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(args)
+        graph, static_in, static_out = entry
+        for dst, src in zip(static_in, flat):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        graph.replay()
+        self.replays += 1
+        return map_tensors(lambda t: t.clone(), static_out)
+
+    def _snapshot(self):
+        params = [p.detach().clone() for p in self.model.parameters()]
+        state = {p: {k: v.clone() for k, v in self.optimizer.state[p].items()}
+                 for group in self.optimizer.param_groups
+                 for p in group["params"] if self.optimizer.state.get(p)}
+        gens = [g.get_state() for g in self.generators]
+        return params, state, gens
+
+    def _restore(self, snap) -> None:
+        """Put back what :meth:`_snapshot` saw, in place (the captured
+        graph keeps the addresses).  State the warm-up created is zeroed:
+        a fresh Adam / AdamW state."""
+        params, state, gens = snap
+        with torch.no_grad():
+            for p, saved in zip(self.model.parameters(), params):
+                p.copy_(saved)
+            for p, st in self.optimizer.state.items():
+                for k, v in st.items():
+                    if p in state:
+                        v.copy_(state[p][k])
+                    else:
+                        v.zero_()
+        for g, s in zip(self.generators, gens):
+            g.set_state(s)
+
+    def warm_up(self, *args) -> None:
+        """``WARMUP_CALLS`` eager steps on ``args`` (on a side stream on the
+        card), then the parameters, the optimizer's state and the
+        generators as they were before."""
+        snap = self._snapshot()
+        side = None
+        if any(t.is_cuda for t in tensors(args)):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            for _ in range(self.WARMUP_CALLS):
+                self.step(*args)
+                self.traced_calls += 1
+        if side is not None:
+            torch.cuda.current_stream().wait_stream(side)
+        self._restore(snap)
+
+    def _capture(self, args) -> Tuple:
+        static_args = map_tensors(lambda t: t.clone(), args)
+        self.warm_up(*static_args)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            if g.device.type == "cuda":
+                graph.register_generator_state(g)
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="global"):
+            static_out = self.step(*static_args)
+        self.traced_calls += 1
+        self.captures += 1
+        return graph, tensors(static_args), static_out
+
+
+def capture_step(step: Callable) -> CapturedStep:
+    """``step`` captured as CUDA graphs and replayed (:class:`CapturedStep`),
+    the counterpart of ``jax.jit(step, donate_argnums=0)``: the parameters
+    and the optimizer's state are updated in place, as donation lets XLA
+    do.  On CPU tensors the step runs eagerly."""
+    return CapturedStep(step)
 
 
 @dataclasses.dataclass
 class SortTrainResult:
     """The trained ``model`` (it holds the parameters), its ``optimizer``
-    (the AdamW moments), the last step's ``metrics`` as floats, and the
-    throughput without the first step."""
+    (the AdamW moments), the last step's ``metrics`` as floats, the
+    throughput without the first step, and the step itself (a
+    :class:`CapturedStep`, to go on training)."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     metrics: dict
     steps_per_sec: float
+    step: Optional[Callable] = None
 
 
 def train_sort(
@@ -164,8 +336,9 @@ def train_sort(
     ``n_cores`` GNCores, decoder to ``(2, 2, 0)``, AdamW, on batches from
     the host generator seeded with ``seed``.  Runs on ``device`` (``cuda``
     unless the caller passes another); a ``model`` passed in must already
-    live there.  The first step (kernel builds, allocator warm-up) is left
-    out of ``steps_per_sec``."""
+    live there.  The step goes through :func:`capture_step` (eager on the
+    CPU).  The first step (kernel builds, warm-up, capture) is left out of
+    ``steps_per_sec``."""
     device = resolve_device(device)
     if model is None:
         model = EncodeProcessDecode(
@@ -173,7 +346,8 @@ def train_sort(
             y_dims=(2, 2, 0), n_cores=n_cores, device=device,
             generator=torch.Generator().manual_seed(seed))
     optimizer = adamw(model.parameters(), learning_rate)
-    step_fn = make_train_step(model, optimizer)
+    # On the card the step is captured and replayed, as JAX's jit.
+    step_fn = capture_step(make_train_step(model, optimizer))
 
     def wait():
         if device.type == "cuda":
@@ -197,4 +371,4 @@ def train_sort(
     return SortTrainResult(
         model=model, optimizer=optimizer,
         metrics={k: float(v) for k, v in metrics.items()},
-        steps_per_sec=(steps - 1) / dt if steps > 1 else 0.0)
+        steps_per_sec=(steps - 1) / dt if steps > 1 else 0.0, step=step_fn)

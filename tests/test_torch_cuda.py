@@ -958,3 +958,173 @@ def test_g1_public_call_writes_over_a_dead_src_only(cuda):
     torch.cuda.synchronize()
     assert ha.data_ptr() == args[3].data_ptr()
     assert torch.equal(ha, h) and torch.equal(agga, agg)
+
+
+# -- The captured step, prefetch to the card, remat on the kernel route -----
+#
+# One step captured as a CUDA graph against the same step run eagerly from
+# the same state on the same batch: the loss within 1e-5 relative, every
+# parameter after the step within 1e-5 of its largest magnitude plus a
+# tenth of the learning rate (the graph pools' f32 atomics allow no more).
+
+
+def _graph_batch(cuda, layout, n_graphs=4, n=30, d=128, seed=0):
+    import graphnets_tpu_torch as pt
+    rng = np.random.default_rng(seed)
+    adjs = [(rng.random((n, n)) < 0.3).astype(np.int64)
+            for _ in range(n_graphs)]
+    E = sum(int(a.sum()) for a in adjs)
+    data = {"graphs": adjs,
+            "ef": [rng.normal(size=(int(a.sum()), d)).astype(np.float32)
+                   for a in adjs],
+            "nf": [rng.normal(size=(n, d)).astype(np.float32) for _ in adjs],
+            "gf": rng.normal(size=(n_graphs, d)).astype(np.float32)}
+    pad = (pt.PadSpec.uniform(n + 2, max(int(a.sum()) for a in adjs) + 64)
+           if layout == "uniform" else
+           pt.PadSpec.bucketed(n_graphs * n, E, n_graphs, node_multiple=32))
+    x = pt.batch(data, pad=pad, device=cuda)
+    bf = lambda t: t.to(torch.bfloat16)
+    x = x.with_features(ef=bf(x.ef), nf=bf(x.nf), gf=bf(x.gf))
+    t = lambda *s: bf(torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda))
+    return x, x.with_features(ef=t(*x.ef.shape), nf=t(*x.nf.shape), gf=None)
+
+
+def _core_step(cuda, d=128, remat=False, lr=3e-4):
+    import graphnets_tpu_torch as pt
+    gen = torch.Generator().manual_seed(0)
+    model = pt.GNCoreList([pt.GNCore((d, d, d), device=cuda, generator=gen)
+                           for _ in range(2)], remat=remat)
+    return model, pt.make_train_step(model, pt.adamw(model.parameters(), lr),
+                                     compute_dtype=torch.bfloat16)
+
+
+def _one_step_rule(models, losses, lr):
+    a, b = (float(v) for v in losses)
+    assert np.isfinite(a) and abs(a - b) <= 1e-5 * abs(b), (a, b)
+    for (n, p), q in zip(models[0].named_parameters(),
+                         models[1].parameters()):
+        if p.numel():
+            bound = 1e-5 * float(q.abs().max()) + 0.1 * lr
+            assert float((p - q).abs().max()) <= bound, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["uniform", "bucketed"])
+def test_captured_train_step_matches_eager(cuda, layout):
+    import graphnets_tpu_torch as pt
+    pt.enable_kernels(True)
+    x, y = _graph_batch(cuda, layout)
+    (mc, sc), (me, se) = _core_step(cuda), _core_step(cuda)
+    cap = pt.capture_step(sc)
+    _one_step_rule((mc, me), (cap(x, y)["loss"], se(x, y)["loss"]), 3e-4)
+    assert cap.captures == 1 and cap.replays == 1
+    losses = [float(cap(x, y)["loss"]) for _ in range(5)]
+    assert all(np.isfinite(losses)) and cap.captures == 1
+
+
+def _sampled_setup(cuda, seed=0, n=3000, e=30000, d=128, classes=8):
+    import graphnets_tpu_torch as pt
+    rng = np.random.default_rng(seed)
+    g = pt.LargeGraph.from_coo(rng.integers(0, n, e), rng.integers(0, n, e),
+                               rng.normal(size=(n, d)).astype(np.float32),
+                               rng.integers(0, classes, n))
+    return g, pt.device_feature_table(g, torch.bfloat16, device=cuda)
+
+
+def _sampled_step(cuda, d=128, classes=8, lr=1e-3):
+    import graphnets_tpu_torch as pt
+    model = pt.EncodeProcessDecode((0, d, 0), (256,) * 3, (1, classes, 0),
+                                   n_cores=2, device=cuda,
+                                   generator=torch.Generator().manual_seed(0))
+    return model, pt.make_node_classification_step(
+        model, pt.adam(model.parameters(), lr), classes,
+        compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_captured_sampled_step_matches_eager(cuda):
+    import graphnets_tpu_torch as pt
+    pt.enable_kernels(True)
+    g, feat = _sampled_setup(cuda)
+    b = pt.NeighborSampler(g, (10, 10), 64, seed=1, emit_node_ids=True,
+                           device=cuda).sample(np.arange(64))
+    args = (b.graph, b.node_ids, b.labels, b.label_mask, b.seed_local_idx,
+            feat)
+    (mc, sc), (me, se) = _sampled_step(cuda), _sampled_step(cuda)
+    cap = pt.capture_step(sc)
+    _one_step_rule((mc, me), (cap(*args), se(*args)), 1e-3)
+
+
+@pytest.mark.cuda
+def test_prefetch_pool_to_the_card(cuda):
+    """Pinned CPU batches moved by the workers on their own streams arrive
+    on the card equal to the in-line sampler's, and a step on them runs."""
+    import itertools
+    import graphnets_tpu_torch as pt
+    g, feat = _sampled_setup(cuda, seed=1)
+
+    def sampler(seed, **kw):
+        return pt.NeighborSampler(g, (5, 5), 32, seed=seed,
+                                  emit_node_ids=True, **kw)
+
+    def factory(wid):
+        it = sampler(10 + wid, device="cpu", pin_memory=True).epoch(
+            np.arange(g.num_nodes))
+        for i, b in enumerate(itertools.islice(it, 6)):
+            assert b.node_ids.is_pinned()
+            yield wid, i, b
+
+    got = list(pt.PrefetchPool(factory, num_workers=3, device=cuda))
+    assert len(got) == 18
+    for wid, i, b in got:
+        ref = list(itertools.islice(sampler(10 + wid, device="cpu").epoch(
+            np.arange(g.num_nodes)), 6))[i]
+        for have, want in zip((b.node_ids, b.graph.senders, b.graph.receivers,
+                               b.labels, b.label_mask),
+                              (ref.node_ids, ref.graph.senders,
+                               ref.graph.receivers, ref.labels,
+                               ref.label_mask)):
+            assert have.is_cuda and torch.equal(have.cpu(), want)
+    one = [b for _, _, b in got][:3]
+    out = [feat.index_select(0, b.node_ids).float().sum() for b in one]
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in out)
+
+
+@pytest.mark.cuda
+def test_remat_on_the_kernel_route(cuda):
+    """A bf16 step of a stack under remat on the card, against the same
+    step without: loss within 1e-5 relative, each gradient within 1e-2 of
+    its largest magnitude (f32 atomics in the graph pools)."""
+    import graphnets_tpu_torch as pt
+    pt.enable_kernels(True)
+    x, y = _graph_batch(cuda, "uniform", seed=3)
+    out = []
+    for remat in (False, True):
+        m, step = _core_step(cuda, remat=remat)
+        loss = float(step(x, y)["loss"])
+        out.append((loss, {n: p.grad.clone()
+                           for n, p in m.named_parameters()}))
+    (l0, g0), (l1, g1) = out
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for n in g0:
+        assert float((g1[n] - g0[n]).abs().max()) <= \
+            1e-2 * float(g0[n].abs().max()) + 1e-12, n
+
+
+@pytest.mark.cuda
+def test_two_captured_graphs_share_one_pool(cuda):
+    """Two bucket shapes give two graphs of one memory pool; replays in
+    any order each equal an eager step from the same state."""
+    import graphnets_tpu_torch as pt
+    pt.enable_kernels(True)
+    xs = [_graph_batch(cuda, "bucketed", n=n, seed=n) for n in (30, 40)]
+    (mc, sc), (me, se) = _core_step(cuda), _core_step(cuda)
+    cap = pt.capture_step(sc)
+    for i in (0, 1, 1, 0, 1):
+        x, y = xs[i]
+        _one_step_rule((mc, me), (cap(x, y)["loss"], se(x, y)["loss"]),
+                       3e-4)
+    assert cap.captures == 2 and cap.replays == 5
+    assert len({id(v[1]) for v in cap._graphs.values()}) == 2

@@ -1,9 +1,9 @@
 """The port's large-graph store, neighbour sampler and node-classification
 step against graphnets_tpu's.
 
-Both packages sample with the same numpy ``default_rng`` stream (the JAX
-package with its native sampler switched off), so one seed gives bit-equal
-batches.  The sampled batch is a single graph whose layout the single-graph
+Here both packages sample with the same numpy ``default_rng`` stream
+(their native samplers switched off), so one seed gives bit-equal batches;
+``test_torch_native.py`` holds the default, native, samplers to each other.  The sampled batch is a single graph whose layout the single-graph
 edge-update kernel and the sorted segment sum rest on: receivers ascending,
 pads on a pad node behind every real receiver, capacities multiples of 128.
 The step (device gather of the features, model under training, the seed
@@ -42,8 +42,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture
 def numpy_sampler(monkeypatch):
-    """The JAX package on its numpy sampling path."""
+    """Both packages on their numpy sampling paths."""
     monkeypatch.setattr(j_native, "available", lambda: False)
+    monkeypatch.setenv("GRAPHNETS_TPU_TORCH_NATIVE", "0")
 
 
 @pytest.fixture

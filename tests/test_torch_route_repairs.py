@@ -299,6 +299,7 @@ def test_node_classification_trajectory_matches_jax(monkeypatch, route):
     trajectory is JAX's, so a divergence of the loss on the card over such
     steps belongs to the model and its data, not to the port."""
     monkeypatch.setattr(j_native, "available", lambda: False)
+    monkeypatch.setenv("GRAPHNETS_TPU_TORCH_NATIVE", "0")
     restore = _route(route == "kernels")
     try:
         rng = np.random.default_rng(0)
