@@ -5,9 +5,9 @@
     python3 chip_smoke.py --gates    # only the training-gate timings
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
-(4b drives the training step; A and B drive the non-uniform route; C and D
-the single large graph, forward, training and sampled training; R the
-random gather):
+(4b drives the training step; A and B drive the non-uniform route, S the
+sort flagship's device loop; C and D the single large graph, forward,
+training and sampled training; R the random gather):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``graphnets_tpu_torch/csrc`` with ``nvcc``
@@ -77,6 +77,39 @@ A. run the sort-task flagship (``examples/sort_torch.py``: encoder ->
    kernel; then
    ``sort_accuracy`` on a few batches, on both routes.  Print steps/s,
    the eager and the device time of a step and a profile;
+S. run the sort flagship as the JAX package runs it by default
+   (``examples/sort.py`` without ``--host-loop``): ``train_sort_device`` at
+   A's full width (f32, batch 4, AdamW(3e-4)) for 3 chunks of 200 steps,
+   each step drawing its batch on the card (``device_batch``) inside the
+   step captured as a CUDA graph, the metrics summed on the card and read
+   once a chunk.  It checks (a) 8 device batches (and 2 in the uniform
+   layout) against ``validate_graph`` and the host generator's semantics
+   (``tests/test_device_data.py``); (b) one eager step on the kernel route
+   against the plain route from the same state and generator state, A's
+   limits (loss 1e-4 relative, gradients 1e-3 of each tensor's largest
+   magnitude); (c) the launches of that step, set to 0 just before and read
+   just after: ``ln_matmul`` x2, the LN backward x2, the windowed sum x3
+   and nothing else; the same for its bf16 variants on both layouts
+   (launches in ``S_PER_STEP``) under phase 4b's bf16 rule, with an f32
+   twin on the same batch for the pure route's bf16-vs-f32 distance; (d) a
+   captured chunk of 4 steps against 4 eager steps from the same state
+   (the captured check's limits: mean loss 1e-5 relative, parameters 1e-5
+   of their largest magnitude + 0.1 lr); (e) replays of a captured batch
+   draw the batches eager calls draw from the same generator state, and
+   two replays differ; the 600 steps, counted (3x a step: two warm-ups
+   and the capture); (f) a checkpoint after 2 chunks restored into a fresh
+   model and optimizer, then the last chunk: bit-equal to the run straight
+   through; (i) the example's ``show_sample`` writes its three SVGs; (g)
+   ``evaluate_sort`` (16 device batches, captured) on both routes within
+   one slot a batch; (h) a chunk of 100 bf16 steps in each layout, finite.
+   Print the loop's steps/s beside A's ``train_sort``, the captured step's
+   time (batch generation included), the eager step, a profile of it and
+   of one replay (the busy share is the replay's kernel time over the
+   captured step's time).  Phase 3 holds the bf16 variants' kernels at
+   their shapes: ``ln_matmul`` (f32 addend) and the LN backward on
+   [512, 384] bf16 rows; on the uniform sort layout (4 graphs of 16 node /
+   128 edge slots) both edge updates at d = 384, ``sorted_gather_add``
+   from a [64, 384] f32 table and both segment sums on bf16 and f32 rows;
 B. run the headline model on a bucket-padded batch (``bench.py``'s eight
    graphs batched with ``PadSpec.bucketed(1024, 16384, 8,
    node_multiple=32)``: N = 1056, E = 16384, G = 9, bf16): one forward,
@@ -307,6 +340,20 @@ def profile_forward(torch, fn, host_rows=None):
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     return rows, sum(r[0] for r in rows), wall_ms
+
+
+def profile_replay(torch, replay):
+    """The kernels of one replay of a captured step (``torch.profiler``
+    records a CUDA graph's kernels): their count and summed device time,
+    ``replay_busy_ms`` None where the profile shows no device time."""
+    rows, busy, _ = profile_forward(torch, replay)
+    return {"replay_busy_ms": busy or None,
+            "replay_kernels": sum(r[1] for r in rows)}
+
+
+def busy_share(busy_ms, wall_ms):
+    """``busy_ms / wall_ms`` to three places, or "not measured"."""
+    return "not measured" if busy_ms is None else f"{busy_ms / wall_ms:.3f}"
 
 
 def bound_ms(nbytes, flops, flops_f32=0):
@@ -955,9 +1002,11 @@ def log_train(what, train, n_edges, where):
     cap = train["captured"]
     log(f"{what} captured as a CUDA graph: {cap['captured_ms']:.4f} ms a "
         f"step ({n_edges / cap['captured_ms'] * 1e3:.4e} edges/s) against "
-        f"{cap['eager_ms']:.4f} ms eager, kernel route; busy share "
-        f"{min(1.0, train['busy_ms'] / cap['captured_ms']):.3f} (profiled "
-        f"kernel time of an eager step / captured time); {where}")
+        f"{cap['eager_ms']:.4f} ms eager, kernel route; one profiled replay "
+        f"{cap['replay_kernels']} kernels of "
+        f"{cap['replay_busy_ms'] or 0:.4f} ms, busy share "
+        f"{busy_share(cap['replay_busy_ms'], cap['captured_ms'])} (kernel "
+        f"time of a replay / captured time); {where}")
 
 
 SORT_STEPS, SORT_EVAL_BATCHES = 30, 4
@@ -1054,6 +1103,7 @@ def sort_phase(torch, pt, zero_counts, read_counts):
     pt.enable_kernels(True)
     captured = pt.capture_step(step)
     captured_ms = cuda_ms(torch, lambda: captured(x, y), iters=10)
+    replay = profile_replay(torch, lambda: captured(x, y))
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: res.model(x), iters=10)
         fwd_graph_ms = graph_ms(torch, lambda: res.model(x), iters=10)
@@ -1069,7 +1119,341 @@ def sort_phase(torch, pt, zero_counts, read_counts):
             "kernels_per_step": sum(r[1] for r in prof_rows),
             "pure_busy_ms": pure_busy_ms,
             "pure_kernels_per_step": sum(r[1] for r in pure_rows),
-            "fwd_ms": fwd_ms, "fwd_graph_ms": fwd_graph_ms}
+            "fwd_ms": fwd_ms, "fwd_graph_ms": fwd_graph_ms, **replay}
+
+
+# Phase S: the sort flagship as the JAX package runs it by default.
+S_CHUNK, S_CHUNKS = 200, 3       # train_sort_device: 3 chunks of 200 steps
+S_CHECK_STEPS = 4                # the captured chunk held to the eager one
+S_BF16_CHUNK = 100
+S_EVAL_BATCHES = 16
+# What one eager step of the device loop launches (phase A's f32 step),
+# and its bf16 variants: the non-uniform layout takes the same kernels in
+# bf16; the uniform one (16 node / 128 edge slots a graph, which pass the
+# JAX gate's _pick_k) takes the fused edge update without its sum under
+# training, and the sorted sums of its backward.
+S_PER_STEP = {
+    "f32": dict(ln_matmul=2, ln_backward=2, windowed=3),
+    "bf16": dict(ln_matmul=2, ln_backward=2, windowed=3),
+    "bf16 uniform": dict(edge=2, gather_add=1, ln_backward=2, windowed=3,
+                         segment_sum=3),
+}
+
+
+def check_sort_batch(pt, x, y, cfg):
+    """Phase S (a): a device batch passes ``validate_graph`` and the
+    host-generator semantics of ``tests/test_device_data.py``: one-hot
+    inputs, "is minimum" node targets, the full graph in canonical
+    column-major order, the host generator's edge targets, clean padding.
+    Raises ``SystemExit`` on a miss."""
+    from graphnets_tpu_torch.data.sort_task import _edge_targets
+
+    def need(ok, what):
+        if not ok:
+            raise SystemExit(f"device batch: {what}")
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    for g in (x, y):
+        pt.validate_graph(g)
+    B = cfg.batch_size
+    n_node, n_edge = host(x.n_node), host(x.n_edge)
+    need(((n_node[:B] >= cfg.min_nodes) & (n_node[:B] <= cfg.max_nodes)
+          ).all() and (n_edge[:B] == n_node[:B] ** 2).all(), "sizes")
+    nf, ynf, yef = host(x.nf), host(y.nf), host(y.ef)
+    s, r = host(x.senders), host(x.receivers)
+    nm, em = host(x.node_mask), host(x.edge_mask)
+    if x.slot_shape is None:
+        noff = np.concatenate([[0], np.cumsum(n_node[:B])])
+        eoff = np.concatenate([[0], np.cumsum(n_edge[:B])])
+    else:
+        noff = np.arange(B + 1) * x.slot_shape[0]
+        eoff = np.arange(B + 1) * x.slot_shape[1]
+    for b in range(B):
+        n = int(n_node[b])
+        rows = slice(noff[b], noff[b] + n)
+        vals = nf[rows].argmax(-1) + 1
+        need((nf[rows].sum(-1) == 1).all(), "one-hot inputs")
+        need((ynf[rows].argmax(-1) == (vals == vals.min())).all(),
+             "is-minimum targets")
+        edges, k = slice(eoff[b], eoff[b] + n * n), np.arange(n * n)
+        need((r[edges] - noff[b] == k // n).all()
+             and (s[edges] - noff[b] == k % n).all(), "canonical order")
+        need((yef[edges].argmax(-1) == _edge_targets(vals)).all(),
+             "edge targets")
+    need((nf[~nm] == 0).all() and (np.diff(r) >= 0).all(), "padding")
+    if x.slot_shape is None:
+        N = int(nm.sum())
+        need((s[~em] == N).all() and (r[~em] == N).all(), "pad edges")
+
+
+def device_sort_phase(torch, pt, zero_counts, read_counts):
+    """Phase S: ``train_sort_device`` (batches generated on the card inside
+    the captured step) at full width, with checks (a)-(i) of the script's
+    docstring.  Raises ``SystemExit`` on any miss."""
+    import importlib.util
+    import os
+    import tempfile
+    dev, lr = torch.device("cuda"), 3e-4
+    cfg = pt.SortTaskConfig()
+    kw = dict(cfg=cfg, core_dims=(D, D, D), n_cores=2, learning_rate=lr,
+              chunk=S_CHUNK)
+    out = {}
+
+    # (a) Device batches on the card.
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for uniform, count in ((False, 8), (True, 2)):
+        pad = pt.sort_pad_spec(cfg, uniform)
+        for _ in range(count):
+            check_sort_batch(pt, *pt.device_batch(gen, cfg, pad), cfg)
+    log("device batches: 8 sort_pad_spec and 2 uniform batches pass "
+        "validate_graph and the host generator's semantics")
+
+    def state(seed):
+        model = pt.EncodeProcessDecode(
+            (0, cfg.vocab_size, 0), (D, D, D), (2, 2, 0), n_cores=2,
+            device=dev, generator=torch.Generator().manual_seed(seed))
+        return pt.TrainState(model, pt.adamw(model.parameters(), lr), 0,
+                             (torch.Generator(device=dev).manual_seed(seed),))
+
+    # (b) + (c) One eager step on each route from the same state and
+    # generator state (so the same batch), the kernel route counted.
+    sk, sp = state(1), state(1)
+    step_k = pt.make_sort_device_step(sk, cfg)
+    step_p = pt.make_sort_device_step(sp, cfg)
+    zero_counts()
+    step_k()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    pt.enable_kernels(False)
+    step_p()
+    pt.enable_kernels(True)
+    loss, plain_loss = float(step_k.sums["loss"]), float(step_p.sums["loss"])
+    worst = (0.0, "")
+    for (n, p), q in zip(sk.model.named_parameters(),
+                         sp.model.parameters()):
+        if p.numel():
+            rel = float((p.grad - q.grad).abs().max()) / max(
+                float(q.grad.abs().max()), 1e-30)
+            worst = max(worst, (rel, n))
+    log(f"device sort step vs plain route: loss {loss:.7f} vs "
+        f"{plain_loss:.7f} (tolerance 1e-4 relative); worst gradient "
+        f"{worst[1]} off by {worst[0]:.3e} of its largest magnitude "
+        f"(tolerance 1e-3); launches {launches}")
+    if (not np.isfinite(loss) or worst[0] > 1e-3
+            or abs(loss - plain_loss) > 1e-4 * abs(plain_loss)):
+        raise SystemExit("the device sort step disagrees with the plain "
+                         "route")
+    want_counts(launches, S_PER_STEP["f32"], "the f32 device sort step")
+    out.update(step_launches=launches, loss=loss, plain_loss=plain_loss,
+               worst_grad=worst)
+    # The bf16 variants: the same check under phase 4b's bf16 rule (loss
+    # 1e-2 relative; each gradient within 5e-2 of its largest magnitude or
+    # the pure route's bf16-vs-f32 distance, from an f32 twin on the same
+    # batch), so each variant's kernels are held at its own shapes.
+    variants, bf16_checks = {}, {}
+    for name, uniform in (("bf16", False), ("bf16 uniform", True)):
+        pad = pt.sort_pad_spec(cfg, uniform)
+        sk, sp, s32 = state(1), state(1), state(1)
+        step_k = pt.make_sort_device_step(sk, cfg, pad, torch.bfloat16)
+        step_p = pt.make_sort_device_step(sp, cfg, pad, torch.bfloat16)
+        step_32 = pt.make_sort_device_step(s32, cfg, pad)
+        zero_counts()
+        step_k()
+        torch.cuda.synchronize()
+        variants[name] = read_counts()
+        pt.enable_kernels(False)
+        step_p()
+        step_32()
+        pt.enable_kernels(True)
+        loss_b, pure_b, f32_b = (float(x.sums["loss"])
+                                 for x in (step_k, step_p, step_32))
+        grads32 = dict(s32.model.named_parameters())
+        worst_b = (0.0, "")
+        for (n, p), q in zip(sk.model.named_parameters(),
+                             sp.model.parameters()):
+            if p.numel():
+                bound = max(5e-2 * float(q.grad.abs().max()),
+                            float((q.grad - grads32[n].grad).abs().max()))
+                err = float((p.grad - q.grad).abs().max())
+                worst_b = max(worst_b, (err / bound if bound > 0
+                                        else float(err > 0), n))
+        log(f"{name} device sort step vs plain route: loss {loss_b:.6f} vs "
+            f"{pure_b:.6f} (f32 twin {f32_b:.6f}; tolerance 1e-2 relative); "
+            f"worst gradient {worst_b[1]} at {worst_b[0]:.4f} of its bound "
+            f"(max of 5e-2 x its largest magnitude and the pure route's "
+            f"bf16-vs-f32 distance); launches {variants[name]}")
+        if (not np.isfinite(loss_b) or worst_b[0] > 1.0
+                or abs(loss_b - pure_b) > 1e-2 * abs(pure_b)):
+            raise SystemExit(f"the {name} device sort step disagrees with "
+                             f"the plain route")
+        want_counts(variants[name], S_PER_STEP[name],
+                    f"the {name} device sort step")
+        bf16_checks[name] = dict(loss=loss_b, plain_loss=pure_b,
+                                 f32_loss=f32_b, worst_grad=worst_b)
+    out.update(bf16_launches=variants, bf16_checks=bf16_checks)
+
+    # (d) A captured chunk against the eager chunk from the same state and
+    # generator state.
+    (sc, se) = state(2), state(2)
+    step_c = pt.make_sort_device_step(sc, cfg)
+    step_e = pt.make_sort_device_step(se, cfg)
+    cap = pt.capture_step(step_c)
+    zero_counts()
+    for _ in range(S_CHECK_STEPS):
+        cap()
+    torch.cuda.synchronize()
+    cap_launches = read_counts()
+    want_counts(cap_launches, {k: v * cap.traced_calls for k, v in
+                               S_PER_STEP["f32"].items()},
+                "the captured device sort step")
+    for _ in range(S_CHECK_STEPS):
+        step_e()
+    loss_c, loss_e = (float(x.sums["loss"]) / S_CHECK_STEPS
+                      for x in (step_c, step_e))
+    rel = abs(loss_c - loss_e) / abs(loss_e)
+    worst_p = (0.0, "")
+    for (n, p), q in zip(sc.model.named_parameters(), se.model.parameters()):
+        if p.numel():
+            p, q = p.detach(), q.detach()
+            bound = 1e-5 * float(q.abs().max()) + 0.1 * lr
+            worst_p = max(worst_p, (float((p - q).abs().max()) / bound, n))
+    log(f"captured device chunk of {S_CHECK_STEPS} steps vs eager: mean "
+        f"loss {loss_c:.7f} vs {loss_e:.7f} ({rel:.3e} relative, tolerance "
+        f"1e-5); worst parameter {worst_p[1]} at {worst_p[0]:.4f} of its "
+        f"bound (1e-5 x its largest magnitude + 0.1 x lr); {cap.captures} "
+        f"capture, {cap.replays} replays, launches {cap_launches}")
+    if not np.isfinite(loss_c) or rel > 1e-5 or worst_p[0] > 1.0:
+        raise SystemExit("the captured device chunk disagrees with the "
+                         "eager one")
+    out.update(chunk_check=dict(loss=loss_c, eager_loss=loss_e,
+                                loss_rel=rel, worst_param=worst_p))
+    out["eager_step_ms"] = cuda_ms(torch, step_e, iters=5)
+    out["captured_step_ms"] = cuda_ms(torch, cap, iters=20)
+    prof_rows, busy_ms, wall_ms = profile_forward(torch, step_e)
+    out.update(busy_ms=busy_ms, prof_rows=prof_rows,
+               kernels_per_step=sum(r[1] for r in prof_rows),
+               **profile_replay(torch, cap))
+
+    # (e) Replays of a captured batch draw fresh batches, the sequence
+    # eager calls draw from the same generator state.
+    bgen = torch.Generator(device=dev).manual_seed(3)
+
+    def batch_step():
+        x, y = pt.device_batch(bgen, cfg)
+        return x.nf, x.senders, x.n_node, y.ef
+
+    batch_step.generators = (bgen,)
+    bcap = pt.capture_step(batch_step)
+    start = bgen.get_state()
+    replays = [bcap() for _ in range(3)]
+    bgen.set_state(start)
+    eager = [batch_step() for _ in range(3)]
+    same = all(torch.equal(a, b) for ra, ea in zip(replays, eager)
+               for a, b in zip(ra, ea))
+    fresh = not torch.equal(replays[0][0], replays[1][0])
+    log(f"captured batch replays: equal to eager draws {same}, two replays "
+        f"differ {fresh}")
+    if not (same and fresh):
+        raise SystemExit("captured device batches do not follow their "
+                         "generator")
+
+    # The main path: 3 chunks of 200 steps, counters read around it.
+    zero_counts()
+    full = pt.train_sort_device(steps=S_CHUNKS * S_CHUNK, seed=0,
+                                log_fn=lambda st, m: log(
+                                    f"  step {st}: " + ", ".join(
+                                        f"{k}={v:.4f}"
+                                        for k, v in m.items())), **kw)
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    want_counts(train_launches, {k: v * full.step.traced_calls for k, v in
+                                 S_PER_STEP["f32"].items()},
+                "train_sort_device")
+    if (full.step.captures != 1
+            or full.step.replays != S_CHUNKS * S_CHUNK
+            or not all(np.isfinite(v) for v in full.metrics.values())):
+        raise SystemExit(f"train_sort_device: {full.step.captures} "
+                         f"captures, {full.step.replays} replays, metrics "
+                         f"{full.metrics}")
+    out.update(train_launches=train_launches, metrics=full.metrics,
+               steps_per_sec=full.steps_per_sec)
+
+    # (f) A checkpoint at a chunk boundary, restored into a fresh model and
+    # optimizer, then the last chunk: bit-equal to the run straight through.
+    with tempfile.TemporaryDirectory() as tmp:
+        half = pt.train_sort_device(steps=(S_CHUNKS - 1) * S_CHUNK, seed=0,
+                                    **kw)
+        mgr = pt.CheckpointManager(os.path.join(tmp, "ckpt"))
+        mgr.save(half.state.step, half.state)
+        resumed = mgr.restore(state(99))
+        rest = pt.train_sort_device(steps=S_CHUNK, state=resumed, **kw)
+        differ = [n for (n, p), q in zip(full.model.named_parameters(),
+                                         rest.model.parameters())
+                  if not torch.equal(p, q)]
+        log(f"resumed at step {half.state.step} from a checkpoint: "
+            f"{len(differ)} parameter tensors differ from the run straight "
+            f"through; metrics {rest.metrics} vs {full.metrics}")
+        if differ or rest.metrics != full.metrics or rest.state.step != \
+                full.state.step:
+            raise SystemExit(f"the resumed run is not bit-equal: {differ}")
+
+        # (i) The example's SVGs.
+        spec = importlib.util.spec_from_file_location(
+            "sort_torch_example", os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "examples",
+                "sort_torch.py"))
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        svg_dir = os.path.join(tmp, "svg")
+        example.show_sample(full.model, cfg, svg_dir=svg_dir)
+        svgs = {name: open(os.path.join(svg_dir, name)).read()
+                for name in sorted(os.listdir(svg_dir))}
+        if sorted(svgs) != ["input.svg", "pred.svg", "target.svg"] or not \
+                all(t.startswith("<svg") and t.endswith("</svg>")
+                    for t in svgs.values()):
+            raise SystemExit(f"the SVGs were not written: {sorted(svgs)}")
+        log(f"SVGs written: {', '.join(f'{n} ({len(t)} bytes)' for n, t in svgs.items())}")
+
+    # (g) evaluate_sort on both routes: the same batches (one generator
+    # seed), within one slot a batch: a flip of one node, one edge or one
+    # graph in each batch of the smallest graphs the task draws.
+    zero_counts()
+    acc = pt.evaluate_sort(full.model, cfg, n_batches=S_EVAL_BATCHES)
+    torch.cuda.synchronize()
+    eval_launches = read_counts()
+    pt.enable_kernels(False)
+    plain_acc = pt.evaluate_sort(full.model, cfg, n_batches=S_EVAL_BATCHES)
+    pt.enable_kernels(True)
+    B, m = cfg.batch_size, cfg.min_nodes
+    slack = dict(node_acc=1 / (B * m), edge_acc=1 / (B * m * m),
+                 graph_acc=1 / B)
+    log(f"evaluate_sort after {S_CHUNKS * S_CHUNK} steps ({S_EVAL_BATCHES} "
+        f"device batches, captured): {acc}; plain route {plain_acc} "
+        f"(within {slack}); launches {eval_launches}")
+    # Its forward is captured: two warm-ups and the capture pass through
+    # the wrappers, two ln_matmul each.
+    want_counts(eval_launches,
+                {"ln_matmul": 2 * (pt.CapturedStep.WARMUP_CALLS + 1)},
+                "evaluate_sort")
+    if any(abs(acc[k] - plain_acc[k]) > slack[k] for k in acc):
+        raise SystemExit("evaluate_sort differs between the routes")
+    out.update(acc=acc, plain_acc=plain_acc, eval_launches=eval_launches)
+
+    # (h) One chunk in bf16, in both layouts.
+    out["bf16_metrics"] = {}
+    for name, uniform in (("bf16", False), ("bf16 uniform", True)):
+        res = pt.train_sort_device(
+            steps=S_BF16_CHUNK, cfg=cfg, core_dims=(D, D, D), n_cores=2,
+            learning_rate=lr, chunk=S_BF16_CHUNK, seed=0,
+            dtype=torch.bfloat16, uniform=uniform)
+        log(f"{name} chunk of {S_BF16_CHUNK} steps: {res.metrics}")
+        if not all(np.isfinite(v) for v in res.metrics.values()):
+            raise SystemExit(f"non-finite {name} metrics: {res.metrics}")
+        out["bf16_metrics"][name] = res.metrics
+    return out
 
 
 def sorted_receivers(torch, E, N, kind, gen, device):
@@ -1332,7 +1716,8 @@ def captured_check(torch, pt, build, args, lr, per_step, zero_counts,
     return {"launches": launches, "traced_calls": cap.traced_calls,
             "loss": loss_c, "eager_loss": loss_e, "loss_rel": rel,
             "worst_param": worst, "replay_losses": losses,
-            "captured_ms": captured_ms, "eager_ms": eager_ms}
+            "captured_ms": captured_ms, "eager_ms": eager_ms,
+            **profile_replay(torch, lambda: cap(*args))}
 
 
 def large_forward_phase(torch, pt, g, zero_counts, read_counts):
@@ -2102,12 +2487,33 @@ def main() -> int:
     ln_cases += [check_ln_backward(torch, ll, lnp, T_E, 65, D=512),
                  check_ln_backward(torch, ll, lnp, T_E, 66, D=1024),
                  check_ln_backward(torch, ll, lnp, T_E, 67, f32, D=640)]
+    # Phase S's bf16 variants at their own shapes: ln_matmul and its
+    # backward on T_SORT bf16 rows (sort_pad_spec), and the uniform sort
+    # layout (4 graphs of 16 node / 128 edge slots, d = 384): both edge
+    # updates, the deferred receivers term and both sums on bf16 and f32
+    # rows.
+    cfg_s = pt.SortTaskConfig()
+    g_sort_u, _ = pt.device_batch(
+        torch.Generator(device="cuda").manual_seed(0), cfg_s,
+        pt.sort_pad_spec(cfg_s, uniform=True))
+    if ((g_sort_u.num_node_slots, g_sort_u.num_edge_slots,
+         g_sort_u.num_graph_slots, g_sort_u.slot_shape)
+            != (64, 512, 4, (16, 128))):
+        raise SystemExit("unexpected uniform sort layout from device_batch()")
+    edge_cases.append(check_edge_update_wide(torch, eu, 4, 16, 128, D, D,
+                                             83))
+    lnm_cases.append(check_ln_matmul(torch, ll, lnp, T_SORT, 84, bf, f32))
+    ln_cases.append(check_ln_backward(torch, ll, lnp, T_SORT, 85))
+    seg_sort_u = check_segment_sums(torch, ss, g_sort_u, 86)
+    seg_sort_u32 = check_segment_sums(torch, ss, g_sort_u, 87, torch.float32)
+    gather_add_sort = check_gather_add(torch, ga, g_sort_u, 88)
     checks = (edge_cases + ffn_cases + edge_h_cases
               + list(seg_cases.values()) + list(seg_bucket.values())
               + list(seg_bucket32.values()) + list(seg_sort32.values())
               + list(seg_large.values()) + list(seg_samp.values())
+              + list(seg_sort_u.values()) + list(seg_sort_u32.values())
               + gather_cases + ln_cases + lnm_cases
-              + [gather_add_case, gather_add_samp]
+              + [gather_add_case, gather_add_samp, gather_add_sort]
               + g1_cases + ffn_bwd_cases + [rg_case])
     for c in checks:
         log("check: " + json.dumps(c))
@@ -2151,9 +2557,32 @@ def main() -> int:
         f"{sort['busy_ms'] / sort['step_ms']:.3f} (kernel time / eager "
         f"time); pure route {sort['pure_kernels_per_step']} kernels of "
         f"{sort['pure_busy_ms']:.4f} ms; the step captured as a CUDA graph "
-        f"{sort['captured_step_ms']:.4f} ms; forward {sort['fwd_ms']:.4f} ms "
+        f"{sort['captured_step_ms']:.4f} ms, one profiled replay "
+        f"{sort['replay_kernels']} kernels of "
+        f"{sort['replay_busy_ms'] or 0:.4f} ms, busy share of a replay "
+        f"{busy_share(sort['replay_busy_ms'], sort['captured_step_ms'])}; "
+        f"forward {sort['fwd_ms']:.4f} ms "
         f"eager, {sort['fwd_graph_ms']:.4f} ms as a CUDA graph; {where}")
-    for dev_ms, count, name in sort["prof_rows"][:10]:
+    for dev_ms, count, name in sort["prof_rows"][:25]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+
+    # S. The sort flagship as the JAX package runs it by default.
+    t_s = time.perf_counter()
+    dsort = device_sort_phase(torch, pt, zero_counts, read_counts)
+    log(f"device sort loop (train_sort_device, {S_CHUNKS} chunks of "
+        f"{S_CHUNK} steps, f32, batches generated on the card): "
+        f"{dsort['steps_per_sec']:.4f} steps/s against "
+        f"{sort['steps_per_sec']:.4f} for phase A's host loop (train_sort); "
+        f"the captured step (batch generation included) "
+        f"{dsort['captured_step_ms']:.4f} ms a replay, eager "
+        f"{dsort['eager_step_ms']:.4f} ms, {dsort['kernels_per_step']} "
+        f"kernels of {dsort['busy_ms']:.4f} ms in one profiled eager step, "
+        f"{dsort['replay_kernels']} of {dsort['replay_busy_ms'] or 0:.4f} ms "
+        f"in one profiled replay, busy share of a replay "
+        f"{busy_share(dsort['replay_busy_ms'], dsort['captured_step_ms'])}; "
+        f"metrics of the last chunk {dsort['metrics']}; phase S took "
+        f"{time.perf_counter() - t_s:.1f} s; {where}")
+    for dev_ms, count, name in dsort["prof_rows"][:10]:
         log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
 
     # B. The headline model on the bucket-padded batch.
@@ -2232,7 +2661,10 @@ def main() -> int:
                           samp["first_launches"])
     chk = pipe["check"]
     log(f"sampled step captured as a CUDA graph: {chk['captured_ms']:.4f} ms "
-        f"against {chk['eager_ms']:.4f} ms eager; {where}")
+        f"against {chk['eager_ms']:.4f} ms eager; one profiled replay "
+        f"{chk['replay_kernels']} kernels of "
+        f"{chk['replay_busy_ms'] or 0:.4f} ms, busy share "
+        f"{busy_share(chk['replay_busy_ms'], chk['captured_ms'])}; {where}")
     log(f"sampled pipeline: {pipe['batches']} batches from {E_WORKERS} "
         f"prefetch workers (native sampler, pinned batches) into the "
         f"captured step: {pipe['pipe_ms']:.4f} ms a batch = "
@@ -2242,8 +2674,9 @@ def main() -> int:
         f"step with the in-line sampler "
         f"{samp['step_ms'] + samp['sample_ms']:.4f} ms = "
         f"{AX_BATCH / (samp['step_ms'] + samp['sample_ms']) * 1e3:.4e} "
-        f"seeds/s; a replay alone {pipe['replay_ms']:.4f} ms, busy share of "
-        f"the pipeline {min(1.0, pipe['replay_ms'] / pipe['pipe_ms']):.3f}; "
+        f"seeds/s; a replay alone {pipe['replay_ms']:.4f} ms, "
+        f"{pipe['replay_ms'] / pipe['pipe_ms']:.3f} of the pipeline's time "
+        f"a batch; "
         f"launches {pipe['launches']}; losses {pipe['losses']}; {where}")
 
     # R. random_gather through its entry point, against index_select.
@@ -2270,6 +2703,11 @@ def main() -> int:
     # 5. Results.
     paths = {"forward": fwd["launches"], "train_step": train["launches"],
              "sort_train_step": sort["first_launches"],
+             "sort_device_step": dsort["step_launches"],
+             "sort_device_train": dsort["train_launches"],
+             "sort_device_step_bf16": dsort["bf16_launches"]["bf16"],
+             "sort_device_step_bf16_uniform":
+                 dsort["bf16_launches"]["bf16 uniform"],
              "bucketed_forward": bfwd["launches"],
              "bucketed_train_step": btrain["launches"],
              "large_forward": lfwd["launches"],
@@ -2296,11 +2734,13 @@ def main() -> int:
                      ref + "segment_sum.py:193", by_path("segment_sum"),
                      [seg_cases["sorted"], seg_bucket["sorted"],
                       seg_bucket32["sorted"], seg_large["sorted"],
-                      seg_samp["sorted"]]),
+                      seg_samp["sorted"], seg_sort_u["sorted"],
+                      seg_sort_u32["sorted"]]),
         kernel_entry("windowed_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("windowed"),
                      [seg_cases["windowed"], seg_bucket["windowed"],
-                      seg_bucket32["windowed"], seg_sort32["windowed"]]),
+                      seg_bucket32["windowed"], seg_sort32["windowed"],
+                      seg_sort_u["windowed"], seg_sort_u32["windowed"]]),
         kernel_entry("sorted_gather", src + "gather.cu",
                      ref + "gather.py:226", by_path("gather"),
                      gather_cases),
@@ -2312,7 +2752,7 @@ def main() -> int:
                      lnm_cases),
         kernel_entry("sorted_gather_add", src + "gather.cu",
                      ref + "gather.py:226", by_path("gather_add"),
-                     [gather_add_case, gather_add_samp]),
+                     [gather_add_case, gather_add_samp, gather_add_sort]),
         kernel_entry("fused_g1_edge_update_agg", src + "edge_update_g1.cu",
                      ref + "edge_update_g1.py:338", by_path("edge_g1_agg"),
                      g1_agg_cases),
@@ -2351,7 +2791,8 @@ def main() -> int:
                     "pure_train_kernels_per_step": train["pure_kernels"],
                     "train_losses": train["losses"],
                     "train_worst_grad_err": train["worst_grad"],
-                    "sort": slim(sort), "bucketed_forward": slim(bfwd),
+                    "sort": slim(sort), "sort_device": slim(dsort),
+                    "bucketed_forward": slim(bfwd),
                     "bucketed_train_step": slim(btrain),
                     "large_forward": slim(lfwd),
                     "large_train_step": slim(ltrain),

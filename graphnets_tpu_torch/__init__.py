@@ -19,7 +19,13 @@ fused LN->FFN->residual kernel's own backward, the host neighbour sampler
 and sampled training as the JAX package runs it: the native C++ runtime
 (``runtime/``), prefetch threads, the OGB loader, ``remat`` and the training
 step captured as a CUDA graph (``capture_step``, the counterpart of
-``jax.jit``).
+``jax.jit``); and the sort flagship as the JAX package runs it by default:
+batches generated on the device (``device_batch``) inside the captured
+step, ``train_sort_device`` and ``evaluate_sort``, checkpoints
+(``CheckpointManager``), the SVG renderings, the debug checks
+(``validate_graph``, ``GRAPHNETS_TPU_TORCH_DEBUG``), the views and edge
+collapsing of ``graph``, ``segment_mean`` / ``segment_max``, the precision
+policy, metrics and profiling helpers.
 """
 
 from .data.large_graph import (LargeGraph, NeighborSampler, SampledBatch,
@@ -27,9 +33,31 @@ from .data.large_graph import (LargeGraph, NeighborSampler, SampledBatch,
 from .data.ogb import (OGBNodeDataset, load_ogb_node_dataset,
                        save_ogb_node_dataset)
 from .data.prefetch import PrefetchIterator, PrefetchPool, prefetch
-from .data.sort_task import (SortTaskConfig, gen_sample, get_batch,
+from .data.sort_task import (SortTaskConfig, device_batch, gen_sample,
+                             get_batch, sort_draws, sort_layout,
                              sort_pad_spec)
-from .graph import GraphsTuple, PadSpec, adjacency_matrices, batch, unbatch
+from .graph import (
+    GNGraphBatch,
+    GraphsTuple,
+    PadSpec,
+    adjacency_matrices,
+    batch,
+    collapse_ef,
+    collapse_ef_padded,
+    collapsef,
+    efview,
+    flat_unpadded_collapsed_ef,
+    flat_unpadded_ef,
+    flat_unpadded_nf,
+    flatunpaddedcollapsedef,
+    flatunpaddedef,
+    flatunpaddednf,
+    gfview,
+    nfview,
+    unbatch,
+    unpadded_collapsed_ef,
+    unpaddedcollapsedef,
+)
 from .models.encode_process_decode import EncodeProcessDecode, GNModel
 from .models.gn_block import (
     GNBlock,
@@ -49,20 +77,39 @@ from .models.gn_core import (
     graphnet_add,
 )
 from .nn.core import Chain, Dropout, FeedForward, LayerNorm, Linear, relu
+from .nn.precision import (BF16_COMPUTE, DEFAULT, Policy, cast_features,
+                           cast_params)
+from .ops.scatter import segment_mean, segment_max, segment_sum
 from .params import from_jax_params, to_numpy_tree
+from .training.checkpoint import (CheckpointManager, restore_checkpoint,
+                                  save_checkpoint)
 from .training.losses import (graph_accuracy, graph_loss_nf_ef,
                               masked_accuracy, masked_logit_crossentropy,
                               per_graph_correct)
 from .training.evaluate import sort_accuracy
-from .training.train import (CapturedStep, SortTrainResult, adam, adamw,
-                             capture_step, make_node_classification_step,
-                             make_train_step, train_sort)
-from .utils.config import enable_kernels, use_kernels
+from .training.train import (CapturedStep, SortTrainResult, TrainState,
+                             adam, adamw, capture_step, evaluate_sort,
+                             make_node_classification_step,
+                             make_sort_device_step, make_train_step,
+                             train_sort, train_sort_device)
+from .util import get_edge_features, get_graph_features, get_node_features
+from .utils.config import (debug_checks, enable_debug_checks,
+                           enable_kernels, use_kernels)
+from .utils.debug import assert_finite, checked, validate_graph
+from .utils.metrics import MetricLogger, host0_logger, is_host0
+from .utils.profiling import StepTimer, annotate, trace
+from .utils.viz import render_graph_svg, sort_input_svg, sort_target_svg
 
 __version__ = "0.1.0"
 
 __all__ = [
     "GraphsTuple", "PadSpec", "batch", "unbatch", "adjacency_matrices",
+    "efview", "nfview", "gfview",
+    "flat_unpadded_nf", "flat_unpadded_ef",
+    "flatunpaddednf", "flatunpaddedef",
+    "collapse_ef", "collapse_ef_padded", "collapsef", "unpadded_collapsed_ef",
+    "flat_unpadded_collapsed_ef", "GNGraphBatch", "unpaddedcollapsedef",
+    "flatunpaddedcollapsedef",
     "GNBlock", "get_edge_fn_input", "get_node_fn_input",
     "get_graph_fn_input", "getedgefninput", "getnodefninput",
     "getgraphfninput", "zerodim2nothing",
@@ -78,4 +125,14 @@ __all__ = [
     "adam", "capture_step", "CapturedStep", "OGBNodeDataset",
     "load_ogb_node_dataset", "save_ogb_node_dataset", "prefetch",
     "PrefetchIterator", "PrefetchPool",
+    "device_batch", "sort_draws", "sort_layout", "TrainState",
+    "make_sort_device_step", "train_sort_device", "evaluate_sort",
+    "CheckpointManager", "save_checkpoint", "restore_checkpoint",
+    "segment_sum", "segment_mean", "segment_max",
+    "Policy", "DEFAULT", "BF16_COMPUTE", "cast_features", "cast_params",
+    "get_edge_features", "get_node_features", "get_graph_features",
+    "debug_checks", "enable_debug_checks", "validate_graph",
+    "assert_finite", "checked", "MetricLogger", "host0_logger", "is_host0",
+    "trace", "annotate", "StepTimer", "render_graph_svg", "sort_input_svg",
+    "sort_target_svg",
 ]

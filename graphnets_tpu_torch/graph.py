@@ -31,8 +31,13 @@ import torch
 from .runtime import native
 from .utils.config import resolve_device
 
-__all__ = ["GraphsTuple", "PadSpec", "batch", "unbatch",
-           "adjacency_matrices"]
+__all__ = [
+    "GraphsTuple", "PadSpec", "batch", "unbatch", "adjacency_matrices",
+    "efview", "nfview", "gfview", "flat_unpadded_nf", "flat_unpadded_ef",
+    "flatunpaddednf", "flatunpaddedef", "collapse_ef", "collapse_ef_padded",
+    "collapsef", "unpadded_collapsed_ef", "flat_unpadded_collapsed_ef",
+    "GNGraphBatch", "unpaddedcollapsedef", "flatunpaddedcollapsedef",
+]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -258,8 +263,9 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
     if pad is None:
         pad = PadSpec()
     if pad.per_slot:
-        return _batch_uniform(n_node, n_edge, senders, receivers, ef_list,
-                              nf_list, gf_arr, pad, homogeneous, device)
+        return _validated(_batch_uniform(n_node, n_edge, senders, receivers,
+                                         ef_list, nf_list, gf_arr, pad,
+                                         homogeneous, device))
     NP = pad.num_nodes if pad.num_nodes is not None else N
     EP = pad.num_edges if pad.num_edges is not None else E
     GP = pad.num_graphs if pad.num_graphs is not None else G
@@ -305,7 +311,7 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
         gf_p = np.zeros((GP, gf_arr.shape[1]), np.float32)
         gf_p[:B] = np.asarray(gf_arr, np.float32)
     exact = homogeneous and GP == B and NP == N and EP == E and B > 0
-    return _to_device(dict(
+    return _validated(_to_device(dict(
         senders=senders, receivers=receivers, node_graph=node_graph,
         edge_graph=edge_graph, n_node=n_node_p, n_edge=n_edge_p,
         node_mask=np.arange(NP) < N, edge_mask=np.arange(EP) < E,
@@ -313,7 +319,16 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
         ef=_cat_feats(ef_list, EP), nf=_cat_feats(nf_list, NP), gf=gf_p),
         device, homogeneous=homogeneous,
         # Exact homogeneous batches have a uniform slot layout.
-        slot_shape=(int(n_node[0]), int(n_edge[0])) if exact else None)
+        slot_shape=(int(n_node[0]), int(n_edge[0])) if exact else None))
+
+
+def _validated(g: GraphsTuple) -> GraphsTuple:
+    """``g``, validated first under ``GRAPHNETS_TPU_TORCH_DEBUG=1``."""
+    from .utils.config import debug_checks
+    if debug_checks():
+        from .utils.debug import validate_graph
+        validate_graph(g)
+    return g
 
 
 def _batch_uniform(n_node, n_edge, senders, receivers, ef_list, nf_list,
@@ -407,7 +422,7 @@ def _to_device(arrays: dict, device, **meta) -> GraphsTuple:
 
 
 # ---------------------------------------------------------------------------
-# Host-side unbatching
+# Host-side unbatching and views
 # ---------------------------------------------------------------------------
 
 
@@ -477,3 +492,163 @@ def unbatch(g: GraphsTuple) -> dict:
             "gf": None if gf_l is None else np.stack(gf_l),
         }
     return {"graphs": mats, "ef": ef_l, "nf": nf_l, "gf": gf_l}
+
+
+def efview(g: GraphsTuple, d1, d2, d3) -> np.ndarray:
+    """Edge-feature view of graph ``d3``: ``[edge d2, feature d1]`` within
+    the graph's edge slots (canonical order), as a host array."""
+    if g.ef is None:
+        raise ValueError("efview: the batch has no edge features")
+    _, _, _, _, edge_off = _host_meta(g)
+    return _np(g.ef)[edge_off[d3]:edge_off[d3 + 1]][d2, d1]
+
+
+def nfview(g: GraphsTuple, d1, d2, d3) -> np.ndarray:
+    """Node-feature view of graph ``d3``: ``[node d2, feature d1]``."""
+    if g.nf is None:
+        raise ValueError("nfview: the batch has no node features")
+    _, _, _, node_off, _ = _host_meta(g)
+    return _np(g.nf)[node_off[d3]:node_off[d3 + 1]][d2, d1]
+
+
+def gfview(g: GraphsTuple, d1, d2) -> np.ndarray:
+    """Graph-feature view: ``[graph d2, feature d1]``."""
+    if g.gf is None:
+        raise ValueError("gfview: the batch has no graph features")
+    return _np(g.gf)[d2, d1]
+
+
+def _refuse_capture(what: str) -> None:
+    """The real slot count is data-dependent: reading it syncs with the
+    device, which a CUDA-graph capture cannot (as JAX refuses under
+    ``jit``)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise TypeError(
+            f"flat_unpadded_{what} slices to the REAL slot count, which is "
+            "data-dependent; it cannot run inside a CUDA-graph capture. A "
+            "captured loss should use the masked losses in "
+            "graphnets_tpu_torch.training.losses instead.")
+
+
+def _flat_unpadded(x: torch.Tensor, mask: torch.Tensor, aliased: bool,
+                   what: str) -> torch.Tensor:
+    _refuse_capture(what)
+    if aliased:
+        # Uniform layout: padding interleaves per slot, so select by the
+        # mask (an index_select by host indices: differentiable).
+        idx = np.nonzero(_np(mask))[0]
+        return x.index_select(0, torch.as_tensor(idx, device=x.device))
+    return x[:int(_np(mask).sum())]
+
+
+def flat_unpadded_nf(g: GraphsTuple) -> torch.Tensor:
+    """All real node features as ``[sum_i N_i, DN]`` (the loss path);
+    differentiable, but host-side: the length is read from the mask."""
+    if g.nf is None:
+        raise ValueError("flat_unpadded_nf: the batch has no node features")
+    return _flat_unpadded(g.nf, g.node_mask, g.pad_aliases_real, "nf")
+
+
+def flat_unpadded_ef(g: GraphsTuple) -> torch.Tensor:
+    """All real edge features as ``[sum_i E_i, DE]``; see
+    :func:`flat_unpadded_nf`."""
+    if g.ef is None:
+        raise ValueError("flat_unpadded_ef: the batch has no edge features")
+    return _flat_unpadded(g.ef, g.edge_mask, g.pad_aliases_real, "ef")
+
+
+# Reference-spelled aliases.
+flatunpaddednf = flat_unpadded_nf
+flatunpaddedef = flat_unpadded_ef
+
+
+# ---------------------------------------------------------------------------
+# Edge collapsing (directed -> undirected features), host-side
+# ---------------------------------------------------------------------------
+
+
+def _collapse_indices(g: GraphsTuple):
+    """Per graph, ``(fwd_idx, rev_idx, self_loop)`` of the present
+    lower-triangular edges: for each coordinate ``(i >= j)`` in
+    column-major order where ``adj[i, j] == 1``, the slot of ``(i, j)``,
+    the slot of ``(j, i)`` (-1 when absent: that direction counts as 0)
+    and whether it is a self-loop (which maps to itself)."""
+    B, n_node, n_edge, node_off, edge_off = _host_meta(g)
+    s, r = _np(g.senders), _np(g.receivers)
+    out = []
+    for b in range(B):
+        n = int(n_node[b])
+        lo, hi = edge_off[b], edge_off[b] + int(n_edge[b])
+        pos = {(int(si - node_off[b]), int(ri - node_off[b])): int(k)
+               for k, (si, ri) in enumerate(zip(s[lo:hi], r[lo:hi]))}
+        fwd, rev, selfloop = [], [], []
+        for j in range(n):           # column-major lower triangle
+            for i in range(j, n):
+                if (i, j) in pos:
+                    fwd.append(pos[(i, j)])
+                    rev.append(pos.get((j, i), -1))
+                    selfloop.append(i == j)
+        out.append((np.array(fwd, np.int64), np.array(rev, np.int64),
+                    np.array(selfloop, bool)))
+    return out, edge_off
+
+
+def collapse_ef(g: GraphsTuple) -> List[np.ndarray]:
+    """Symmetrised (undirected) edge features per graph, present
+    lower-triangular edges only: ``(ef[(i, j)] + ef[(j, i)]) / 2``, a
+    self-loop kept as it is."""
+    if g.ef is None:
+        raise ValueError("collapse_ef: the batch has no edge features")
+    info, edge_off = _collapse_indices(g)
+    ef = _np(g.ef)
+    outs = []
+    for b, (fwd, rev, selfloop) in enumerate(info):
+        base = ef[edge_off[b]:]
+        f = base[fwd] if len(fwd) else np.zeros((0, ef.shape[1]), ef.dtype)
+        rv = (np.where((rev >= 0)[:, None], base[np.maximum(rev, 0)], 0.0)
+              if len(fwd) else f)
+        out = np.where(selfloop[:, None], f, (f + rv) / 2.0)
+        outs.append(out.astype(ef.dtype))
+    return outs
+
+
+def collapse_ef_padded(g: GraphsTuple) -> np.ndarray:
+    """The padded variant: the full lower-triangular slot space of the
+    batch's largest graph, ``[B, PN * (PN + 1) / 2, DE]``; slot ``(i, j)``
+    (column-major) holds ``(ef[(i, j)] + ef[(j, i)]) / 2`` with absent
+    directions 0, and a self-loop its own value."""
+    if g.ef is None:
+        raise ValueError("collapse_ef_padded: the batch has no edge "
+                         "features")
+    B, n_node, n_edge, node_off, edge_off = _host_meta(g)
+    s, r = _np(g.senders), _np(g.receivers)
+    ef = _np(g.ef)
+    DE = ef.shape[1]
+    PN = int(n_node.max()) if B else 0
+    dense = np.zeros((B, PN, PN, DE), ef.dtype)
+    for b in range(B):
+        lo, hi = edge_off[b], edge_off[b] + int(n_edge[b])
+        dense[b, s[lo:hi] - node_off[b], r[lo:hi] - node_off[b]] = ef[lo:hi]
+    sym = (dense + np.swapaxes(dense, 1, 2)) / 2.0
+    ii = np.arange(PN)
+    sym[:, ii, ii] = dense[:, ii, ii]
+    cols = [sym[:, i, j] for j in range(PN) for i in range(j, PN)]
+    return (np.stack(cols, axis=1) if cols
+            else np.zeros((B, 0, DE), ef.dtype))
+
+
+def unpadded_collapsed_ef(g: GraphsTuple) -> List[np.ndarray]:
+    return collapse_ef(g)
+
+
+def flat_unpadded_collapsed_ef(g: GraphsTuple) -> np.ndarray:
+    """:func:`collapse_ef` concatenated over the batch."""
+    return np.concatenate(collapse_ef(g), axis=0)
+
+
+collapsef = collapse_ef
+
+# Reference-spelled aliases.
+GNGraphBatch = GraphsTuple
+unpaddedcollapsedef = unpadded_collapsed_ef
+flatunpaddedcollapsedef = flat_unpadded_collapsed_ef

@@ -172,9 +172,20 @@ class _SortedGather(torch.autograd.Function):
         return sorted_segment_sum(g, idx, ctx.num_rows).to(g.dtype), None
 
 
+def _debug_check(idx: torch.Tensor, num_rows: int, what: str) -> None:
+    """Under ``GRAPHNETS_TPU_TORCH_DEBUG=1``: the kernel's unchecked
+    preconditions, ids ascending and within the table
+    (``gather.py:93-116`` of the JAX package), raise when broken."""
+    from ...utils.config import debug_checks
+    if debug_checks():
+        from ...utils.debug import check_sorted_in_range
+        check_sorted_in_range(idx, num_rows, what)
+
+
 def sorted_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for ascending ``idx`` (the canonical receivers);
     out-of-range ids read zeros.  Differentiable in ``table``."""
+    _debug_check(idx, table.shape[0], "sorted_gather")
     return _SortedGather.apply(table, idx)
 
 
@@ -244,4 +255,5 @@ def sorted_gather_add(table: torch.Tensor, idx: torch.Tensor,
     """``table[idx] + addend`` in one pass for ascending ``idx``: the sum in
     f32, rounded once to ``promote_types(table, addend)``; out-of-range ids
     read zeros.  Differentiable in ``table`` and ``addend``."""
+    _debug_check(idx, table.shape[0], "sorted_gather_add")
     return _SortedGatherAdd.apply(table, idx, addend)

@@ -2,10 +2,14 @@
 semantics of ``graphnets_tpu/ops/scatter.py``).
 
 All aggregations accumulate in float32 and mask padded slots, so padding
-never contaminates real slots.  The JAX package takes a one-hot matmul at
-``Precision.HIGHEST`` for <= 64 segments (the graph pools); that is the
-same float32 sum, which here is an ``index_add_``, so no TF32 matmul is
-ever involved.  With kernels on, a ``sorted_pad_safe`` sum over more than
+never contaminates real slots.  For at most 64 segments over at least four
+rows a segment (the graph pools, a small batch's node sums) the sum is a
+one-hot float32 product, as the JAX package's one-hot matmul at
+``Precision.HIGHEST`` (``scatter.py:240-254``): a fixed summation order,
+so such steps repeat bit for bit on the card, where an ``index_add_``'s
+float atomics do not.  The product and its backward run in IEEE float32
+whatever the global TF32 switch says (``torch.backends.cuda.matmul``), as
+JAX pins ``HIGHEST``.  With kernels on, a ``sorted_pad_safe`` sum over more than
 64 segments (the edge->node sum, and the graph pools of a batch with more
 than 64 graph slots) takes the sorted segment-sum kernel instead
 (``ops/kernels/segment_sum``), as the JAX package does
@@ -19,16 +23,19 @@ ascending ids, through the windowed kernel for ids local to their graph
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
-from ..utils.config import get_config, use_kernels
+from ..utils.config import debug_checks, get_config, use_kernels
 
 __all__ = [
     "gather_nodes",
     "take_rows_sorted_grad",
     "segment_sum",
+    "segment_mean",
+    "segment_max",
     "aggregate_edges_for_nodes",
     "aggregate_edges_for_globals",
     "aggregate_nodes_for_globals",
@@ -42,6 +49,40 @@ def _mask_rows(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         return x
     return torch.where(mask[:, None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
+
+
+@contextlib.contextmanager
+def _ieee_f32_matmul():
+    """cuBLAS float32 products without TF32 inside the block, the caller's
+    switch restored after it."""
+    m = torch.backends.cuda.matmul
+    prev = m.fp32_precision
+    if prev == "ieee":
+        yield
+        return
+    m.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        m.fp32_precision = prev
+
+
+class _OneHotSum(torch.autograd.Function):
+    """``onehot.T @ x`` for a float 0/1 ``onehot``; forward and backward
+    products in IEEE float32, so every term is exact and only the sum
+    rounds."""
+
+    @staticmethod
+    def forward(ctx, onehot, x):
+        ctx.save_for_backward(onehot)
+        with _ieee_f32_matmul():
+            return onehot.t() @ x
+
+    @staticmethod
+    def backward(ctx, grad):
+        onehot, = ctx.saved_tensors
+        with _ieee_f32_matmul():
+            return None, onehot @ grad
 
 
 class _TakeRows(torch.autograd.Function):
@@ -134,7 +175,12 @@ def segment_sum(x: torch.Tensor, segment_ids: torch.Tensor,
     ``sorted_pad_safe`` declares the batch layout's contract: ids ascend
     and padded rows target only segments no real row targets, so the mask
     is redundant.  With kernels on and more than 64 segments such a sum
-    takes the sorted segment-sum kernel, which skips the mask."""
+    takes the sorted segment-sum kernel, which skips the mask.  Under
+    ``GRAPHNETS_TPU_TORCH_DEBUG=1`` the contract is enforced (a host check
+    that raises on a violation)."""
+    if sorted_pad_safe and debug_checks():
+        from ..utils.debug import check_sorted_pad_safe
+        check_sorted_pad_safe(segment_ids, mask)
     if sorted_pad_safe and use_kernels() and num_segments > 64:
         from .kernels.segment_sum import (sorted_segment_sum,
                                           supports_sorted_segment_sum)
@@ -146,10 +192,55 @@ def segment_sum(x: torch.Tensor, segment_ids: torch.Tensor,
         # million rows into one would serialise on its atomics).
         return _mask_rows(x, mask).sum(0, keepdim=True,
                                        dtype=torch.float32).to(x.dtype)
+    if num_segments <= 64 and x.shape[0] >= 4 * num_segments:
+        # Few segments: the mask folded into a one-hot, an f32 product of
+        # exact terms in a fixed order (rows with an id out of range drop
+        # out, as in JAX's product).
+        onehot = segment_ids[:, None] == torch.arange(
+            num_segments, dtype=segment_ids.dtype, device=x.device)
+        if mask is not None:
+            onehot = onehot & mask[:, None]
+        flat = x.reshape(x.shape[0], -1).float()
+        out = _OneHotSum.apply(onehot.float(), flat)
+        return out.reshape((num_segments,) + tuple(x.shape[1:])).to(x.dtype)
     acc = torch.zeros((num_segments,) + tuple(x.shape[1:]),
                       dtype=torch.float32, device=x.device)
     acc.index_add_(0, segment_ids, _mask_rows(x, mask).float())
     return acc.to(x.dtype)
+
+
+def segment_mean(x: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, mask: Optional[torch.Tensor] = None,
+                 indices_are_sorted: bool = True) -> torch.Tensor:
+    """Masked mean per segment: :func:`segment_sum` (rounded to
+    ``x.dtype``) divided, in ``x.dtype``, by the count of real rows, at
+    least 1 (``scatter.py:259-268``).  ``indices_are_sorted`` is JAX's
+    hint; the port needs none."""
+    s = segment_sum(x, segment_ids, num_segments, mask)
+    ones = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    if mask is not None:
+        ones = torch.where(mask, ones, 0.0)
+    counts = torch.zeros(num_segments, dtype=torch.float32,
+                         device=x.device).index_add_(0, segment_ids, ones)
+    return s / counts.clamp(min=1.0)[:, None].to(s.dtype)
+
+
+def segment_max(x: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, mask: Optional[torch.Tensor] = None,
+                indices_are_sorted: bool = True) -> torch.Tensor:
+    """Masked maximum per segment (``scatter.py:271-280``): masked rows
+    are filled with the dtype's lowest finite value, and an empty or fully
+    masked segment is reported as 0."""
+    neg = torch.finfo(x.dtype).min
+    if mask is not None:
+        x = torch.where(mask[:, None], x, torch.full((), neg, dtype=x.dtype,
+                                                     device=x.device))
+    out = torch.full((num_segments,) + tuple(x.shape[1:]), neg,
+                     dtype=x.dtype, device=x.device)
+    idx = segment_ids.long().view(-1, *([1] * (x.dim() - 1))).expand_as(x)
+    out = out.scatter_reduce(0, idx, x, "amax", include_self=True)
+    return torch.where(out <= neg, torch.zeros((), dtype=x.dtype,
+                                               device=x.device), out)
 
 
 def aggregate_edges_for_nodes(ef: torch.Tensor, receivers: torch.Tensor,

@@ -1,5 +1,4 @@
-"""The training step and the sort-task trainer (counterparts of
-``make_train_step`` and ``train_sort`` in
+"""The training step and the sort-task trainers (counterparts of
 ``graphnets_tpu/training/train.py``).
 
 The model's parameters are the f32 master copy.  Each step runs the
@@ -11,9 +10,12 @@ optimizer updates the masters in place, which JAX's functional step does
 by returning new arrays.
 
 :func:`train_sort` is the host loop of the sort example: batches from the
-numpy generator, one step each.  The JAX package's loops that generate the
-data inside the compiled step (``train_sort_device``, ``evaluate_sort``)
-are not ported.
+numpy generator, one step each.  :func:`train_sort_device` is the flagship
+loop as the JAX package runs it by default: the batch is generated on the
+device inside the captured step (``data/sort_task.device_batch``), so a
+chunk of steps is a chunk of graph replays with one host sync, and
+:func:`evaluate_sort` evaluates the same way.  :class:`TrainState` is what
+a run carries from step to step, and what ``training/checkpoint`` saves.
 
 :func:`make_node_classification_step` is the step of sampled training on a
 large graph (``data/large_graph``): a device gather of the node features,
@@ -22,7 +24,8 @@ the seed nodes' masked cross-entropy, and the optimizer step.
 :func:`capture_step` is the port's ``jax.jit(step, donate_argnums=0)``:
 on the card it captures a step as a CUDA graph, one per input structure,
 and replays it, so a step costs one graph launch on the host instead of a
-Python walk over ~1,400 kernel launches.
+Python walk over ~1,400 kernel launches.  It refuses to capture while the
+debug checks (``utils/debug``) are on: they read tensors on the host.
 """
 
 from __future__ import annotations
@@ -37,17 +40,19 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from ..data.sort_task import SortTaskConfig, get_batch, sort_pad_spec
+from ..data.sort_task import (SortTaskConfig, device_batch, get_batch,
+                              sort_pad_spec)
 from ..graph import GraphsTuple
 from ..models.encode_process_decode import EncodeProcessDecode
-from ..utils.config import get_config, resolve_device
+from ..utils.config import debug_checks, get_config, resolve_device
 from ..utils.tree import map_tensors, structure, tensors
 from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
                      masked_logit_crossentropy)
 
 __all__ = ["adam", "adamw", "make_train_step",
            "make_node_classification_step", "capture_step", "CapturedStep",
-           "train_sort", "SortTrainResult"]
+           "TrainState", "train_sort", "SortTrainResult",
+           "make_sort_device_step", "train_sort_device", "evaluate_sort"]
 
 
 def _on_cuda(params) -> bool:
@@ -173,33 +178,42 @@ class CapturedStep:
     """A training step captured as CUDA graphs: the port's
     ``jax.jit(step, donate_argnums=0)`` (see :func:`capture_step`).
 
-    ``step`` is a step built by :func:`make_train_step` or
-    :func:`make_node_classification_step` (it carries its ``model``,
-    ``optimizer`` and dropout ``generators``).  The first call for a given
-    input structure (every tensor's shape, dtype and device, the host
+    ``step`` is a step built by :func:`make_train_step`,
+    :func:`make_node_classification_step` or :func:`make_sort_device_step`.
+    It carries what a call changes besides its outputs: its ``model`` and
+    ``optimizer`` (either may be ``None``: an inference step has no
+    optimizer), the ``generators`` it draws from and the ``buffers`` it
+    writes in place (a device loop's metric sums).  The first call for a
+    given input structure (every tensor's shape, dtype and device, the host
     metadata of a ``GraphsTuple``: ``homogeneous``, ``slot_shape``,
-    ``pad_aliases_real``, ..., and the port's switches in
-    ``utils/config``) warms the step up and captures it; later calls copy
-    their inputs into the captured ones and replay.  That is one graph per
-    bucket shape, as jit retraces, and every graph draws on one memory pool.
+    ``pad_aliases_real``, ..., and the port's switches in ``utils/config``)
+    warms the step up and captures it; later calls copy their inputs into
+    the captured ones and replay.  That is one graph per bucket shape, as
+    jit retraces, and every graph draws on one memory pool.  A step with no
+    tensor inputs (one that makes its own batch) runs where its model,
+    buffers and generators live.
 
     The warm-up runs ``WARMUP_CALLS`` steps on a side stream: they build
     the kernel libraries, open ``libcuda`` for the TMA descriptors'
     ``cuTensorMapEncodeTiled`` and grow the sorted sum's counters, work
-    that belongs outside a capture.  Then the parameters, the optimizer's state (its step counts
-    too) and the generators are put back as they were before the warm-up,
-    so no warm-up step counts.  The capture runs under
-    ``capture_error_mode="global"``; a refused call raises, and nothing
-    falls back to eager on the card.  A step on CPU tensors runs eagerly:
-    the caller asked for the CPU.
+    that belongs outside a capture.  Then the parameters, the optimizer's
+    state (its step counts too), the generators and the buffers are put
+    back as they were before the warm-up, so no warm-up step counts.  The
+    capture runs under ``capture_error_mode="global"``; a refused call
+    raises, and nothing falls back to eager on the card.  With the debug
+    checks on (``GRAPHNETS_TPU_TORCH_DEBUG=1``) it refuses to capture: they
+    read tensors on the host, which a capture cannot.  A step on the CPU
+    runs eagerly: the caller asked for the CPU.
 
-    Outputs are fresh tensors, as jit's are.  After a replay the
-    parameters and the optimizer's state hold the step's update; the
-    parameters' ``.grad`` belong to the graph and are not the step's
-    output.  The optimizer must be ``Adam`` or ``AdamW``: their fresh state
-    is all zeros, which is what the restore writes into the state the
-    warm-up created (``capturable=True`` on CUDA, as :func:`adam` and
-    :func:`adamw` make it).
+    The generators are registered with every graph, so each replay draws
+    fresh numbers, the sequence eager calls would draw.  Outputs are fresh
+    tensors, as jit's are.  After a replay the parameters and the
+    optimizer's state hold the step's update; the parameters' ``.grad``
+    belong to the graph and are not the step's output.  The optimizer must
+    be ``Adam`` or ``AdamW``: their fresh state is all zeros, which is what
+    the restore writes into the state the warm-up created
+    (``capturable=True`` on CUDA, as :func:`adam` and :func:`adamw` make
+    it).
 
     ``captures``, ``replays`` and ``traced_calls`` (eager calls of the step
     itself: warm-ups and captures, the calls that pass through the kernel
@@ -210,24 +224,38 @@ class CapturedStep:
 
     def __init__(self, step: Callable):
         self.step = step
-        self.model: nn.Module = step.model
-        self.optimizer: torch.optim.Optimizer = step.optimizer
-        self.generators = tuple(step.generators)
-        if not isinstance(self.optimizer, (torch.optim.Adam,
-                                           torch.optim.AdamW)):
+        self.model: Optional[nn.Module] = getattr(step, "model", None)
+        self.optimizer: Optional[torch.optim.Optimizer] = getattr(
+            step, "optimizer", None)
+        self.generators = tuple(getattr(step, "generators", ()))
+        self.buffers = tuple(getattr(step, "buffers", ()))
+        if self.optimizer is not None and not isinstance(
+                self.optimizer, (torch.optim.Adam, torch.optim.AdamW)):
             raise TypeError("capture_step restores Adam / AdamW state only, "
                             f"got {type(self.optimizer).__name__}")
         self._graphs: Dict[Any, Tuple] = {}
         self._pool = None
         self.captures = self.replays = self.traced_calls = 0
 
+    def _params(self):
+        return [] if self.model is None else list(self.model.parameters())
+
+    def _on_card(self, flat) -> bool:
+        if flat:
+            if not any(t.is_cuda for t in flat):
+                return False
+            if not all(t.is_cuda for t in flat):
+                raise ValueError("capture_step: the inputs mix CPU and CUDA "
+                                 "tensors")
+            return True
+        # No tensor inputs: the step runs where its state lives.
+        return (any(t.is_cuda for t in self._params() + list(self.buffers))
+                or any(g.device.type == "cuda" for g in self.generators))
+
     def __call__(self, *args):
         flat = tensors(args)
-        if not any(t.is_cuda for t in flat):
+        if not self._on_card(flat):
             return self.step(*args)
-        if not all(t.is_cuda for t in flat):
-            raise ValueError("capture_step: the inputs mix CPU and CUDA "
-                             "tensors")
         key = (structure(args), dataclasses.astuple(get_config()))
         entry = self._graphs.get(key)
         if entry is None:
@@ -241,37 +269,43 @@ class CapturedStep:
         return map_tensors(lambda t: t.clone(), static_out)
 
     def _snapshot(self):
-        params = [p.detach().clone() for p in self.model.parameters()]
-        state = {p: {k: v.clone() for k, v in self.optimizer.state[p].items()}
-                 for group in self.optimizer.param_groups
-                 for p in group["params"] if self.optimizer.state.get(p)}
+        params = [p.detach().clone() for p in self._params()]
+        opt = self.optimizer
+        state = {} if opt is None else {
+            p: {k: v.clone() for k, v in opt.state[p].items()}
+            for group in opt.param_groups for p in group["params"]
+            if opt.state.get(p)}
         gens = [g.get_state() for g in self.generators]
-        return params, state, gens
+        bufs = [b.clone() for b in self.buffers]
+        return params, state, gens, bufs
 
     def _restore(self, snap) -> None:
         """Put back what :meth:`_snapshot` saw, in place (the captured
         graph keeps the addresses).  State the warm-up created is zeroed:
         a fresh Adam / AdamW state."""
-        params, state, gens = snap
+        params, state, gens, bufs = snap
         with torch.no_grad():
-            for p, saved in zip(self.model.parameters(), params):
+            for p, saved in zip(self._params(), params):
                 p.copy_(saved)
-            for p, st in self.optimizer.state.items():
-                for k, v in st.items():
-                    if p in state:
-                        v.copy_(state[p][k])
-                    else:
-                        v.zero_()
+            if self.optimizer is not None:
+                for p, st in self.optimizer.state.items():
+                    for k, v in st.items():
+                        if p in state:
+                            v.copy_(state[p][k])
+                        else:
+                            v.zero_()
+            for b, saved in zip(self.buffers, bufs):
+                b.copy_(saved)
         for g, s in zip(self.generators, gens):
             g.set_state(s)
 
     def warm_up(self, *args) -> None:
         """``WARMUP_CALLS`` eager steps on ``args`` (on a side stream on the
-        card), then the parameters, the optimizer's state and the
-        generators as they were before."""
+        card), then the parameters, the optimizer's state, the generators
+        and the buffers as they were before."""
         snap = self._snapshot()
         side = None
-        if any(t.is_cuda for t in tensors(args)):
+        if self._on_card(tensors(args)):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
         with (torch.cuda.stream(side) if side is not None
@@ -284,6 +318,13 @@ class CapturedStep:
         self._restore(snap)
 
     def _capture(self, args) -> Tuple:
+        if debug_checks():
+            raise RuntimeError(
+                "capture_step: the debug checks are on "
+                "(GRAPHNETS_TPU_TORCH_DEBUG=1 or enable_debug_checks()); "
+                "they read tensors on the host, which a CUDA-graph capture "
+                "cannot. Turn them off to capture, or call the step itself "
+                "(uncaptured) to run it with the checks.")
         static_args = map_tensors(lambda t: t.clone(), args)
         self.warm_up(*static_args)
         if self._pool is None:
@@ -309,16 +350,47 @@ def capture_step(step: Callable) -> CapturedStep:
 
 
 @dataclasses.dataclass
+class TrainState:
+    """What a training run carries from step to step: the JAX package's
+    ``TrainState`` (params, opt_state, step, rng) as the ``model`` (it
+    holds the parameters), the ``optimizer`` (its state), the ``step``
+    count and the ``generators`` the steps draw from.  The model, the
+    optimizer and the generators are updated in place; ``step`` is a host
+    integer.  ``training/checkpoint`` saves and restores all four."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    generators: Tuple[torch.Generator, ...] = ()
+
+
+@dataclasses.dataclass
 class SortTrainResult:
     """The trained ``model`` (it holds the parameters), its ``optimizer``
-    (the AdamW moments), the last step's ``metrics`` as floats, the
-    throughput without the first step, and the step itself (a
-    :class:`CapturedStep`, to go on training)."""
+    (the AdamW moments), the last step's or chunk's ``metrics`` as floats,
+    the throughput without the first step or chunk, the step itself (a
+    :class:`CapturedStep`, to go on training) and the :class:`TrainState`
+    to save or resume from."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     metrics: dict
     steps_per_sec: float
     step: Optional[Callable] = None
+    state: Optional[TrainState] = None
+
+
+def _sort_model(cfg: SortTaskConfig, core_dims, n_cores: int, seed: int,
+                device) -> nn.Module:
+    """The reference's sort model, ``(0, vocab, 0) -> core_dims -> (2, 2,
+    0)``, initialised from a host generator seeded ``seed``."""
+    return EncodeProcessDecode(
+        x_dims=(0, cfg.vocab_size, 0), core_dims=core_dims,
+        y_dims=(2, 2, 0), n_cores=n_cores, device=device,
+        generator=torch.Generator().manual_seed(seed))
+
+
+def _wait(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def train_sort(
@@ -341,17 +413,10 @@ def train_sort(
     ``steps_per_sec``."""
     device = resolve_device(device)
     if model is None:
-        model = EncodeProcessDecode(
-            x_dims=(0, cfg.vocab_size, 0), core_dims=core_dims,
-            y_dims=(2, 2, 0), n_cores=n_cores, device=device,
-            generator=torch.Generator().manual_seed(seed))
+        model = _sort_model(cfg, core_dims, n_cores, seed, device)
     optimizer = adamw(model.parameters(), learning_rate)
     # On the card the step is captured and replayed, as JAX's jit.
     step_fn = capture_step(make_train_step(model, optimizer))
-
-    def wait():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
 
     rng = np.random.default_rng(seed)
     pad = sort_pad_spec(cfg)
@@ -361,14 +426,165 @@ def train_sort(
         x, y = get_batch(rng, cfg, pad, device=device)
         metrics = step_fn(x, y)
         if i == 0:
-            wait()
+            _wait(device)
             t0 = time.perf_counter()
         if log_every and (i + 1) % log_every == 0:
             print(f"step {i + 1}: " + ", ".join(
                 f"{k}={float(v):.4f}" for k, v in metrics.items()))
-    wait()
+    _wait(device)
     dt = (time.perf_counter() - t0) if steps > 1 else float("inf")
     return SortTrainResult(
         model=model, optimizer=optimizer,
         metrics={k: float(v) for k, v in metrics.items()},
-        steps_per_sec=(steps - 1) / dt if steps > 1 else 0.0, step=step_fn)
+        steps_per_sec=(steps - 1) / dt if steps > 1 else 0.0, step=step_fn,
+        state=TrainState(model, optimizer, steps))
+
+
+_METRICS = ("loss", "node_acc", "edge_acc", "graph_acc")
+
+
+def make_sort_device_step(state: TrainState, cfg: SortTaskConfig,
+                          pad=None, dtype: Optional[torch.dtype] = None
+                          ) -> Callable[[], None]:
+    """The body of :func:`train_sort_device`'s loop, the counterpart of the
+    JAX loop's ``lax.scan`` body: ``step()`` draws a batch on the device
+    from ``state.generators[0]`` (``device_batch``, features in ``dtype``),
+    takes one :func:`make_train_step` step of ``state.model`` and
+    ``state.optimizer`` on it, and adds the step's metrics into
+    ``step.sums`` (0-d tensors on the device, by name), so that a chunk of
+    steps syncs the host once.  The same generator draws any dropout masks.
+
+    In bf16 the parameters stay the f32 masters and are not cast as a
+    whole: the batch's features are bf16 and each layer casts at use, as
+    the JAX model does (``Linear`` casts its weight to the input's type;
+    ``LayerNorm`` computes in f32 with f32 scale and bias)."""
+    gen = state.generators[0]
+    core = make_train_step(state.model, state.optimizer, generator=gen)
+    sums = {k: torch.zeros((), dtype=torch.float32, device=gen.device)
+            for k in _METRICS}
+
+    def step() -> None:
+        x, y = device_batch(gen, cfg, pad, dtype)
+        metrics = core(x, y)
+        for k, v in sums.items():
+            v.add_(metrics[k])
+
+    step.model, step.optimizer = state.model, state.optimizer
+    step.generators, step.sums = (gen,), sums
+    step.buffers = tuple(sums.values())
+    return step
+
+
+def _split_seed(seed: int) -> int:
+    """A seed for the batch generator that differs from the model init's
+    stream (as JAX splits one key into two)."""
+    return int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
+
+
+def train_sort_device(
+    steps: int = 20_000,
+    cfg: SortTaskConfig = SortTaskConfig(),
+    core_dims: Tuple[int, int, int] = (384, 384, 384),
+    n_cores: int = 2,
+    learning_rate: float = 3e-4,
+    seed: int = 0,
+    chunk: int = 500,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    dtype: Optional[torch.dtype] = None,
+    model: Optional[nn.Module] = None,
+    eval_batches: int = 256,
+    uniform: bool = False,
+    device=None,
+    state: Optional[TrainState] = None,
+) -> SortTrainResult:
+    """The flagship recipe with the whole loop on the device, as the JAX
+    package runs it by default: the batch is generated inside the step
+    (``device_batch``) and the step is captured as a CUDA graph
+    (:func:`capture_step`; eager on the CPU), so a chunk of ``chunk`` steps
+    is ``chunk`` graph replays.  The metrics are summed on the device and
+    the host syncs once a chunk, for the chunk's mean (``log_fn(step,
+    metrics)`` after each chunk; the last chunk's mean in the result).
+    Whole chunks run: ``steps`` rounds up to a multiple of ``chunk``.
+    ``steps_per_sec`` leaves out the first chunk (kernel builds, warm-up,
+    capture).
+
+    ``dtype`` is the batches' type (``torch.bfloat16`` for bf16 compute;
+    the parameters stay f32, see :func:`make_sort_device_step`).
+    ``uniform=True`` lays the batches out in uniform slots
+    (``sort_pad_spec(cfg, uniform=True)``).  The model is
+    ``EncodeProcessDecode((0, vocab, 0) -> core_dims -> (2, 2, 0))`` with
+    ``n_cores`` cores, initialised from ``seed`` unless ``model`` is given,
+    trained by AdamW(``learning_rate``) on ``device`` (``cuda`` unless the
+    caller passes another); the batches come from a generator there,
+    seeded from ``seed``.  ``state`` resumes a run instead (its model,
+    optimizer, step count and generator, for example restored from a
+    checkpoint; ``model``, ``seed`` and ``learning_rate`` are then unused).
+    ``eval_batches`` is unused, as in the JAX package."""
+    if state is None:
+        device = resolve_device(device)
+        if model is None:
+            model = _sort_model(cfg, core_dims, n_cores, seed, device)
+        state = TrainState(
+            model, adamw(model.parameters(), learning_rate), 0,
+            (torch.Generator(device=device).manual_seed(_split_seed(seed)),))
+    device = state.generators[0].device
+    step = make_sort_device_step(state, cfg, sort_pad_spec(cfg, uniform),
+                                 dtype)
+    step_fn = capture_step(step)
+    sums = list(step.sums.values())
+
+    metrics: Dict[str, float] = {}
+    t0, done, first_done = None, 0, 0
+    while done < steps:
+        for v in sums:
+            v.zero_()
+        for _ in range(chunk):
+            step_fn()
+        done += chunk
+        state.step += chunk
+        # One host sync a chunk: the chunk's mean metrics.
+        means = (torch.stack(sums) / chunk).tolist()
+        metrics = dict(zip(step.sums, means))
+        if t0 is None:
+            _wait(device)
+            t0, first_done = time.perf_counter(), done
+        if log_fn is not None:
+            log_fn(state.step, metrics)
+    _wait(device)
+    dt = time.perf_counter() - t0 if steps > chunk else float("inf")
+    sps = (done - first_done) / dt if done > first_done else 0.0
+    return SortTrainResult(model=state.model, optimizer=state.optimizer,
+                           metrics=metrics, steps_per_sec=sps, step=step_fn,
+                           state=state)
+
+
+def evaluate_sort(model: nn.Module, cfg: SortTaskConfig,
+                  n_batches: int = 256, seed: int = 1234,
+                  dtype: Optional[torch.dtype] = None,
+                  uniform: bool = False) -> Dict[str, float]:
+    """Task accuracy on fresh batches generated on the model's device from
+    a generator seeded ``seed``: a captured forward replayed ``n_batches``
+    times (eager on the CPU), the accuracies summed on the device and read
+    once.  Returns the mean node, edge and graph accuracy over the batches;
+    ``graph_acc`` is the flagship criterion (every node AND edge of a graph
+    right)."""
+    pad = sort_pad_spec(cfg, uniform=uniform)
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sums = torch.zeros(3, dtype=torch.float32, device=device)
+
+    def step() -> None:
+        x, y = device_batch(gen, cfg, pad, dtype)
+        with torch.no_grad():
+            pred = model(x)
+            sums.add_(torch.stack([
+                masked_accuracy(pred.nf, y.nf, x.node_mask),
+                masked_accuracy(pred.ef, y.ef, x.edge_mask),
+                graph_accuracy(pred, y)]))
+
+    step.model, step.generators, step.buffers = model, (gen,), (sums,)
+    run = capture_step(step)
+    for _ in range(n_batches):
+        run()
+    node, edge, graph = (sums / n_batches).tolist()
+    return {"node_acc": node, "edge_acc": edge, "graph_acc": graph}

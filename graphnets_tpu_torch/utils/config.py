@@ -13,7 +13,10 @@ update keeps its fused edge->node sum under training
 whether GNBlock takes the split-linear route (gather after transform) or
 materialises the concatenated update inputs
 (``GRAPHNETS_TPU_TORCH_SPLIT_LINEAR=0/1``, default 1, as
-``GRAPHNETS_TPU_SPLIT_LINEAR`` for the JAX package).
+``GRAPHNETS_TPU_SPLIT_LINEAR`` for the JAX package).  ``debug_checks()``
+says whether the host-side invariant checks run
+(``GRAPHNETS_TPU_TORCH_DEBUG=1``, as ``GRAPHNETS_TPU_DEBUG`` for the JAX
+package; see ``utils/debug``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,14 @@ class Config:
     # output.  The JAX package's default, from its measurements; off, the
     # training step takes the kernel without the sum and aggregates after.
     g1_agg_fusion_training: bool = True
+    # Debug-mode invariant checks (GRAPHNETS_TPU_TORCH_DEBUG=1): batch()
+    # validates its output, segment_sum(sorted_pad_safe=True) enforces
+    # ascending ids and pad-targets-pad, and the sorted gather ascending
+    # ids within the table.  The kernels skip masks and bounds on these
+    # contracts; a violation raises instead of corrupting results.  The
+    # checks read tensors on the host, so a CUDA-graph capture refuses to
+    # run while they are on (training/train.CapturedStep).
+    debug_checks: bool = False
 
 
 def _env_tristate(name: str) -> Optional[bool]:
@@ -68,7 +79,8 @@ _config = Config(
     split_linear=os.environ.get("GRAPHNETS_TPU_TORCH_SPLIT_LINEAR",
                                 "1") == "1",
     g1_agg_fusion_training=os.environ.get(
-        "GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN", "1") == "1")
+        "GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN", "1") == "1",
+    debug_checks=os.environ.get("GRAPHNETS_TPU_TORCH_DEBUG", "0") == "1")
 
 
 def get_config() -> Config:
@@ -112,6 +124,14 @@ def bf16_gather_partials(rows: int) -> bool:
 
 def g1_agg_fusion_training() -> bool:
     return _config.g1_agg_fusion_training
+
+
+def debug_checks() -> bool:
+    return _config.debug_checks
+
+
+def enable_debug_checks(flag: bool = True) -> None:
+    _config.debug_checks = flag
 
 
 def resolve_device(device=None) -> torch.device:

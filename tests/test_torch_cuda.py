@@ -1128,3 +1128,95 @@ def test_two_captured_graphs_share_one_pool(cuda):
                        3e-4)
     assert cap.captures == 2 and cap.replays == 5
     assert len({id(v[1]) for v in cap._graphs.values()}) == 2
+
+
+# -- The sort flagship's device loop ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform", [False, True])
+def test_captured_device_batches_follow_the_generator(cuda, uniform):
+    """A step that draws a sort batch on the card, captured as a CUDA graph:
+    each replay draws the batch that an eager call from the same generator
+    state draws, bit for bit, and two replays draw different batches (the
+    generator is registered with the graph and advances every replay)."""
+    import graphnets_tpu_torch as pt
+    cfg = pt.SortTaskConfig()
+    pad = pt.sort_pad_spec(cfg, uniform)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def step():
+        x, y = pt.device_batch(gen, cfg, pad)
+        return x.nf, x.senders, x.receivers, x.n_node, y.nf, y.ef
+
+    step.generators = (gen,)
+    cap = pt.capture_step(step)
+    start = gen.get_state()
+    replays = [cap() for _ in range(3)]
+    assert cap.captures == 1 and cap.replays == 3
+    gen.set_state(start)
+    eager = [step() for _ in range(3)]
+    for a, b in zip(replays, eager):
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+    assert not torch.equal(replays[0][0], replays[1][0])
+
+
+@pytest.mark.cuda
+def test_captured_device_chunk_matches_eager(cuda):
+    """Four steps of the device loop's step captured against four eager
+    steps from the same state and generator state, under the one-step rule
+    above; the summed metrics agree as the losses do."""
+    import graphnets_tpu_torch as pt
+    pt.enable_kernels(True)
+    cfg = pt.SortTaskConfig()
+
+    def build():
+        model = pt.EncodeProcessDecode(
+            (0, 100, 0), (128,) * 3, (2, 2, 0), n_cores=2, device=cuda,
+            generator=torch.Generator().manual_seed(0))
+        state = pt.TrainState(model, pt.adamw(model.parameters()), 0,
+                              (torch.Generator(device=cuda).manual_seed(1),))
+        return model, pt.make_sort_device_step(state, cfg)
+
+    (mc, sc), (me, se) = build(), build()
+    cap = pt.capture_step(sc)
+    for _ in range(4):
+        cap()
+        se()
+    _one_step_rule((mc, me), (sc.sums["loss"], se.sums["loss"]), 3e-4)
+    assert cap.captures == 1 and cap.replays == 4
+
+
+@pytest.mark.cuda
+def test_few_segment_sums_repeat_bit_for_bit(cuda):
+    """The graph pools (at most 64 segments) are a one-hot f32 product in a
+    fixed order, as JAX's one-hot matmul: two calls on the card are
+    bit-equal, where float atomics (``index_add_``) may not be."""
+    from graphnets_tpu_torch.ops.scatter import segment_sum
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(16384, 384, generator=gen).to(cuda)
+    seg = torch.sort(torch.randint(0, 8, (16384,), generator=gen))[0].to(
+        torch.int32).to(cuda)
+    outs = [segment_sum(x, seg, 8) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = torch.zeros(8, 384, dtype=torch.float64, device=cuda).index_add_(
+        0, seg.long(), x.double())
+    assert float((outs[0].double() - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+    # With TF32 switched on by the caller the product stays f32 (TF32's
+    # 10-bit mantissa would miss the reference by ~1e-3), and so does its
+    # backward (each row's gradient is one exact term).
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        xg = x.clone().requires_grad_()
+        tf32_out = segment_sum(xg, seg, 8)
+        w = torch.randn(8, 384, generator=gen).to(cuda)
+        (tf32_out * w).sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(tf32_out.detach(), outs[0])
+    assert torch.equal(xg.grad, w[seg.long()])
