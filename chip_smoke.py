@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --gates    # only the training-gate timings
+    python3 chip_smoke.py --flagship # the flagship recipe's accuracy
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
 (4b drives the training step; A and B drive the non-uniform route, S the
@@ -202,8 +203,41 @@ E. run sampled training as the JAX package runs it, at D's shape: the
 R. run ``random_gather`` through its entry point ([65,536, 256] bf16 table,
    1,048,576 random ids) against ``index_select``: bit-equal, one launch;
    print both times and rates;
+P. run the parallel paths (``graphnets_tpu_torch.parallel``) at the
+   headline's width (3 GNCores at (384,)*3, each data shard 4b's batch
+   of 8 graphs in ``PadSpec.uniform(128, 2048)``, bf16 compute from f32
+   masters, AdamW(3e-4)): (a) ``make_dp_train_step`` at world size 1 over
+   NCCL through ``capture_step``, the all-reduce inside the graph, against
+   4b's plain captured step on the same batch and weights (loss 1e-5
+   relative, parameters 1e-5 of their largest + 0.1 lr), 4b's launches
+   and one all-reduce a call, both captured times in turns; (b) two
+   processes sharing the card over gloo (NCCL takes one rank a device;
+   the collectives go through the host, which the log counts), at (data,
+   model) = (2, 1) and (1, 2) (every weight the default ``min_size``
+   shards): one step against one process over the same shards (loss
+   1e-4 relative, parameters as in (a)), each rank's stored parameter and
+   moment elements against the replicated count; (c) the pipeline, S = 2
+   over the same two processes, 2 headline cores and M = 3 microbatches,
+   the loss of every output squared: outputs and gradients within 1e-5
+   of the largest magnitude of the sequential ``GNCoreList`` in this
+   process on the same route, its launches the sum of the ranks', and
+   the gradients against the plain route under 4b's rule (the inference
+   edge update's backward on the card); (d) the flagship's warmup-cosine
+   schedule: within 2 f32 ulps of optax's formula in numpy at steps 0,
+   499, 500 and 19,999, 8 captured steps of the device loop writing the
+   eager twin's rates bit for bit (parameters under (a)'s rule), and
+   ``train_sort_device`` with it for one chunk.  The ranks report their
+   launch counts to this process; the kernels line lists (a), the TP
+   step and the pipeline as paths;
 5. print one JSON line listing the kernels (it fails if one was launched on
    no path), then the ``ok`` line.
+
+``--flagship`` trains the flagship recipe (``benchmarks/run_flagship.py``,
+f32): 20,000 steps of ``train_sort_device`` at a constant 3e-4 and with
+the warmup-cosine schedule, each followed by ``evaluate_sort`` over 1024
+batches, and prints ``graph_acc`` beside the JAX package's records, with
+a curve of both accuracies every 2,000 steps; it exits 1 where one is
+more than 0.05 below its record.
 
 Float32 products everywhere run without TF32 (set below), so the plain
 versions' f32 matmuls are exact-product, f32-accumulate.  The script
@@ -2218,6 +2252,528 @@ def pipeline_phase(torch, pt, zero_counts, read_counts, graph, per_step):
             "batches": len(got), "replays": cap.replays}
 
 
+# Phase P: data, tensor and pipeline parallelism over torch.distributed.
+P_LR = 3e-4
+P_MICROS = 3            # the pipeline's microbatches
+P_STAGE_CORES = 2       # the pipeline's cores, one a stage
+P_TIMEOUT_S = 300       # every rank's collectives and its join
+# The flagship recipe (benchmarks/run_flagship.py) and its JAX records
+# (benchmarks/flagship_f32.json, flagship_cosine.json: eval graph_acc).
+FLAGSHIP_STEPS, FLAGSHIP_EVAL = 20_000, 1024
+FLAGSHIP_CURVE_EVERY, FLAGSHIP_CURVE_EVAL = 2000, 256   # the eval curve
+FLAGSHIP_COSINE = (0.0, 3e-4, 500, FLAGSHIP_STEPS, 1e-5)
+FLAGSHIP_JAX = {"constant": 0.778, "cosine": 0.843}
+
+
+def kernel_counters():
+    """``(zero_counts, read_counts)``: set every kernel wrapper's launch
+    count to 0, and read them all by name."""
+    from graphnets_tpu_torch.ops.kernels import edge_update as eu
+    from graphnets_tpu_torch.ops.kernels import edge_update_g1 as g1
+    from graphnets_tpu_torch.ops.kernels import fused_ffn as ffn
+    from graphnets_tpu_torch.ops.kernels import gather as ga
+    from graphnets_tpu_torch.ops.kernels import ln_linear as ll
+    from graphnets_tpu_torch.ops.kernels import random_gather as rg
+    from graphnets_tpu_torch.ops.kernels import segment_sum as ss
+    counters = {"edge_agg": (eu, "LAUNCHES"), "ffn": (ffn, "LAUNCHES"),
+                "edge": (eu, "LAUNCHES_NO_AGG"),
+                "segment_sum": (ss, "LAUNCHES"),
+                "windowed": (ss, "WINDOWED_LAUNCHES"),
+                "gather": (ga, "LAUNCHES"), "ln_backward": (ll, "LAUNCHES"),
+                "ln_matmul": (ll, "FWD_LAUNCHES"),
+                "gather_add": (ga, "ADD_LAUNCHES"),
+                "edge_g1_agg": (g1, "LAUNCHES"),
+                "edge_g1": (g1, "LAUNCHES_NO_AGG"),
+                "ffn_backward": (ffn, "BWD_LAUNCHES"),
+                "random_gather": (rg, "LAUNCHES")}
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    return zero_counts, read_counts
+
+
+def headline_shard(torch, pt, i):
+    """Data shard ``i`` of phase P: bench.py's 8 graphs from seed ``i`` in
+    ``PadSpec.uniform(128, 2048)``, bf16, with 4b's random bf16 node and
+    edge targets from seed ``1 + i`` (shard 0 is 4b's batch)."""
+    bf = torch.bfloat16
+    g = pt.batch(bench_graphs(i, N_PER_G, DEG, N_PER_G, N_PER_G * DEG),
+                 pad=pt.PadSpec.uniform(N_PER_G, N_PER_G * DEG))
+    g = g.with_features(ef=g.ef.to(bf), nf=g.nf.to(bf), gf=g.gf.to(bf))
+    rng = np.random.default_rng(1 + i)
+    target = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(device=g.device, dtype=bf)
+    return g, g.with_features(ef=target(g.num_edge_slots, D),
+                              nf=target(g.num_node_slots, D), gf=None)
+
+
+def headline_cores(torch, pt, n):
+    """``n`` headline GNCores at (384,)*3 from 4b's seeded generator."""
+    gen = torch.Generator().manual_seed(0)
+    return [pt.GNCore((D, D, D), generator=gen) for _ in range(n)]
+
+
+def pipeline_loss(out):
+    """``test_pipeline_gradient_equality``'s loss, in f32."""
+    return sum(t.float().square().sum() for t in (out.ef, out.nf, out.gf))
+
+
+def param_rule(torch, got, want, lr, what):
+    """The captured-vs-eager rule on named parameters: each within 1e-5 of
+    the reference's largest magnitude plus a tenth of ``lr``; returns the
+    worst share of its bound and its name."""
+    worst = (0.0, "")
+    for n, q in want.items():
+        q = q.detach()
+        p = got[n].detach().to(q.device, q.dtype)
+        if tuple(p.shape) != tuple(q.shape):
+            raise SystemExit(f"{what}: {n} has shape {tuple(p.shape)}, "
+                             f"expected {tuple(q.shape)}")
+        if q.numel():
+            bound = 1e-5 * float(q.abs().max()) + 0.1 * lr
+            worst = max(worst, (float((p - q).abs().max()) / bound, n))
+    return worst
+
+
+def dp_captured_phase(torch, pt, mesh, expect, zero_counts, read_counts):
+    """P(a): ``make_dp_train_step`` at world size 1 (NCCL) through
+    ``capture_step``, the all-reduce inside the graph, against 4b's plain
+    captured ``make_train_step`` on the same batch and weights."""
+    from graphnets_tpu_torch.parallel import _comm
+    from graphnets_tpu_torch.parallel.data_parallel import make_dp_train_step
+    bf = torch.bfloat16
+    g, y = headline_shard(torch, pt, 0)
+    model_p = pt.GNCoreList(headline_cores(torch, pt, N_CORES))
+    model_d = pt.GNCoreList(headline_cores(torch, pt, N_CORES))
+    plain = pt.capture_step(pt.make_train_step(
+        model_p, pt.adamw(model_p.parameters(), P_LR), compute_dtype=bf))
+    dp = pt.capture_step(make_dp_train_step(
+        model_d, pt.adamw(model_d.parameters(), P_LR), mesh,
+        compute_dtype=bf))
+    loss_p = float(plain(g, y)["loss"])
+    zero_counts()
+    before = _comm.COLLECTIVES
+    loss_d = float(dp(g, y)["loss"])
+    torch.cuda.synchronize()
+    launches, collectives = read_counts(), _comm.COLLECTIVES - before
+    # The calls through the step's body: two warm-ups and the capture.
+    calls = dp.traced_calls
+    want_counts(launches, {k: v * calls for k, v in expect.items()},
+                "captured DP step")
+    rel = abs(loss_d - loss_p) / abs(loss_p)
+    worst = param_rule(torch, dict(model_d.named_parameters()),
+                       dict(model_p.named_parameters()), P_LR, "P(a)")
+    losses = [float(dp(g, y)["loss"]) for _ in range(10)]
+    log(f"P(a) captured DP step (world size 1, NCCL): launches {launches}, "
+        f"{collectives} all-reduces in {calls} calls through the "
+        f"wrappers; loss {loss_d:.7f} vs the plain captured step "
+        f"{loss_p:.7f} ({rel:.3e} relative, tolerance 1e-5); worst "
+        f"parameter {worst[1]} at {worst[0]:.4f} of its bound (1e-5 x its "
+        f"largest magnitude + 0.1 x lr); losses of 10 replays {losses}")
+    if (rel > 1e-5 or worst[0] > 1.0 or collectives != calls
+            or not all(np.isfinite(losses))):
+        raise SystemExit("P(a): the captured DP step disagrees with the "
+                         "plain captured step")
+    times = {"plain": [], "dp": []}
+    for which in ("plain", "dp", "dp", "plain"):
+        fn = plain if which == "plain" else dp
+        times[which].append(cuda_ms(torch, lambda: fn(g, y), iters=10))
+    rows, busy, _ = profile_forward(torch, lambda: dp(g, y))
+    nccl = [r for r in rows if "nccl" in r[2].lower()]
+    plain_prof = profile_replay(torch, lambda: plain(g, y))
+    return {"launches": launches, "collectives": collectives,
+            "loss": loss_d, "plain_loss": loss_p, "loss_rel": rel,
+            "worst_param": worst, "replay_losses": losses,
+            "captured_ms": times["dp"], "plain_captured_ms": times["plain"],
+            "replay_busy_ms": busy or None,
+            "replay_kernels": sum(r[1] for r in rows),
+            "plain_replay_busy_ms": plain_prof["replay_busy_ms"],
+            "plain_replay_kernels": plain_prof["replay_kernels"],
+            "nccl_kernels": [(r[0], r[1], r[2][:60]) for r in nccl]}
+
+
+def parallel_ranks(rank, world):
+    """One of the two ranks of P(b) and P(c), on ``cuda:0`` over gloo (the
+    parent built the kernels): a DP step at (data, model) = (2, 1) on
+    shard ``rank``, a DP x TP step at (1, 2) on shard 0 (default
+    ``min_size``), and the S = 2 pipeline over ``P_MICROS`` microbatches.
+    Returns the losses, parameters or gradients, launch counts and
+    collective counts."""
+    import torch
+    import graphnets_tpu_torch as pt
+    from graphnets_tpu_torch.parallel import _comm
+    from graphnets_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step, stack_shards)
+    from graphnets_tpu_torch.parallel.mesh import make_mesh
+    from graphnets_tpu_torch.parallel.pipeline import PipelinedCoreList
+    from graphnets_tpu_torch.parallel.tensor_parallel import shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero_counts, read_counts = kernel_counters()
+    pt.enable_kernels(True)
+    bf, host = torch.bfloat16, lambda t: t.detach().cpu()
+    out = {}
+
+    def counted(fn):
+        zero_counts()
+        c0, s0 = _comm.COLLECTIVES, _comm.HOST_STAGED
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {"launches": read_counts(),
+                        "collectives": _comm.COLLECTIVES - c0,
+                        "host_staged": _comm.HOST_STAGED - s0,
+                        "s": time.perf_counter() - t0}
+
+    for name, sizes, shard in (("dp", (2, 1), rank), ("tp", (1, 2), 0)):
+        mesh = make_mesh(sizes, ("data", "model"))
+        g, y = headline_shard(torch, pt, shard)
+        model = pt.GNCoreList(headline_cores(torch, pt, N_CORES))
+        full = sum(p.numel() for p in model.parameters())
+        if name == "tp":
+            shard_params(model, mesh, "model")
+        opt = pt.adamw(model.parameters(), P_LR)
+        step = make_dp_train_step(model, opt, mesh, compute_dtype=bf,
+                                  param_shardings=name == "tp")
+        m, info = counted(lambda: step(g, y))
+        out[name] = dict(info, loss=float(m["loss"]),
+                         params={n: host(p)
+                                 for n, p in model.named_parameters()},
+                         dims=(dict(model.tensor_parallel.dims)
+                               if name == "tp" else {}),
+                         stored=sum(p.numel() for p in model.parameters()),
+                         moments=sum(v.numel() for st in opt.state.values()
+                                     for k, v in st.items()
+                                     if k in ("exp_avg", "exp_avg_sq")),
+                         replicated=full)
+    mesh = make_mesh((2,), ("pipe",))
+    pipe = PipelinedCoreList(headline_cores(torch, pt, P_STAGE_CORES), 2)
+    micros = stack_shards([headline_shard(torch, pt, i)[0]
+                           for i in range(P_MICROS)])
+
+    def run():
+        o = pipe(micros, mesh)
+        pipeline_loss(o).backward()
+        return o
+
+    o, info = counted(run)
+    sid = mesh.get_local_rank("pipe")
+    out["pipe"] = dict(info, stage=sid, grads={
+        n: host(p.grad) for n, p in pipe.stages[sid].named_parameters()},
+        outputs=[host(t) for t in (o.ef, o.nf, o.gf)] if rank == 0 else None)
+    return out
+
+
+def parallel_phase(torch, pt, expect, zero_counts, read_counts, where):
+    """Phase P: (a) the captured DP step at world size 1 (NCCL); (b) DP and
+    DP x TP over two processes sharing the card (gloo) against one process
+    over the same shards; (c) the S = 2 pipeline over the same two
+    processes against the sequential stack; (d) the learning-rate schedule
+    under capture.  Raises ``SystemExit`` on any miss."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from graphnets_tpu_torch.parallel.distributed import init_distributed
+    from graphnets_tpu_torch.parallel.launch import run_ranks
+    from graphnets_tpu_torch.parallel.mesh import make_mesh
+    from graphnets_tpu_torch.parallel.pipeline import PipelinedCoreList
+    from graphnets_tpu_torch.params import shard_of
+    from torch.distributed.tensor import Shard
+    t_p = time.perf_counter()
+    pt.enable_kernels(True)
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_p_")
+    init_distributed(f"file://{os.path.join(work, 'store')}", 1, 0,
+                     device="cuda", timeout_s=P_TIMEOUT_S)
+    try:
+        if dist.get_backend() != "nccl":
+            raise SystemExit(f"P(a): backend {dist.get_backend()}, not nccl")
+        out["a"] = dp_captured_phase(torch, pt, make_mesh(), expect,
+                                     zero_counts, read_counts)
+    finally:
+        dist.destroy_process_group()
+    a = out["a"]
+    log(f"P(a) captured DP step {a['captured_ms']} ms against the plain "
+        f"captured step {a['plain_captured_ms']} ms (turns: plain, DP, DP, "
+        f"plain); one profiled replay {a['replay_kernels']} kernels of "
+        f"{a['replay_busy_ms'] or 0:.4f} ms, busy share "
+        f"{busy_share(a['replay_busy_ms'], a['captured_ms'][0])} (the plain "
+        f"step's: {a['plain_replay_kernels']} of "
+        f"{a['plain_replay_busy_ms'] or 0:.4f} ms, "
+        f"{busy_share(a['plain_replay_busy_ms'], a['plain_captured_ms'][0])}"
+        f"; the DP step returns the loss alone, without the accuracies); NCCL "
+        f"kernels in the replay {a['nccl_kernels']}; {where}")
+
+    # (b) and (c): two ranks on cuda:0 over gloo.
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_ranks, 2, os.path.join(work, "ranks"),
+                      device="cuda", backend="gloo", timeout_s=P_TIMEOUT_S,
+                      threads=4)
+    spawn_s = time.perf_counter() - t0
+    bf = torch.bfloat16
+    for r, got in enumerate(ranks):
+        for k in ("dp", "tp", "pipe"):
+            log(f"P rank {r} {k}: launches {got[k]['launches']}, "
+                f"{got[k]['collectives']} collectives, "
+                f"{got[k]['host_staged']} of them staged through the host "
+                f"(gloo takes no CUDA tensor for them), {got[k]['s']:.3f} s")
+
+    # (b) DP: one process over the same two shards, the mean loss.
+    shards = [headline_shard(torch, pt, i) for i in range(2)]
+    model = pt.GNCoreList(headline_cores(torch, pt, N_CORES))
+    params = dict(model.named_parameters())
+    run = {n: p.to(bf) for n, p in params.items()}
+    loss = sum(pt.graph_loss_nf_ef(functional_call(
+        model, run, (x,), {"training": True}), y) for x, y in shards) / 2
+    loss.backward()
+    pt.adamw(model.parameters(), P_LR).step()
+    ref_loss = float(loss.detach())
+    for r, got in enumerate(ranks):
+        rel = abs(got["dp"]["loss"] - ref_loss) / abs(ref_loss)
+        worst = param_rule(torch, got["dp"]["params"], params, P_LR, "P(b)")
+        log(f"P(b) DP (2, 1) rank {r}: loss {got['dp']['loss']:.7f} vs one "
+            f"process over both shards {ref_loss:.7f} ({rel:.3e} relative, "
+            f"tolerance 1e-4); worst parameter {worst[1]} at "
+            f"{worst[0]:.4f} of its bound")
+        if rel > 1e-4 or worst[0] > 1.0:
+            raise SystemExit(f"P(b): DP rank {r} disagrees with one process")
+    # (b) DP x TP: one process on shard 0.
+    model = pt.GNCoreList(headline_cores(torch, pt, N_CORES))
+    m = pt.make_train_step(model, pt.adamw(model.parameters(), P_LR),
+                           compute_dtype=bf)(*shards[0])
+    ref_loss = float(m["loss"])
+    full = {n: p.detach() for n, p in model.named_parameters()}
+    for r, got in enumerate(ranks):
+        tp = got["tp"]
+        want = {n: shard_of(p, Shard(tp["dims"][n]), r, 2)
+                if n in tp["dims"] else p for n, p in full.items()}
+        rel = abs(tp["loss"] - ref_loss) / abs(ref_loss)
+        worst = param_rule(torch, tp["params"], want, P_LR, "P(b) TP")
+        log(f"P(b) DP x TP (1, 2) rank {r}: loss {tp['loss']:.7f} vs one "
+            f"process {ref_loss:.7f} ({rel:.3e} relative, tolerance 1e-4); "
+            f"worst parameter {worst[1]} at {worst[0]:.4f} of its bound; "
+            f"{len(tp['dims'])} of {len(full)} weights sharded; stored "
+            f"{tp['stored']} parameter and {tp['moments']} moment elements "
+            f"against {tp['replicated']} and {2 * tp['replicated']} "
+            f"replicated")
+        if (rel > 1e-4 or worst[0] > 1.0 or not tp["dims"]
+                or tp["stored"] >= tp["replicated"]
+                or tp["moments"] != 2 * tp["stored"]):
+            raise SystemExit(f"P(b): DP x TP rank {r} disagrees with one "
+                             "process")
+
+    # (c) The pipeline against the sequential stack in this process, on
+    # the kernel route, then against the plain route under 4b's rule.
+    micros = [headline_shard(torch, pt, i)[0] for i in range(P_MICROS)]
+
+    def sequential(dtype=None):
+        pipe = PipelinedCoreList(headline_cores(torch, pt, P_STAGE_CORES), 2)
+        seq = pipe.sequential()
+        outs = []
+        for g in micros:
+            if dtype is not None:
+                g = g.with_features(ef=g.ef.to(dtype), nf=g.nf.to(dtype),
+                                    gf=g.gf.to(dtype))
+            outs.append(seq(g))
+        sum(pipeline_loss(o) for o in outs).backward()
+        return outs, [{n: p.grad for n, p in st.named_parameters()}
+                      for st in pipe.stages]
+
+    zero_counts()
+    outs, grads = sequential()
+    torch.cuda.synchronize()
+    seq_launches = read_counts()
+    pipe_launches = {k: sum(got["pipe"]["launches"][k] for got in ranks)
+                     for k in seq_launches}
+    if pipe_launches != seq_launches or not all(
+            pipe_launches[k] for k in ("edge_agg", "ffn", "gather",
+                                       "ln_backward", "segment_sum",
+                                       "windowed")):
+        raise SystemExit(f"P(c): the pipeline's launches {pipe_launches} "
+                         f"are not the sequential stack's {seq_launches}")
+    worst_out = 0.0
+    for i, name in enumerate(("ef", "nf", "gf")):
+        for mi, o in enumerate(outs):
+            ref = getattr(o, name).float()
+            got = ranks[0]["pipe"]["outputs"][i][mi].to(ref.device).float()
+            worst_out = max(worst_out, float((got - ref).abs().max())
+                            / (1e-5 * float(ref.abs().max())))
+    worst_seq = (0.0, "")
+    for got in ranks:
+        s = got["pipe"]["stage"]
+        for n, q in grads[s].items():
+            p = got["pipe"]["grads"][n].to(q.device)
+            worst_seq = max(worst_seq, (float((p - q).abs().max())
+                                        / (1e-5 * float(q.abs().max())),
+                                        f"stage {s} {n}"))
+    pt.enable_kernels(False)
+    _, plain = sequential()
+    _, plain32 = sequential(torch.float32)
+    pt.enable_kernels(True)
+    worst_plain = (0.0, "")
+    for got in ranks:
+        s = got["pipe"]["stage"]
+        for n, q in plain[s].items():
+            p = got["pipe"]["grads"][n].to(q.device)
+            bound = max(5e-2 * float(q.abs().max()),
+                        float((q - plain32[s][n]).abs().max()))
+            worst_plain = max(worst_plain, (float((p - q).abs().max())
+                                            / bound, f"stage {s} {n}"))
+    log(f"P(c) pipeline S = 2, M = {P_MICROS}, {P_STAGE_CORES} headline "
+        f"cores: launches (both ranks) {pipe_launches}, the sequential "
+        f"stack's {seq_launches}; outputs at {worst_out:.4f} and worst "
+        f"gradient {worst_seq[1]} at {worst_seq[0]:.4f} of 1e-5 of their "
+        f"largest magnitudes from the sequential stack's; against the "
+        f"plain route under 4b's rule worst {worst_plain[1]} at "
+        f"{worst_plain[0]:.4f} of its bound; loss through the ranks "
+        f"{ranks[0]['pipe']['s']:.3f} / {ranks[1]['pipe']['s']:.3f} s")
+    if worst_out > 1.0 or worst_seq[0] > 1.0 or worst_plain[0] > 1.0:
+        raise SystemExit("P(c): the pipeline disagrees")
+    out["d"] = schedule_phase(torch, pt)
+    out.update(spawn_s=spawn_s, launches={
+        "dp_train_step": out["a"]["launches"],
+        "dp_tp_train_step": ranks[0]["tp"]["launches"],
+        "pipeline": pipe_launches})
+    out["ranks"] = [{k: {kk: v for kk, v in got[k].items()
+                         if kk not in ("params", "grads", "outputs")}
+                     for k in got} for got in ranks]
+    log(f"phase P took {time.perf_counter() - t_p:.1f} s (the two ranks "
+        f"{spawn_s:.1f} s of it, their start included); {where}")
+    return out
+
+
+def optax_warmup_cosine(count, init, peak, warmup, decay, end):
+    """optax's ``warmup_cosine_decay_schedule`` at ``count``, evaluated in
+    numpy f32 term by term."""
+    f = np.float32
+    if count < warmup:
+        frac = f(1) - f(min(max(count, 0), warmup)) / f(warmup)
+        return f(init - peak) * frac + f(peak)
+    steps = f(decay - warmup)
+    c = min(f(count - warmup), steps)
+    cosine = f(0.5) * (f(1) + np.cos(f(np.pi) * c / steps))
+    alpha = end / peak
+    return f(peak) * (f(1 - alpha) * cosine + f(alpha))
+
+
+def schedule_phase(torch, pt):
+    """P(d): the flagship's warmup-cosine schedule on the card: its values
+    against optax's formula in numpy (2 f32 ulps), a captured chunk of the
+    device loop's step against its eager twin (the rate written at each
+    step bit-equal and equal to the schedule at the step's count, the
+    parameters under the captured-vs-eager rule) and ``train_sort_device``
+    itself with it."""
+    from graphnets_tpu_torch.training.schedules import \
+        warmup_cosine_decay_schedule
+    dev = torch.device("cuda")
+    sched = warmup_cosine_decay_schedule(*FLAGSHIP_COSINE)
+    ulps = {}
+    for c in (0, 499, 500, 19_999):
+        got = np.float32(sched(torch.tensor(float(c), device=dev)).item())
+        want = optax_warmup_cosine(c, *FLAGSHIP_COSINE)
+        ulps[c] = abs(int(got.view(np.int32)) - int(want.view(np.int32)))
+    cfg = pt.SortTaskConfig()
+    pad = pt.sort_pad_spec(cfg)
+
+    def state():
+        model = pt.EncodeProcessDecode(
+            (0, cfg.vocab_size, 0), (D, D, D), (2, 2, 0), n_cores=2,
+            generator=torch.Generator().manual_seed(0))
+        return pt.TrainState(model, pt.adamw(model.parameters(), sched), 0,
+                             (torch.Generator(device=dev).manual_seed(1),))
+
+    rates = {}
+    states = {}
+    for how in ("captured", "eager"):
+        st = states[how] = state()
+        step = pt.make_sort_device_step(st, cfg, pad)
+        run = pt.capture_step(step) if how == "captured" else step
+        lr = st.optimizer.param_groups[0]["lr"]
+        rates[how] = []
+        for _ in range(8):
+            run()
+            rates[how].append(lr.item())
+    want = [sched(torch.tensor(float(i), device=dev)).item()
+            for i in range(8)]
+    worst = param_rule(torch,
+                       dict(states["captured"].model.named_parameters()),
+                       dict(states["eager"].model.named_parameters()),
+                       FLAGSHIP_COSINE[1], "P(d)")
+    res = pt.train_sort_device(steps=S_CHUNK, cfg=cfg, core_dims=(D, D, D),
+                               n_cores=2, learning_rate=sched, seed=0,
+                               chunk=S_CHUNK)
+    last = res.optimizer.param_groups[0]["lr"].item()
+    log(f"P(d) schedule: ulps from optax's formula at 0 / 499 / 500 / "
+        f"19999: {ulps}; the rates of 8 captured steps {rates['captured']} "
+        f"(eager {rates['eager']}); worst parameter {worst[1]} at "
+        f"{worst[0]:.4f} of its bound; train_sort_device {S_CHUNK} steps: "
+        f"last rate {last} (schedule at {S_CHUNK - 1}: "
+        f"{sched(torch.tensor(S_CHUNK - 1.0)).item()}), metrics "
+        f"{res.metrics}")
+    if (max(ulps.values()) > 2 or rates["captured"] != rates["eager"]
+            or rates["captured"] != want or worst[0] > 1.0
+            or last != sched(torch.tensor(S_CHUNK - 1.0, device=dev)).item()
+            or not all(np.isfinite(list(res.metrics.values())))):
+        raise SystemExit("P(d): the schedule disagrees")
+    return {"ulps": ulps, "rates": rates["captured"], "worst_param": worst,
+            "metrics": res.metrics}
+
+
+def flagship_phase(torch, pt):
+    """``--flagship``: the flagship recipe (``benchmarks/run_flagship.py``)
+    on the card, f32: 20,000 steps of ``train_sort_device`` at a constant
+    3e-4 and with the warmup-cosine schedule, each followed by
+    ``evaluate_sort`` over 1024 batches, beside JAX's records.  Every 2,000
+    steps the chunk's mean ``graph_acc`` and ``evaluate_sort``'s over 256
+    batches (the same batches each time) are recorded, a curve that tells
+    a run that ends on a bad step from one that stays below JAX's (the
+    steps/s include these evaluations)."""
+    from graphnets_tpu_torch.training.schedules import \
+        warmup_cosine_decay_schedule
+    cfg = pt.SortTaskConfig()
+    out = {}
+    for name, lr in (("constant", 3e-4),
+                     ("cosine",
+                      warmup_cosine_decay_schedule(*FLAGSHIP_COSINE))):
+        # train_sort_device's own model for seed 0, built here so that the
+        # curve can evaluate it between chunks.
+        model = pt.EncodeProcessDecode(
+            (0, cfg.vocab_size, 0), (D, D, D), (2, 2, 0), n_cores=2,
+            generator=torch.Generator().manual_seed(0))
+        curve = []
+
+        def point(step, metrics):
+            if step % FLAGSHIP_CURVE_EVERY == 0:
+                ev = pt.evaluate_sort(model, cfg,
+                                      n_batches=FLAGSHIP_CURVE_EVAL)
+                curve.append((step, round(metrics["graph_acc"], 4),
+                              round(ev["graph_acc"], 4)))
+
+        t0 = time.perf_counter()
+        res = pt.train_sort_device(steps=FLAGSHIP_STEPS, cfg=cfg,
+                                   core_dims=(D, D, D), n_cores=2,
+                                   learning_rate=lr, seed=0, chunk=1000,
+                                   model=model, log_fn=point)
+        wall = time.perf_counter() - t0
+        ev = pt.evaluate_sort(res.model, cfg, n_batches=FLAGSHIP_EVAL)
+        out[name] = {"steps_per_sec": res.steps_per_sec, "wall_s": wall,
+                     "train_metrics": res.metrics, "eval": ev,
+                     "curve": curve, "jax_graph_acc": FLAGSHIP_JAX[name],
+                     "fault": ev["graph_acc"] < FLAGSHIP_JAX[name] - 0.05}
+        log(f"flagship {name}: {FLAGSHIP_STEPS} steps in {wall:.1f} s "
+            f"({res.steps_per_sec:.2f} steps/s with the curve's "
+            f"evaluations), last chunk {res.metrics}; evaluate_sort over "
+            f"{FLAGSHIP_EVAL} batches {ev}; JAX's record graph_acc "
+            f"{FLAGSHIP_JAX[name]}; (step, chunk graph_acc, eval graph_acc "
+            f"over {FLAGSHIP_CURVE_EVAL} batches) {curve}")
+    return out
+
+
 # The GNCore training gates re-measured by ``--gates``: JAX's settings
 # (the port's constants) and one change each.
 GATE_SETTINGS = (
@@ -2323,24 +2879,7 @@ def main() -> int:
     from graphnets_tpu_torch.ops.kernels import segment_sum as ss
 
     # Every wrapper's launch count, set to 0 before and read after a path.
-    counters = {"edge_agg": (eu, "LAUNCHES"), "ffn": (ffn, "LAUNCHES"),
-                "edge": (eu, "LAUNCHES_NO_AGG"),
-                "segment_sum": (ss, "LAUNCHES"),
-                "windowed": (ss, "WINDOWED_LAUNCHES"),
-                "gather": (ga, "LAUNCHES"), "ln_backward": (ll, "LAUNCHES"),
-                "ln_matmul": (ll, "FWD_LAUNCHES"),
-                "gather_add": (ga, "ADD_LAUNCHES"),
-                "edge_g1_agg": (g1, "LAUNCHES"),
-                "edge_g1": (g1, "LAUNCHES_NO_AGG"),
-                "ffn_backward": (ffn, "BWD_LAUNCHES"),
-                "random_gather": (rg, "LAUNCHES")}
-
-    def zero_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read_counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    zero_counts, read_counts = kernel_counters()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2358,6 +2897,11 @@ def main() -> int:
         _build.build()
         log(json.dumps({"gates": gates_phase(torch, pt), "card": card}))
         return 0
+    if "--flagship" in sys.argv[1:]:
+        _build.build()
+        flag = flagship_phase(torch, pt)
+        log(json.dumps({"flagship": flag, "card": card}))
+        return 1 if any(r["fault"] for r in flag.values()) else 0
 
     # 2. Build every kernel.
     t0 = time.perf_counter()
@@ -2539,11 +3083,11 @@ def main() -> int:
     log_forward("forward", fwd, n_edges, where)
 
     # 4b. The headline training step, through make_train_step.
-    train = train_phase(
-        torch, pt, g, dict(edge=N_CORES, segment_sum=2 * N_CORES,
-                           windowed=N_CORES, gather=N_CORES,
-                           ln_backward=N_CORES),
-        zero_counts, read_counts, "train step")
+    train_expect = dict(edge=N_CORES, segment_sum=2 * N_CORES,
+                        windowed=N_CORES, gather=N_CORES,
+                        ln_backward=N_CORES)
+    train = train_phase(torch, pt, g, train_expect, zero_counts,
+                        read_counts, "train step")
     log_train("train step", train, n_edges, where)
 
     # A. The sort flagship: train_sort and sort_accuracy, f32.
@@ -2700,6 +3244,14 @@ def main() -> int:
         f"({rg_case['bytes'] / rg_case['library_ms'] / 1e6:.4f} GB/s), "
         f"bound {rg_case['bound_ms']:.4f} ms; {where}")
 
+    # P. Data, tensor and pipeline parallelism over torch.distributed.
+    par = parallel_phase(torch, pt, train_expect, zero_counts, read_counts,
+                         where)
+    log(f"P(a) against phase 4b's captured step "
+        f"{train['captured']['captured_ms']:.4f} ms: the captured DP step "
+        f"{par['a']['captured_ms']} ms, the plain one here "
+        f"{par['a']['plain_captured_ms']} ms; {where}")
+
     # 5. Results.
     paths = {"forward": fwd["launches"], "train_step": train["launches"],
              "sort_train_step": sort["first_launches"],
@@ -2718,7 +3270,7 @@ def main() -> int:
              "bucketed_train_step_captured": btrain["captured"]["launches"],
              "large_train_step_remat": ltrain["remat_launches"],
              "sampled_pipeline": pipe["launches"],
-             "random_gather": rg_launches}
+             "random_gather": rg_launches, **par["launches"]}
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src, ref = "graphnets_tpu_torch/csrc/", "graphnets_tpu/ops/pallas/"
     kernels = [
@@ -2798,6 +3350,8 @@ def main() -> int:
                     "large_train_step": slim(ltrain),
                     "sampled_train": slim(samp),
                     "sampled_pipeline": pipe,
+                    "parallel": {k: v for k, v in par.items()
+                                 if k != "launches"},
                     "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -25,7 +25,10 @@ step, ``train_sort_device`` and ``evaluate_sort``, checkpoints
 (``CheckpointManager``), the SVG renderings, the debug checks
 (``validate_graph``, ``GRAPHNETS_TPU_TORCH_DEBUG``), the views and edge
 collapsing of ``graph``, ``segment_mean`` / ``segment_max``, the precision
-policy, metrics and profiling helpers.
+policy, metrics and profiling helpers; and learning-rate schedules
+(``training/schedules``) and parallel training over ``torch.distributed``
+(``parallel/``: meshes, the multi-process runtime, data, tensor and
+pipeline parallelism).
 """
 
 from .data.large_graph import (LargeGraph, NeighborSampler, SampledBatch,
@@ -87,6 +90,8 @@ from .training.losses import (graph_accuracy, graph_loss_nf_ef,
                               masked_accuracy, masked_logit_crossentropy,
                               per_graph_correct)
 from .training.evaluate import sort_accuracy
+from .training.schedules import (constant_schedule,
+                                 warmup_cosine_decay_schedule)
 from .training.train import (CapturedStep, SortTrainResult, TrainState,
                              adam, adamw, capture_step, evaluate_sort,
                              make_node_classification_step,
@@ -134,5 +139,5 @@ __all__ = [
     "debug_checks", "enable_debug_checks", "validate_graph",
     "assert_finite", "checked", "MetricLogger", "host0_logger", "is_host0",
     "trace", "annotate", "StepTimer", "render_graph_svg", "sort_input_svg",
-    "sort_target_svg",
+    "sort_target_svg", "constant_schedule", "warmup_cosine_decay_schedule",
 ]

@@ -27,9 +27,11 @@ both packages.  The CUDA kernel itself serves every width the gate admits.
 port's other kernels as ``edge_update.py:262-302`` does (the LN->matmul
 backward, the windowed sum for the senders, the sorted sum for the
 receivers, and a reshape-sum for ``tg`` and ``b``).
-:func:`fused_edge_update_agg` is the inference form and has no backward.
-Both take their plain versions for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+:func:`fused_edge_update_agg` is differentiable too, through both outputs:
+its backward adds the sorted gather of ``agg``'s cotangent to ``h``'s at
+the composed path's rounding point and then takes the same backward
+(``edge_update.py:264-275``).  Both take their plain versions for CPU
+tensors only; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 from ...nn.core import layer_norm
 from ..ln_linear import matmul_f32
 from . import _build
+from .gather import _gather
 from .ln_linear import ln_linear_backward
 from .segment_sum import sorted_segment_sum, windowed_segment_sum
 
@@ -210,12 +213,46 @@ def _defaults(ef, ln_params, ts, b):
     return use_ln, scale, bias, b
 
 
+def _save(ctx, ef, scale, bias, w0, tg, senders, receivers, n_slots,
+          e_slots, use_ln):
+    ctx.save_for_backward(ef, scale, bias, w0, senders, receivers)
+    ctx.layout = (n_slots, e_slots, use_ln, tg.shape[0])
+
+
+def _backward(ctx, g):
+    """The gradients of both fused edge updates given ``h``'s cotangent
+    ``g`` (``edge_update.py:276-302``): the LN->matmul backward, the
+    argsort-free scatters and the column sums."""
+    ef, scale, bias, w0, senders, receivers = ctx.saved_tensors
+    n_slots, e_slots, use_ln, G = ctx.layout
+    g = g.contiguous()
+    if use_ln:
+        d_ef, ds, db_ln, dw0 = ln_linear_backward(ef, scale, bias, w0, g)
+    else:
+        gc = g.to(ef.dtype)
+        d_ef = matmul_f32(gc, w0.t()).to(ef.dtype)
+        dw0 = matmul_f32(ef.t(), gc)
+        ds, db_ln = torch.zeros_like(scale), torch.zeros_like(bias)
+    # The argsort-free scatters of edge_update.py:292-300.
+    N = n_slots * G
+    gi = torch.arange(G + 1, dtype=torch.int32, device=g.device)
+    d_ts = windowed_segment_sum(g, senders, N, gi * n_slots,
+                                gi * e_slots).float()
+    d_tr = sorted_segment_sum(g, receivers, N).float()
+    gf = g.float()
+    d_tg = gf.view(G, e_slots, -1).sum(1)
+    d_b = gf.sum(0)
+    return (d_ef, ds.to(scale.dtype), db_ln.to(bias.dtype),
+            dw0.to(w0.dtype), d_ts, d_tr, d_tg, d_b, None, None, None,
+            None, None)
+
+
 class _FusedEdgeUpdate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ef, scale, bias, w0, ts, tr, tg, b, senders, receivers,
                 n_slots, e_slots, use_ln):
-        ctx.save_for_backward(ef, scale, bias, w0, senders, receivers)
-        ctx.layout = (n_slots, e_slots, use_ln, tg.shape[0])
+        _save(ctx, ef, scale, bias, w0, tg, senders, receivers, n_slots,
+              e_slots, use_ln)
         if ef.device.type == "cpu":
             return fused_edge_update_plain(ef, scale, bias, w0, ts, tr, tg, b,
                                            senders, receivers, e_slots,
@@ -225,28 +262,31 @@ class _FusedEdgeUpdate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ef, scale, bias, w0, senders, receivers = ctx.saved_tensors
-        n_slots, e_slots, use_ln, G = ctx.layout
-        g = g.contiguous()
-        if use_ln:
-            d_ef, ds, db_ln, dw0 = ln_linear_backward(ef, scale, bias, w0, g)
-        else:
-            gc = g.to(ef.dtype)
-            d_ef = matmul_f32(gc, w0.t()).to(ef.dtype)
-            dw0 = matmul_f32(ef.t(), gc)
-            ds, db_ln = torch.zeros_like(scale), torch.zeros_like(bias)
-        # The argsort-free scatters of edge_update.py:292-300.
-        N = n_slots * G
-        gi = torch.arange(G + 1, dtype=torch.int32, device=g.device)
-        d_ts = windowed_segment_sum(g, senders, N, gi * n_slots,
-                                    gi * e_slots).float()
-        d_tr = sorted_segment_sum(g, receivers, N).float()
-        gf = g.float()
-        d_tg = gf.view(G, e_slots, -1).sum(1)
-        d_b = gf.sum(0)
-        return (d_ef, ds.to(scale.dtype), db_ln.to(bias.dtype),
-                dw0.to(w0.dtype), d_ts, d_tr, d_tg, d_b, None, None, None,
-                None, None)
+        return _backward(ctx, g)
+
+
+class _FusedEdgeUpdateAgg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ef, scale, bias, w0, ts, tr, tg, b, senders, receivers,
+                n_slots, e_slots, use_ln):
+        _save(ctx, ef, scale, bias, w0, tg, senders, receivers, n_slots,
+              e_slots, use_ln)
+        if ef.device.type == "cpu":
+            return fused_edge_update_agg_plain(ef, scale, bias, w0, ts, tr,
+                                               tg, b, senders, receivers,
+                                               e_slots, use_ln)
+        return _launch(ef, scale, bias, w0, ts, tr, tg, b, senders,
+                       receivers, e_slots, use_ln, with_agg=True)
+
+    @staticmethod
+    def backward(ctx, g, g_agg):
+        # agg sums the rounded h by receiver: its pullback is the sorted
+        # gather, added at the composed path's rounding point in g's type
+        # (edge_update.py:264-275).
+        receivers = ctx.saved_tensors[5]
+        gathered = _gather(g_agg.to(g.dtype).contiguous(), receivers)
+        g = (g.float() + gathered.float()).to(g.dtype)
+        return _backward(ctx, g)
 
 
 def fused_edge_update(ef, ln_params: Optional[dict], w0, ts, tr, tg, b,
@@ -272,9 +312,6 @@ def fused_edge_update_agg(ef, ln_params: Optional[dict], w0, ts, tr, tg, b,
     for the JAX signature.
     """
     use_ln, scale, bias, b = _defaults(ef, ln_params, ts, b)
-    if ef.device.type == "cpu":
-        return fused_edge_update_agg_plain(ef, scale, bias, w0, ts, tr, tg, b,
-                                           senders, receivers, e_slots,
-                                           use_ln)
-    return _launch(ef, scale, bias, w0, ts, tr, tg, b, senders, receivers,
-                   e_slots, use_ln, with_agg=True)
+    return _FusedEdgeUpdateAgg.apply(ef, scale.float(), bias.float(), w0, ts,
+                                     tr, tg, b.float(), senders, receivers,
+                                     n_slots, e_slots, use_ln)

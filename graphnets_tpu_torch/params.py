@@ -16,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_jax_params", "to_numpy_tree"]
+__all__ = ["from_jax_params", "to_numpy_tree", "from_jax_stage_params",
+           "shard_of"]
 
 
 def _flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -54,6 +55,41 @@ def from_jax_params(tree, module: nn.Module) -> nn.Module:
         with torch.no_grad():
             p.copy_(src.to(device=p.device, dtype=p.dtype))
     return module
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def from_jax_stage_params(tree, pipe_module: nn.Module,
+                          stage: int) -> nn.Module:
+    """Copy stage ``stage`` of a ``PipelinedCoreList`` tree of the JAX
+    package (every leaf has a leading stage axis,
+    ``parallel/pipeline.py:167-174`` there) into that stage of the port's
+    ``PipelinedCoreList`` (``pipe_module.stages[stage]``, whose cores are
+    named ``"0"``, ``"1"``, ... as in the JAX stage's tree).  Returns
+    ``pipe_module``."""
+    from_jax_params(_map_tree(lambda x: np.asarray(x)[stage], tree),
+                    pipe_module.stages[stage])
+    return pipe_module
+
+
+def shard_of(array, placement, rank_coord: int, tp: int):
+    """Rank ``rank_coord``'s shard of a full weight (a numpy array or a
+    tensor) under ``placement``: the array itself when it replicates, else
+    the ``rank_coord``-th of ``tp`` equal slices along the placement's
+    ``dim`` (``Shard(dim)``)."""
+    dim = getattr(placement, "dim", None)
+    if dim is None:
+        return array
+    n = array.shape[dim]
+    if n % tp:
+        raise ValueError(f"shard_of: dim {dim} of {tuple(array.shape)} "
+                         f"does not split {tp} ways")
+    index = [slice(None)] * len(array.shape)
+    index[dim] = slice(rank_coord * (n // tp), (rank_coord + 1) * (n // tp))
+    return array[tuple(index)]
 
 
 def to_numpy_tree(module: nn.Module) -> dict:

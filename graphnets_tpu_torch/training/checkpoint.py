@@ -90,9 +90,18 @@ def _restore_optimizer(opt: torch.optim.Optimizer, saved: dict,
     live_idx = {i for i, p in enumerate(params) if opt.state.get(p)}
     if not live_idx:
         # A fresh optimizer has no state to copy into: it takes the saved
-        # one (nothing can have captured tensors it does not have yet).
+        # one (nothing can have captured tensors it does not have yet),
+        # except a scheduled learning rate, which keeps its tensor.
         if write:
+            kept = [{k: v for k, v in g.items()
+                     if isinstance(v, torch.Tensor)}
+                    for g in opt.param_groups]
             opt.load_state_dict(saved)
+            for group, tensors in zip(opt.param_groups, kept):
+                for k, v in tensors.items():
+                    with torch.no_grad():
+                        v.copy_(torch.as_tensor(group[k]))
+                    group[k] = v
         return
     if live_idx != set(state) or any(
             set(opt.state[params[i]]) != set(st) for i, st in state.items()):
@@ -109,10 +118,22 @@ def _restore_optimizer(opt: torch.optim.Optimizer, saved: dict,
             elif write:
                 live[k] = v
     if write:
-        for group, sg in zip(opt.param_groups, saved["param_groups"]):
-            for k, v in sg.items():
-                if k != "params":
-                    group[k] = v
+        _restore_groups(opt, saved["param_groups"])
+
+
+def _restore_groups(opt: torch.optim.Optimizer, groups) -> None:
+    """Write the hyperparameters of ``groups`` into the optimizer's groups:
+    a tensor (a scheduled learning rate, which a captured step reads) in
+    place, any other value by assignment."""
+    for group, sg in zip(opt.param_groups, groups):
+        for k, v in sg.items():
+            if k == "params":
+                continue
+            if isinstance(group.get(k), torch.Tensor):
+                with torch.no_grad():
+                    group[k].copy_(torch.as_tensor(v))
+            else:
+                group[k] = v
 
 
 def _restore(live: Any, saved: Any, write: bool = True) -> Any:

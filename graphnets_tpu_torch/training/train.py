@@ -48,6 +48,7 @@ from ..utils.config import debug_checks, get_config, resolve_device
 from ..utils.tree import map_tensors, structure, tensors
 from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
                      masked_logit_crossentropy)
+from .schedules import LearningRate, follow_schedule, initial_lr
 
 __all__ = ["adam", "adamw", "make_train_step",
            "make_node_classification_step", "capture_step", "CapturedStep",
@@ -59,24 +60,33 @@ def _on_cuda(params) -> bool:
     return bool(params) and all(p.is_cuda for p in params)
 
 
-def adamw(params: Iterable[torch.Tensor], lr: float = 3e-4
+def _device(params) -> torch.device:
+    return params[0].device if params else torch.device("cpu")
+
+
+def adamw(params: Iterable[torch.Tensor], lr: LearningRate = 3e-4
           ) -> torch.optim.AdamW:
     """``optax.adamw(lr)`` in torch: betas (0.9, 0.999), eps 1e-8 and
     weight decay 1e-4 (torch's default decay is 1e-2).  On CUDA
     parameters it is ``capturable``, so :func:`capture_step` can take its
-    update into a CUDA graph."""
+    update into a CUDA graph.  ``lr`` is a float or a schedule
+    (``training/schedules``), evaluated at each step's count as optax
+    does."""
     params = list(params)
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4, capturable=_on_cuda(params))
+    return follow_schedule(torch.optim.AdamW(
+        params, lr=initial_lr(lr, _device(params)), betas=(0.9, 0.999),
+        eps=1e-8, weight_decay=1e-4, capturable=_on_cuda(params)), lr)
 
 
-def adam(params: Iterable[torch.Tensor], lr: float = 1e-3
+def adam(params: Iterable[torch.Tensor], lr: LearningRate = 1e-3
          ) -> torch.optim.Adam:
     """``optax.adam(lr)`` in torch: betas (0.9, 0.999), eps 1e-8;
-    ``capturable`` on CUDA parameters, as :func:`adamw`."""
+    ``capturable`` on CUDA parameters and ``lr`` a float or a schedule, as
+    :func:`adamw`."""
     params = list(params)
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            capturable=_on_cuda(params))
+    return follow_schedule(torch.optim.Adam(
+        params, lr=initial_lr(lr, _device(params)), betas=(0.9, 0.999),
+        eps=1e-8, capturable=_on_cuda(params)), lr)
 
 
 def make_train_step(
@@ -398,14 +408,15 @@ def train_sort(
     cfg: SortTaskConfig = SortTaskConfig(),
     core_dims: Tuple[int, int, int] = (384, 384, 384),
     n_cores: int = 2,
-    learning_rate: float = 3e-4,
+    learning_rate: LearningRate = 3e-4,
     seed: int = 0,
     log_every: int = 0,
     model: Optional[nn.Module] = None,
     device=None,
 ) -> SortTrainResult:
     """Train the sort model in f32: encoder ``(0, vocab, 0) -> core_dims``,
-    ``n_cores`` GNCores, decoder to ``(2, 2, 0)``, AdamW, on batches from
+    ``n_cores`` GNCores, decoder to ``(2, 2, 0)``, AdamW
+    (``learning_rate``: a float or a schedule), on batches from
     the host generator seeded with ``seed``.  Runs on ``device`` (``cuda``
     unless the caller passes another); a ``model`` passed in must already
     live there.  The step goes through :func:`capture_step` (eager on the
@@ -486,7 +497,7 @@ def train_sort_device(
     cfg: SortTaskConfig = SortTaskConfig(),
     core_dims: Tuple[int, int, int] = (384, 384, 384),
     n_cores: int = 2,
-    learning_rate: float = 3e-4,
+    learning_rate: LearningRate = 3e-4,
     seed: int = 0,
     chunk: int = 500,
     log_fn: Optional[Callable[[int, dict], None]] = None,
@@ -514,11 +525,13 @@ def train_sort_device(
     (``sort_pad_spec(cfg, uniform=True)``).  The model is
     ``EncodeProcessDecode((0, vocab, 0) -> core_dims -> (2, 2, 0))`` with
     ``n_cores`` cores, initialised from ``seed`` unless ``model`` is given,
-    trained by AdamW(``learning_rate``) on ``device`` (``cuda`` unless the
-    caller passes another); the batches come from a generator there,
-    seeded from ``seed``.  ``state`` resumes a run instead (its model,
-    optimizer, step count and generator, for example restored from a
-    checkpoint; ``model``, ``seed`` and ``learning_rate`` are then unused).
+    trained by AdamW(``learning_rate``, a float or a schedule) on
+    ``device`` (``cuda`` unless the caller passes another); the batches
+    come from a generator there, seeded from ``seed``.  ``state`` resumes
+    a run instead (its model, optimizer, step count and generator, for
+    example restored from a checkpoint; ``model``, ``seed`` and
+    ``learning_rate`` are then unused; a scheduled optimizer goes on from
+    its own step count).
     ``eval_batches`` is unused, as in the JAX package."""
     if state is None:
         device = resolve_device(device)

@@ -1220,3 +1220,118 @@ def test_few_segment_sums_repeat_bit_for_bit(cuda):
         torch.set_float32_matmul_precision(prev)
     assert torch.equal(tf32_out.detach(), outs[0])
     assert torch.equal(xg.grad, w[seg.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ln", [True, False])
+def test_fused_edge_update_agg_gradients_match_plain(cuda, use_ln):
+    """The inference edge update with its sum is differentiable on the
+    card through both outputs: the gradients of every input against
+    autograd of the plain version (5e-2 of each tensor's largest
+    magnitude, bf16 cotangents), the sorted gather launched for ``agg``'s
+    cotangent."""
+    G, n_slots, e_slots, d = 4, 32, 256, 128
+    rng = np.random.default_rng(17)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    snd, rcv = _uniform_ids(rng, G, n_slots, e_slots, False)
+    base = {"ef": f(G * e_slots, d).bfloat16(), "scale": 1 + 0.1 * f(d),
+            "bias": 0.1 * f(d), "w0": (f(d, d) * 0.05).bfloat16(),
+            "ts": f(G * n_slots, d), "tr": f(G * n_slots, d),
+            "tg": f(G, d), "b": f(d)}
+    ct_h, ct_agg = f(G * e_slots, d).bfloat16().to(cuda), \
+        f(G * n_slots, d).to(cuda)
+    results = []
+    for kernel in (False, True):
+        ins = {k: v.to(cuda).detach().requires_grad_()
+               for k, v in base.items()}
+        ln = {"scale": ins["scale"], "bias": ins["bias"]} if use_ln else None
+        args = (ins["ef"], ln, ins["w0"], ins["ts"], ins["tr"], ins["tg"],
+                ins["b"], snd.to(cuda), rcv.to(cuda), n_slots, e_slots)
+        if kernel:
+            before = (eu.LAUNCHES, ga.LAUNCHES)
+            h, agg = eu.fused_edge_update_agg(*args)
+        else:
+            scale = ins["scale"] if use_ln else torch.ones(d, device=cuda)
+            bias = ins["bias"] if use_ln else torch.zeros(d, device=cuda)
+            h, agg = eu.fused_edge_update_agg_plain(
+                ins["ef"], scale, bias, ins["w0"], ins["ts"], ins["tr"],
+                ins["tg"], ins["b"], snd.to(cuda), rcv.to(cuda), e_slots,
+                use_ln)
+        torch.autograd.backward((h, agg), (ct_h, ct_agg))
+        results.append({k: v.grad for k, v in ins.items()})
+    torch.cuda.synchronize()
+    assert (eu.LAUNCHES, ga.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    plain, kern = results
+    for k in base:
+        if not use_ln and k in ("scale", "bias"):
+            continue
+        assert kern[k] is not None, k
+        _close_max(kern[k], plain[k], 5e-2)
+
+
+@pytest.mark.cuda
+def test_captured_dp_step_matches_the_plain_captured_step(cuda, tmp_path):
+    """``make_dp_train_step`` at world size 1 (NCCL) through
+    ``capture_step``, the all-reduce inside the graph, against the plain
+    captured step on the same batch and weights under the one-step rule;
+    each warm-up and the capture call the collective once."""
+    import torch.distributed as dist
+    import graphnets_tpu_torch as pt
+    from graphnets_tpu_torch.parallel import _comm
+    from graphnets_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from graphnets_tpu_torch.parallel.distributed import init_distributed
+    from graphnets_tpu_torch.parallel.mesh import make_mesh
+    pt.enable_kernels(True)
+    init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cuda",
+                     timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        x, y = _graph_batch(cuda, "uniform")
+        (mc, _), (me, se) = _core_step(cuda), _core_step(cuda)
+        dp = pt.capture_step(make_dp_train_step(
+            mc, pt.adamw(mc.parameters(), 3e-4), make_mesh(),
+            compute_dtype=torch.bfloat16))
+        plain = pt.capture_step(se)
+        before = _comm.COLLECTIVES
+        _one_step_rule((mc, me), (dp(x, y)["loss"], plain(x, y)["loss"]),
+                       3e-4)
+        assert _comm.COLLECTIVES - before == dp.traced_calls == 3
+        losses = [float(dp(x, y)["loss"]) for _ in range(5)]
+        assert all(np.isfinite(losses)) and dp.captures == 1
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_captured_schedule_matches_eager(cuda):
+    """The device loop's step with a warmup-cosine AdamW, captured against
+    eager from the same state: the rate written at each step bit-equal and
+    equal to the schedule at the step's count, then the one-step rule on
+    the parameters."""
+    import graphnets_tpu_torch as pt
+    from graphnets_tpu_torch.training.schedules import \
+        warmup_cosine_decay_schedule
+    pt.enable_kernels(True)
+    cfg = pt.SortTaskConfig()
+    sched = warmup_cosine_decay_schedule(0.0, 3e-4, 3, 10, 1e-5)
+
+    def build():
+        model = pt.EncodeProcessDecode(
+            (0, 100, 0), (128,) * 3, (2, 2, 0), n_cores=2, device=cuda,
+            generator=torch.Generator().manual_seed(0))
+        state = pt.TrainState(model, pt.adamw(model.parameters(), sched), 0,
+                              (torch.Generator(device=cuda).manual_seed(1),))
+        return model, state, pt.make_sort_device_step(state, cfg)
+
+    (mc, stc, sc), (me, ste, se) = build(), build()
+    cap = pt.capture_step(sc)
+    rates = {"c": [], "e": []}
+    for _ in range(6):
+        cap()
+        se()
+        rates["c"].append(stc.optimizer.param_groups[0]["lr"].item())
+        rates["e"].append(ste.optimizer.param_groups[0]["lr"].item())
+    want = [sched(torch.tensor(float(i), device=cuda)).item()
+            for i in range(6)]
+    assert rates["c"] == rates["e"] == want
+    _one_step_rule((mc, me), (sc.sums["loss"], se.sums["loss"]), 3e-4)
