@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``graphnets_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the smoke run below
-    python3 chip_smoke.py --gates    # only the training-gate timings
-    python3 chip_smoke.py --flagship # the flagship recipe's accuracy
+    python3 chip_smoke.py                   # the smoke run below
+    python3 chip_smoke.py --phase gates     # the training-gate timings
+    python3 chip_smoke.py --phase flagship  # the flagship recipe's accuracy
+    python3 chip_smoke.py --phase flagship --seeds 0,1,2  # constant, by seed
+    python3 chip_smoke.py --phase G         # phase G alone
+
+A ``--phase`` run builds the kernels, runs that phase alone and prints its
+JSON, with no kernels line and no ``ok`` line.
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
 (4b drives the training step; A and B drive the non-uniform route, S the
@@ -229,10 +234,49 @@ P. run the parallel paths (``graphnets_tpu_torch.parallel``) at the
    ``train_sort_device`` with it for one chunk.  The ranks report their
    launch counts to this process; the kernels line lists (a), the TP
    step and the pipeline as paths;
+G. run edge-partitioned graph parallelism (``parallel/edge_partition``,
+   ``edge_partition_stack``) on the graph of
+   ``benchmarks/bench_partitioned.py --large`` (``build_single_graph``,
+   seed 0: N = 65,536 nodes of in-degree 16, E = 1,048,576, C's stack of 3
+   GNCores at (256,)*3 from C's seed, bf16 compute from f32 masters,
+   ``partitioned_loss_nf_ef``, AdamW(3e-4)): (a) S = 1 over NCCL:
+   ``gn_core_list_partitioned`` forward and the partitioned train step
+   against the unpartitioned stack on the same graph and weights (each
+   feature set within 5e-2 of its largest magnitude; the loss 1e-2
+   relative), their launches against C's kernel stack (3 single-graph
+   edge updates with the sum, 6 FFN forwards and backwards, 3 LN
+   backwards, 6 sorted sums, 3 sorted gathers), eager and captured
+   (``capture_step``, held to its eager twin by the captured-vs-eager
+   rule) times of both and their ratio, peak memory, and no collective
+   at one rank (JAX's collective over an axis of size 1 is the identity);
+   (b) S = 2, two processes sharing the card over gloo: the forward's
+   rows of each rank, mapped through ``edge_index``, against (a)'s (5e-2
+   rule), one bf16 step's loss against an S = 1 step on the same routes
+   (1e-4 relative; a shard's 32,768 node rows are under the fused FFN's
+   training row gate, so that S = 1 step composes its node set too), one
+   f32 step's loss (1e-4) and summed gradients (in the 2-norm, 1e-3 of
+   each tensor's, as C's) against S = 1's, beside a witness of their f32
+   noise ((a)'s f32 step with each node's edges reordered); both ranks'
+   parameters bit-equal, and every element that breaks the
+   captured-vs-eager rule against S = 1's has an S = 1 gradient within 4
+   x the witness's largest gap in its tensor;
+   each rank's launches, collectives (an all-to-all and a psum a core
+   forward; the step 4 x 3 + 2) and host-staged calls, and the halo H;
+   (c) the v1 / v2 / v3 blocks at S = 2 on a smaller graph at the
+   headline width (N = 1024, in-degree 16 from within 32 ring places,
+   ids scrambled; GNBlock (384,)*3, bf16) against each other and the
+   unpartitioned GNBlock (5e-2 rule), v3 launching the single-graph edge
+   update; (d) ``partition_edges_mincut`` and
+   ``partition_edges_locality`` on that graph: fewer cut edges than
+   contiguous blocks, and v2 on their layouts against the unpartitioned
+   block (5e-2 rule); the v3 core on the min-cut layout's pad slots under
+   training, the single-graph update with its sum and the composed route
+   (``ln_matmul``, the sorted sum over ``Npad + 1`` segments), each
+   against the plain route (5e-2 rule, real rows).  The kernels line lists G's paths;
 5. print one JSON line listing the kernels (it fails if one was launched on
    no path), then the ``ok`` line.
 
-``--flagship`` trains the flagship recipe (``benchmarks/run_flagship.py``,
+``--phase flagship`` trains the flagship recipe (``benchmarks/run_flagship.py``,
 f32): 20,000 steps of ``train_sort_device`` at a constant 3e-4 and with
 the warmup-cosine schedule, each followed by ``evaluate_sort`` over 1024
 batches, and prints ``graph_acc`` beside the JAX package's records, with
@@ -2724,27 +2768,32 @@ def schedule_phase(torch, pt):
             "metrics": res.metrics}
 
 
-def flagship_phase(torch, pt):
-    """``--flagship``: the flagship recipe (``benchmarks/run_flagship.py``)
+def flagship_phase(torch, pt, seeds=None):
+    """``--phase flagship``: the flagship recipe (``benchmarks/run_flagship.py``)
     on the card, f32: 20,000 steps of ``train_sort_device`` at a constant
     3e-4 and with the warmup-cosine schedule, each followed by
     ``evaluate_sort`` over 1024 batches, beside JAX's records.  Every 2,000
     steps the chunk's mean ``graph_acc`` and ``evaluate_sort``'s over 256
     batches (the same batches each time) are recorded, a curve that tells
     a run that ends on a bad step from one that stays below JAX's (the
-    steps/s include these evaluations)."""
+    steps/s include these evaluations).  With ``seeds`` the constant
+    recipe alone runs once a seed (model and batches from that seed), and
+    the mean of their ``graph_acc`` is held to JAX's record."""
     from graphnets_tpu_torch.training.schedules import \
         warmup_cosine_decay_schedule
     cfg = pt.SortTaskConfig()
     out = {}
-    for name, lr in (("constant", 3e-4),
-                     ("cosine",
-                      warmup_cosine_decay_schedule(*FLAGSHIP_COSINE))):
-        # train_sort_device's own model for seed 0, built here so that the
-        # curve can evaluate it between chunks.
+    runs = ([(f"constant_seed{s}", "constant", 3e-4, s) for s in seeds]
+            if seeds else
+            [("constant", "constant", 3e-4, 0),
+             ("cosine", "cosine",
+              warmup_cosine_decay_schedule(*FLAGSHIP_COSINE), 0)])
+    for name, recipe, lr, seed in runs:
+        # train_sort_device's own model for the seed, built here so that
+        # the curve can evaluate it between chunks.
         model = pt.EncodeProcessDecode(
             (0, cfg.vocab_size, 0), (D, D, D), (2, 2, 0), n_cores=2,
-            generator=torch.Generator().manual_seed(0))
+            generator=torch.Generator().manual_seed(seed))
         curve = []
 
         def point(step, metrics):
@@ -2757,24 +2806,34 @@ def flagship_phase(torch, pt):
         t0 = time.perf_counter()
         res = pt.train_sort_device(steps=FLAGSHIP_STEPS, cfg=cfg,
                                    core_dims=(D, D, D), n_cores=2,
-                                   learning_rate=lr, seed=0, chunk=1000,
+                                   learning_rate=lr, seed=seed, chunk=1000,
                                    model=model, log_fn=point)
         wall = time.perf_counter() - t0
         ev = pt.evaluate_sort(res.model, cfg, n_batches=FLAGSHIP_EVAL)
         out[name] = {"steps_per_sec": res.steps_per_sec, "wall_s": wall,
                      "train_metrics": res.metrics, "eval": ev,
-                     "curve": curve, "jax_graph_acc": FLAGSHIP_JAX[name],
-                     "fault": ev["graph_acc"] < FLAGSHIP_JAX[name] - 0.05}
+                     "curve": curve, "jax_graph_acc": FLAGSHIP_JAX[recipe],
+                     "fault": (not seeds and ev["graph_acc"]
+                               < FLAGSHIP_JAX[recipe] - 0.05)}
         log(f"flagship {name}: {FLAGSHIP_STEPS} steps in {wall:.1f} s "
             f"({res.steps_per_sec:.2f} steps/s with the curve's "
             f"evaluations), last chunk {res.metrics}; evaluate_sort over "
             f"{FLAGSHIP_EVAL} batches {ev}; JAX's record graph_acc "
-            f"{FLAGSHIP_JAX[name]}; (step, chunk graph_acc, eval graph_acc "
+            f"{FLAGSHIP_JAX[recipe]}; (step, chunk graph_acc, eval graph_acc "
             f"over {FLAGSHIP_CURVE_EVAL} batches) {curve}")
+    if seeds:
+        mean = float(np.mean([out[n]["eval"]["graph_acc"] for n in out]))
+        fault = mean < FLAGSHIP_JAX["constant"] - 0.05
+        out["mean"] = {"graph_acc": mean, "seeds": list(seeds),
+                       "jax_graph_acc": FLAGSHIP_JAX["constant"],
+                       "fault": fault}
+        log(f"flagship constant over seeds {list(seeds)}: mean eval "
+            f"graph_acc {mean:.4f} against JAX's {FLAGSHIP_JAX['constant']}"
+            f" (a fault below {FLAGSHIP_JAX['constant'] - 0.05:.3f})")
     return out
 
 
-# The GNCore training gates re-measured by ``--gates``: JAX's settings
+# The GNCore training gates re-measured by ``--phase gates``: JAX's settings
 # (the port's constants) and one change each.
 GATE_SETTINGS = (
     ("jax", {}),
@@ -2785,7 +2844,7 @@ GATE_SETTINGS = (
 
 
 def gates_phase(torch, pt):
-    """``python3 chip_smoke.py --gates``: the phase C train step (the large
+    """``python3 chip_smoke.py --phase gates``: the phase C train step (the large
     graph, d = 256) and the phase D sampled step under JAX's training gates
     and under one change each: ``_FUSED_FFN_TRAIN_MAX_DIM`` 384,
     ``_FUSED_FFN_TRAIN_MIN_ROWS`` 8,192 (D's 56,320 / 56,960-row sets then
@@ -2861,6 +2920,788 @@ def gates_phase(torch, pt):
     return results
 
 
+# Phase G: edge-partitioned graph parallelism.  The large graph of
+# benchmarks/bench_partitioned.py --large (build_single_graph, seed 0; C's
+# size and width) and, for the blocks and the partitioners, a smaller
+# graph at the headline width.
+G_N, G_DEG, G_D, G_CORES, G_LR = 65536, 16, 256, 3, 3e-4
+G_SMALL_N, G_SMALL_DEG, G_SMALL_WINDOW = 1024, 16, 32
+G_TIMEOUT_S = 600
+
+
+def partitioned_arrays(seed=0, N=G_N, deg=G_DEG, d=G_D):
+    """``benchmarks/bench_partitioned.py``'s ``build_single_graph(seed)``:
+    receivers ascending with in-degree ``deg``, each node's senders drawn
+    without replacement, normal f32 features; and its targets (normal,
+    from seed 1)."""
+    rng = np.random.default_rng(seed)
+    E = N * deg
+    receivers = np.repeat(np.arange(N), deg)
+    senders = np.concatenate([rng.choice(N, size=deg, replace=False)
+                              for _ in range(N)])
+    ef = rng.normal(size=(E, d)).astype(np.float32)
+    nf = rng.normal(size=(N, d)).astype(np.float32)
+    gf = rng.normal(size=(d,)).astype(np.float32)
+    rng = np.random.default_rng(1)
+    y_ef = rng.normal(size=(E, d)).astype(np.float32)
+    y_nf = rng.normal(size=(N, d)).astype(np.float32)
+    return {"senders": senders.astype(np.int64),
+            "receivers": receivers.astype(np.int64), "ef": ef, "nf": nf,
+            "gf": gf, "y_ef": y_ef, "y_nf": y_nf}
+
+
+def local_arrays(seed=2, N=G_SMALL_N, deg=G_SMALL_DEG, d=D,
+                 window=G_SMALL_WINDOW):
+    """The smaller graph of G(c) and G(d): each node receives from ``deg``
+    nodes within ``window`` places of it on a ring, and the node ids are
+    scrambled, so contiguous blocks of the ids cut about half the edges
+    and an order that finds the ring cuts few; normal f32 features at the
+    headline width."""
+    rng = np.random.default_rng(seed)
+    offsets = np.concatenate([np.arange(-window, 0),
+                              np.arange(1, window + 1)])
+    receivers = np.repeat(np.arange(N), deg)
+    senders = np.concatenate([(v + rng.choice(offsets, size=deg,
+                                              replace=False)) % N
+                              for v in range(N)])
+    perm = rng.permutation(N)
+    E = N * deg
+    return {"senders": perm[senders].astype(np.int64),
+            "receivers": perm[receivers].astype(np.int64),
+            "ef": rng.normal(size=(E, d)).astype(np.float32),
+            "nf": rng.normal(size=(N, d)).astype(np.float32),
+            "gf": rng.normal(size=(d,)).astype(np.float32)}
+
+
+def whole_graph(torch, pt, a, dtype, device="cuda"):
+    """The arrays as one unpartitioned ``GraphsTuple`` in canonical order
+    (receivers ascending, stably) and that order."""
+    order = np.argsort(a["receivers"], kind="stable")
+    N, E = a["nf"].shape[0], a["senders"].shape[0]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    g = pt.GraphsTuple(
+        senders=t(a["senders"][order].astype(np.int32)),
+        receivers=t(a["receivers"][order].astype(np.int32)),
+        node_graph=torch.zeros(N, **i32), edge_graph=torch.zeros(E, **i32),
+        n_node=torch.tensor([N], **i32), n_edge=torch.tensor([E], **i32),
+        node_mask=torch.ones(N, dtype=torch.bool, device=device),
+        edge_mask=torch.ones(E, dtype=torch.bool, device=device),
+        graph_mask=torch.ones(1, dtype=torch.bool, device=device),
+        ef=t(a["ef"][order]).to(dtype), nf=t(a["nf"]).to(dtype),
+        gf=t(a["gf"])[None].to(dtype))
+    return g, order
+
+
+def g_cores(torch, pt):
+    """Phase C's stack: 3 GNCores at (256,)*3 from the seeded generator,
+    f32 masters."""
+    gen = torch.Generator().manual_seed(0)
+    return pt.GNCoreList([pt.GNCore((G_D,) * 3, generator=gen)
+                          for _ in range(G_CORES)])
+
+
+def local_shard(torch, ep, a, S, rank, targets=True):
+    """Rank ``rank``'s shard of the arrays' S-way partition on the card,
+    f32 (no host metadata, so it captures), the halo plan's slice, the
+    targets' slices, the host partition (for ``edge_index``) and the
+    plan's build time."""
+    pg = ep.partition_edges(a["senders"], a["receivers"], a["nf"], S,
+                            ef=a["ef"], gf=a["gf"], device="cpu")
+    t0 = time.perf_counter()
+    plan = ep.build_halo_plan(pg)
+    plan_s = time.perf_counter() - t0
+    lg = pg.shard(rank, "cuda").replace(edge_index=None)
+    ys = None
+    if targets:
+        py = ep.partition_edges(a["senders"], a["receivers"], a["y_nf"], S,
+                                ef=a["y_ef"], device="cpu")
+        ys = (py.nf[rank:rank + 1].to("cuda"), py.ef[rank:rank + 1].to("cuda"))
+    return lg, plan.shard(rank, "cuda"), ys, pg, plan_s
+
+
+def as_dtype(lg, dtype):
+    """A partitioned slice's features in ``dtype``."""
+    return lg.replace(ef=lg.ef.to(dtype), nf=lg.nf.to(dtype),
+                      gf=lg.gf.to(dtype))
+
+
+def reordered_arrays(a, seed=5):
+    """The arrays with each node's in-edges in another order (receivers
+    ascend with in-degree ``G_DEG``, so a permutation within each row of
+    ``[N, G_DEG]``): the same graph, other f32 summation orders."""
+    E = a["senders"].shape[0]
+    perm = np.random.default_rng(seed).permuted(
+        np.arange(E).reshape(-1, G_DEG), axis=1).reshape(-1)
+    return dict(a, senders=a["senders"][perm], ef=a["ef"][perm],
+                y_ef=a["y_ef"][perm])
+
+
+def partitioned_steps(torch, pt, eps, plan, mesh, lg, ys, route_matched,
+                      names=("bf16", "f32")):
+    """One eager partitioned train step of phase C's stack in bf16 (f32
+    masters) and one in f32 (those of ``names``), from the seeded weights:
+    the losses, the gradients (summed over the axis) and the parameters
+    after each (on the host).  ``route_matched`` raises the
+    fused FFN's training row gate above the whole graph's node count, so
+    the node set composes as a 32,768-row shard's does."""
+    bf = torch.bfloat16
+    saved = pt.GNCore._FUSED_FFN_TRAIN_MIN_ROWS
+    if route_matched:
+        pt.GNCore._FUSED_FFN_TRAIN_MIN_ROWS = max(saved, G_N + 1)
+    out = {}
+    try:
+        for name, dtype, compute in (("bf16", bf, bf),
+                                     ("f32", torch.float32, None)):
+            if name not in names:
+                continue
+            m = g_cores(torch, pt)
+            step = eps.make_partitioned_core_list_train_step(
+                m, pt.adamw(m.parameters(), G_LR), plan, mesh,
+                compute_dtype=compute)
+            loss = float(step(as_dtype(lg, dtype), ys[0].to(dtype),
+                              ys[1].to(dtype))["loss"])
+            out[name] = {"loss": loss,
+                         "params": {n: p.detach().cpu()
+                                    for n, p in m.named_parameters()},
+                         "grads": {n: p.grad.detach().cpu()
+                                   for n, p in m.named_parameters()}}
+            del m, step
+    finally:
+        pt.GNCore._FUSED_FFN_TRAIN_MIN_ROWS = saved
+    return out
+
+
+def feature_errors(got, ref):
+    """Largest error of each feature set over its reference's largest
+    magnitude (the forward rule of PERF.md section 2: 5e-2)."""
+    return {k: float((a.float() - r.float()).abs().max()
+                     / r.float().abs().max().clamp(min=1e-30))
+            for k, a, r in zip(("ef", "nf", "gf"), got, ref)}
+
+
+def partitioned_s1(torch, pt, zero_counts, read_counts, where):
+    """G(a): S = 1 over NCCL: the partitioned forward and train step
+    against the unpartitioned phase-C stack on the same graph and
+    weights, eager and captured; launches, times, peak memory."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from graphnets_tpu_torch.parallel import _comm
+    from graphnets_tpu_torch.parallel import edge_partition as ep
+    from graphnets_tpu_torch.parallel import edge_partition_stack as eps
+    from graphnets_tpu_torch.parallel.distributed import init_distributed
+    from graphnets_tpu_torch.parallel.mesh import make_mesh
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    a = partitioned_arrays()
+    build_s = time.perf_counter() - t0
+    g, order = whole_graph(torch, pt, a, bf)
+    if not np.array_equal(order, np.arange(len(order))):
+        raise SystemExit("G(a): the graph's receivers do not ascend")
+    y = g.with_features(ef=torch.from_numpy(a["y_ef"]).to("cuda", bf),
+                        nf=torch.from_numpy(a["y_nf"]).to("cuda", bf),
+                        gf=None)
+    lg32, plan, ys32, pg, plan_s = local_shard(torch, ep, a, 1, 0)
+    lg, y_nf, y_ef = as_dtype(lg32, bf), ys32[0].to(bf), ys32[1].to(bf)
+    if not np.array_equal(pg.edge_index[0], np.arange(G_N * G_DEG)):
+        raise SystemExit("G(a): S = 1 reordered the edges")
+    out = {"build_s": build_s, "plan_s": plan_s,
+           "halo": plan.halo_size}
+    work = tempfile.mkdtemp(prefix="chip_smoke_g_")
+    init_distributed(f"file://{os.path.join(work, 'store')}", 1, 0,
+                     device="cuda", timeout_s=G_TIMEOUT_S)
+    try:
+        if dist.get_backend() != "nccl":
+            raise SystemExit(f"G(a): backend {dist.get_backend()}, not nccl")
+        mesh = make_mesh((1,), ("graph",))
+        pt.enable_kernels(True)
+        # Forward, inference, bf16 parameters.
+        model = g_cores(torch, pt).to(bf)
+        with torch.no_grad():
+            zero_counts()
+            c0 = _comm.COLLECTIVES
+            yp = eps.gn_core_list_partitioned(model, lg, plan, mesh)
+            torch.cuda.synchronize()
+            out["fwd_launches"] = read_counts()
+            out["fwd_collectives"] = _comm.COLLECTIVES - c0
+            zero_counts()
+            yu = model(g)
+            torch.cuda.synchronize()
+            out["unpart_fwd_launches"] = read_counts()
+            got = (yp.ef[0], yp.nf[0], yp.gf)
+            ref = (yu.ef, yu.nf, yu.gf)
+            out["fwd_err"] = feature_errors(got, ref)
+            out["fwd_bit_equal"] = all(torch.equal(x, r)
+                                       for x, r in zip(got, ref))
+            out["fwd_rows"] = [t.cpu() for t in got]
+            out["fwd_ms"] = cuda_ms(torch, lambda: eps.gn_core_list_partitioned(
+                model, lg, plan, mesh), iters=3, warmup=1)
+            out["unpart_fwd_ms"] = cuda_ms(torch, lambda: model(g), iters=3,
+                                           warmup=1)
+        del model, yp, yu, got, ref
+        want_counts(out["fwd_launches"],
+                    dict(edge_g1_agg=G_CORES, ffn=2 * G_CORES),
+                    "G(a) partitioned forward")
+        log(f"G(a) partitioned forward S = 1: launches "
+            f"{out['fwd_launches']} (the unpartitioned stack's "
+            f"{out['unpart_fwd_launches']}), {out['fwd_collectives']} "
+            f"collectives; against the unpartitioned stack (max err / max "
+            f"|ref|) {out['fwd_err']}, bit-equal {out['fwd_bit_equal']} "
+            f"(tolerance 5e-2); {out['fwd_ms']:.4f} ms eager against "
+            f"{out['unpart_fwd_ms']:.4f} ms, ratio "
+            f"{out['fwd_ms'] / out['unpart_fwd_ms']:.4f}; {where}")
+        if max(out["fwd_err"].values()) > 5e-2:
+            raise SystemExit("G(a): the partitioned forward disagrees with "
+                             "the unpartitioned stack")
+
+        # The train step: f32 masters, bf16 compute, AdamW(3e-4), eager.
+        def build_part():
+            m = g_cores(torch, pt)
+            return m, eps.make_partitioned_core_list_train_step(
+                m, pt.adamw(m.parameters(), G_LR), plan, mesh,
+                compute_dtype=bf)
+
+        def build_unpart():
+            m = g_cores(torch, pt)
+            return m, pt.make_train_step(m, pt.adamw(m.parameters(), G_LR),
+                                         compute_dtype=bf)
+
+        gib = lambda b: b / 2 ** 30
+        steps = {}
+        for name, build, args in (("part", build_part, (lg, y_nf, y_ef)),
+                                  ("unpart", build_unpart, (g, y))):
+            m, step = build()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            c0 = _comm.COLLECTIVES
+            loss = float(step(*args)["loss"])
+            torch.cuda.synchronize()
+            steps[name] = {
+                "loss": loss, "launches": read_counts(),
+                "collectives": _comm.COLLECTIVES - c0,
+                "peak_gb": gib(torch.cuda.max_memory_allocated()),
+                "own_gb": gib(torch.cuda.max_memory_allocated() - base),
+                "params": {n: p.detach().cpu()
+                           for n, p in m.named_parameters()},
+                "ms": cuda_ms(torch, lambda: step(*args), iters=3,
+                              warmup=0)}
+            del m, step
+        part, unpart = steps["part"], steps["unpart"]
+        rel = abs(part["loss"] - unpart["loss"]) / abs(unpart["loss"])
+        diff = {k: (part["launches"][k], unpart["launches"][k])
+                for k in part["launches"]
+                if part["launches"][k] != unpart["launches"][k]}
+        log(f"G(a) partitioned train step S = 1: loss {part['loss']:.6f} "
+            f"against the unpartitioned step's {unpart['loss']:.6f} "
+            f"({rel:.3e} relative, tolerance 1e-2); launches "
+            f"{part['launches']}, the unpartitioned step's "
+            f"{unpart['launches']}, differences {diff}; "
+            f"{part['collectives']} collectives; eager {part['ms']:.4f} ms "
+            f"against {unpart['ms']:.4f} ms, ratio "
+            f"{part['ms'] / unpart['ms']:.4f}; peak device memory "
+            f"{part['peak_gb']:.4f} GiB ({part['own_gb']:.4f} its own) "
+            f"against {unpart['peak_gb']:.4f} ({unpart['own_gb']:.4f}); "
+            f"{where}")
+        want_counts(part["launches"],
+                    dict(edge_g1_agg=G_CORES, ffn=2 * G_CORES,
+                         ffn_backward=2 * G_CORES, ln_backward=G_CORES,
+                         segment_sum=2 * G_CORES, gather=G_CORES),
+                    "G(a) partitioned train step")
+        if rel > 1e-2 or not np.isfinite(part["loss"]):
+            raise SystemExit("G(a): the partitioned step disagrees with the "
+                             "unpartitioned step")
+        out["step"] = {k: {kk: v for kk, v in d.items() if kk != "params"}
+                       for k, d in steps.items()}
+        del steps, part, unpart
+        torch.cuda.empty_cache()
+        # The references of G(b): the same step with the node set composed
+        # as a shard's is, in bf16 and in f32; and the witness of its f32
+        # noise: that f32 step on the same graph with each node's edges in
+        # another order (the same function, other summation orders).
+        out["matched"] = partitioned_steps(torch, pt, eps, plan, mesh, lg32,
+                                           ys32, route_matched=True)
+        del lg32, ys32
+        torch.cuda.empty_cache()
+        lgr, planr, ysr, _, _ = local_shard(torch, ep, reordered_arrays(a),
+                                            1, 0)
+        out["reordered"] = partitioned_steps(torch, pt, eps, planr, mesh,
+                                             lgr, ysr, route_matched=True,
+                                             names=("f32",))["f32"]
+        del lgr, planr, ysr
+        torch.cuda.empty_cache()
+        # Captured against eager, both paths, one after the other.
+        per_step = dict(edge_g1_agg=G_CORES, ffn=2 * G_CORES,
+                        ffn_backward=2 * G_CORES, ln_backward=G_CORES,
+                        segment_sum=2 * G_CORES, gather=G_CORES)
+        out["captured"] = captured_check(
+            torch, pt, build_part, (lg, y_nf, y_ef), G_LR, per_step,
+            zero_counts, read_counts, "partitioned train step S = 1")
+        torch.cuda.empty_cache()
+        out["unpart_captured"] = captured_check(
+            torch, pt, build_unpart, (g, y), G_LR, per_step, zero_counts,
+            read_counts, "unpartitioned train step (G's graph)")
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    c, u = out["captured"], out["unpart_captured"]
+    log(f"G(a) captured: partitioned {c['captured_ms']:.4f} ms (eager twin "
+        f"{c['eager_ms']:.4f}), unpartitioned {u['captured_ms']:.4f} ms "
+        f"(eager twin {u['eager_ms']:.4f}), ratio "
+        f"{c['captured_ms'] / u['captured_ms']:.4f}; one profiled replay "
+        f"{c['replay_kernels']} kernels of {c['replay_busy_ms'] or 0:.4f} ms "
+        f"against {u['replay_kernels']} of {u['replay_busy_ms'] or 0:.4f} "
+        f"ms; {where}")
+    return out
+
+
+def partitioned_ranks(rank, world):
+    """G(b)-(d), one of two ranks on ``cuda:0`` over gloo (the parent
+    built the kernels): the large graph's S = 2 forward and one train
+    step; the v1 / v2 / v3 blocks on the smaller graph; its locality and
+    min-cut partitions under v2.  Returns the rows, the losses and
+    parameters, and each path's launches, collectives and host-staged
+    calls."""
+    import torch
+    import graphnets_tpu_torch as pt
+    from graphnets_tpu_torch.parallel import _comm
+    from graphnets_tpu_torch.parallel import edge_partition as ep
+    from graphnets_tpu_torch.parallel import edge_partition_stack as eps
+    from graphnets_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero_counts, read_counts = kernel_counters()
+    pt.enable_kernels(True)
+    bf, host = torch.bfloat16, lambda t: t.detach().cpu()
+    mesh = make_mesh((2,), ("graph",))
+    out = {}
+
+    def counted(fn):
+        zero_counts()
+        c0, s0 = _comm.COLLECTIVES, _comm.HOST_STAGED
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {"launches": read_counts(),
+                        "collectives": _comm.COLLECTIVES - c0,
+                        "host_staged": _comm.HOST_STAGED - s0,
+                        "s": time.perf_counter() - t0}
+
+    # (b) The large graph over two shards.
+    a = partitioned_arrays()
+    lg32, plan, ys32, pg, plan_s = local_shard(torch, ep, a, 2, rank)
+    del a
+    lg = as_dtype(lg32, bf)
+    model = g_cores(torch, pt).to(bf)
+    with torch.no_grad():
+        y, info = counted(lambda: eps.gn_core_list_partitioned(
+            model, lg, plan, mesh))
+    out["fwd"] = dict(info, rows=[host(y.ef[0]), host(y.nf[0]),
+                                  host(y.gf)],
+                      edge_index=pg.edge_index[rank], npad=pg.nodes_per_shard,
+                      halo=plan.halo_size, plan_s=plan_s)
+    del model, y
+    model = g_cores(torch, pt)
+    step = eps.make_partitioned_core_list_train_step(
+        model, pt.adamw(model.parameters(), G_LR), plan, mesh,
+        compute_dtype=bf)
+    m, info = counted(lambda: step(lg, ys32[0].to(bf), ys32[1].to(bf)))
+    out["step"] = dict(info, loss=float(m["loss"]))
+    del model, step, lg
+    torch.cuda.empty_cache()
+    # The f32 step, whose parameters are held to (a)'s.
+    out["step_f32"] = partitioned_steps(torch, pt, eps, plan, mesh, lg32,
+                                        ys32, route_matched=False)["f32"]
+    del lg32, ys32, plan, pg
+    torch.cuda.empty_cache()
+
+    # (c) The blocks at the headline width on the smaller graph.
+    a = local_arrays()
+    lg, plan, _, pg, _ = local_shard(torch, ep, a, 2, rank, targets=False)
+    lg = as_dtype(lg, bf)
+    block = pt.GNBlock((D,) * 3, (D,) * 3, generator=torch.Generator()
+                       .manual_seed(0)).to(bf)
+    out["blocks"] = {"edge_index": pg.edge_index[rank],
+                     "npad": pg.nodes_per_shard, "halo": plan.halo_size}
+    with torch.no_grad():
+        for name, fn in (
+                ("v1", lambda: ep.gn_block_partitioned(block, lg, mesh)),
+                ("v2", lambda: ep.gn_block_partitioned_halo(block, lg, plan,
+                                                            mesh)),
+                ("v3", lambda: ep.gn_block_partitioned_overlap(
+                    block, lg, plan, mesh))):
+            y, info = counted(fn)
+            out["blocks"][name] = dict(info, rows=[host(y.ef[0]),
+                                                   host(y.nf[0]),
+                                                   host(y.gf)])
+
+    # (d) The locality and min-cut partitions under v2.
+    for name, fn in (("locality", ep.partition_edges_locality),
+                     ("mincut", ep.partition_edges_mincut)):
+        t0 = time.perf_counter()
+        pgl, order = fn(a["senders"], a["receivers"], a["nf"], 2,
+                        ef=a["ef"], gf=a["gf"], device="cpu")
+        part_s = time.perf_counter() - t0
+        planl = ep.build_halo_plan(pgl)
+        x = pgl.shard(rank, "cuda").replace(edge_index=None)
+        x = x.replace(ef=x.ef.to(bf), nf=x.nf.to(bf), gf=x.gf.to(bf))
+        with torch.no_grad():
+            y, info = counted(lambda: ep.gn_block_partitioned_halo(
+                block, x, planl.shard(rank, "cuda"), mesh))
+        out[name] = dict(info, rows=[host(y.ef[0]), host(y.nf[0]),
+                                     host(y.gf)],
+                         edge_index=pgl.edge_index[rank],
+                         node_mask=pgl.node_mask.numpy(), order=order,
+                         npad=pgl.nodes_per_shard, halo=planl.halo_size,
+                         partition_s=part_s)
+
+    # The v3 core on the min-cut layout, whose shards hold pad slots on
+    # the overflow segment: under training the single-graph edge update
+    # with its sum, and with that sum off the composed route (the sorted
+    # gather with its addend, ln_matmul, the sorted sum over Npad + 1
+    # segments), each against the plain route on the same inputs.  The
+    # real rows only: a pad slot's row is junk, and the routes' junk
+    # differs.
+    from graphnets_tpu_torch.utils.config import get_config
+    em, nm = x.edge_mask[0], x.node_mask[0]
+    core = pt.GNCoreList([pt.GNCore((D,) * 3, generator=torch.Generator()
+                                    .manual_seed(1))]).to(bf)
+    lp = planl.shard(rank, "cuda")
+    from graphnets_tpu_torch.ops.kernels.gather import supports_sorted_gather
+    # JAX's gate for the sorted gather wants a table of a multiple of 32
+    # rows, which an imbalanced shard's Npad need not be.
+    out["padded_v3"] = {"pads": int((~em).sum()), "gather_add": int(
+        supports_sorted_gather(em.shape[0], nm.shape[0], D, 2))}
+    try:
+        for route in ("g1", "composed"):
+            get_config().g1_agg_fusion_training = route == "g1"
+            res = []
+            for kernels in (True, False):
+                pt.enable_kernels(kernels)
+                with torch.no_grad():
+                    y, info = counted(lambda: eps.gn_core_list_partitioned(
+                        core, x, lp, mesh, training=True))
+                res.append((info["launches"],
+                            [host(y.ef[0][em]), host(y.nf[0][nm]),
+                             host(y.gf)]))
+            out["padded_v3"][route] = {
+                "launches": res[0][0], "plain_launches": res[1][0],
+                "errors": feature_errors(res[0][1], res[1][1])}
+    finally:
+        get_config().g1_agg_fusion_training = True
+        pt.enable_kernels(True)
+    return out
+
+
+def cut_edges(a, assign):
+    """Edges whose sender and receiver lie on different shards."""
+    return int(np.sum(assign[a["senders"]] != assign[a["receivers"]]))
+
+
+def partitioned_phase(torch, pt, zero_counts, read_counts, where, ltrain):
+    """Phase G: (a) S = 1 over NCCL against the unpartitioned stack; (b)
+    S = 2 over two processes sharing the card (gloo) against (a); (c) the
+    v1 / v2 / v3 blocks at S = 2 against each other and the unpartitioned
+    GNBlock; (d) the locality and min-cut partitioners.  Raises
+    ``SystemExit`` on any miss."""
+    import os
+    import tempfile
+    from graphnets_tpu_torch.parallel.launch import run_ranks
+    t_g = time.perf_counter()
+    out = {"a": partitioned_s1(torch, pt, zero_counts, read_counts, where)}
+    a1 = out["a"]
+    if ltrain is not None:
+        log(f"G(a) launches of the partitioned step against phase C's step "
+            f"(another graph of C's size, the same stack): "
+            f"{a1['step']['part']['launches']} / {ltrain['launches']}; its "
+            f"eager time {a1['step']['part']['ms']:.4f} ms against C's "
+            f"{ltrain['step_ms']:.4f} ms, ratio "
+            f"{a1['step']['part']['ms'] / ltrain['step_ms']:.4f}; {where}")
+    log(f"G(a) the halo plan at {G_N * G_DEG} edges built in "
+        f"{a1['plan_s']:.3f} s (the graph {a1['build_s']:.3f} s)")
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_g_")
+    ranks = run_ranks(partitioned_ranks, 2, os.path.join(work, "ranks"),
+                      device="cuda", backend="gloo", timeout_s=G_TIMEOUT_S,
+                      threads=4)
+    out["spawn_s"] = time.perf_counter() - t0
+    bf = torch.bfloat16
+
+    # (b) Each rank's rows against (a)'s, through edge_index.
+    ref = a1.pop("fwd_rows")
+    worst = {}
+    for r, got in enumerate(ranks):
+        f = got["fwd"]
+        ei = f["edge_index"]
+        k = int((ei >= 0).sum())
+        npad = f["npad"]
+        rows = (f["rows"][0][:k], f["rows"][1],
+                f["rows"][2])
+        want = (ref[0][torch.from_numpy(ei[:k])],
+                ref[1][r * npad:(r + 1) * npad], ref[2])
+        errs = feature_errors(rows, want)
+        worst = {key: max(worst.get(key, 0.0), v) for key, v in errs.items()}
+    matched = a1.pop("matched")
+    ref_loss = matched["bf16"]["loss"]
+    step_rel = [abs(got["step"]["loss"] - ref_loss) / abs(ref_loss)
+                for got in ranks]
+    rel32 = [abs(got["step_f32"]["loss"] - matched["f32"]["loss"])
+             / abs(matched["f32"]["loss"]) for got in ranks]
+    # f32 gradients: sums over a million rows in another order, and the
+    # pools' f32 sum in another order moves rows by an ulp, which flips
+    # the relu masks of pre-activations within rounding of 0.  The witness
+    # is (a)'s f32 step on the same graph with each node's edges in another
+    # order: the same function, other sums, and the same kind of gaps.  So,
+    # as C's gradients (section 2), they are held in the 2-norm, within
+    # 1e-3 of the S = 1 tensor's norm (A's f32 bound), and the largest
+    # element is printed beside the witness's.  After one AdamW step a
+    # parameter moves by about lr x sign(gradient), so a parameter may part
+    # from S = 1's by up to 2 lr where its gradient lies within that noise
+    # of 0, and only there: every element that breaks the captured-vs-eager
+    # rule must have an S = 1 gradient within 4 times the witness's largest
+    # gap in its tensor.
+    s1, wit = matched["f32"], a1.pop("reordered")
+
+    def grad_gaps(grads):
+        """(worst 2-norm share of 1e-3, tensor), (worst element over the
+        largest magnitude, tensor) against S = 1's gradients."""
+        return (max((float((grads[n] - q).norm())
+                     / (1e-3 * max(float(q.norm()), 1e-30)), n)
+                    for n, q in s1["grads"].items()),
+                max((float((grads[n] - q).abs().max())
+                     / max(float(q.abs().max()), 1e-30), n)
+                    for n, q in s1["grads"].items() if q.numel()))
+
+    def held_params(params):
+        """The elements that break the captured-vs-eager rule: (the
+        largest |S = 1 gradient| among them over 4 x the witness's largest
+        gap in its tensor, tensor), their count, elements in all."""
+        worst, broken, total = (0.0, ""), 0, 0
+        for n, q in s1["params"].items():
+            if not q.numel():
+                continue
+            g = s1["grads"][n]
+            noise = 4 * float((wit["grads"][n] - g).abs().max())
+            bound = 1e-5 * float(q.abs().max()) + 0.1 * G_LR
+            off = (params[n] - q).abs() > bound
+            if off.any():
+                worst = max(worst, (float(g[off].abs().max())
+                                    / max(noise, 1e-30), n))
+            broken += int(off.sum())
+            total += q.numel()
+        return worst, broken, total
+
+    wit_norm, wit_top = grad_gaps(wit["grads"])
+    wit_param = param_rule(torch, wit["params"], s1["params"], G_LR,
+                           "G(b) witness")
+    gaps = [grad_gaps(got["step_f32"]["grads"]) for got in ranks]
+    grad_norm, grad_top = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    param_all = max(param_rule(torch, got["step_f32"]["params"],
+                               s1["params"], G_LR, "G(b)")
+                    for got in ranks)
+    held = [held_params(got["step_f32"]["params"]) for got in ranks]
+    param_worst = max(h[0] for h in held)
+    broken = max(h[1] for h in held), held[0][2]
+    same_params = all(torch.equal(ranks[0]["step_f32"]["params"][n], p)
+                      for n, p in ranks[1]["step_f32"]["params"].items())
+    want_fwd = dict(edge_g1_agg=G_CORES, ffn=2 * G_CORES)
+    # A shard's 32,768 node rows are under the fused FFN's training row
+    # gate (65,536): the node set composes, the edge set stays fused.
+    want_step = dict(edge_g1_agg=G_CORES, ffn=G_CORES,
+                     ffn_backward=G_CORES, ln_backward=G_CORES,
+                     segment_sum=2 * G_CORES, gather=G_CORES)
+    for r, got in enumerate(ranks):
+        f, s = got["fwd"], got["step"]
+        log(f"G(b) rank {r}: forward launches {f['launches']}, "
+            f"{f['collectives']} collectives ({f['host_staged']} staged "
+            f"through the host), {f['s']:.3f} s; train step launches "
+            f"{s['launches']}, {s['collectives']} collectives "
+            f"({s['host_staged']} staged), {s['s']:.3f} s, loss "
+            f"{s['loss']:.6f}; halo H = {f['halo']} rows of {f['npad']}, "
+            f"plan built in {f['plan_s']:.3f} s")
+        want_counts(f["launches"], want_fwd, f"G(b) rank {r} forward")
+        want_counts(s["launches"], want_step, f"G(b) rank {r} train step")
+        # Forward: an all-to-all and a psum a core.  The step adds the
+        # loss's psum, the backward of each all-to-all and of each psum but
+        # the last core's (its graph update reaches no loss term), the
+        # loss psum's backward and the gradients' all-reduce.
+        want_coll = (2 * G_CORES, 4 * G_CORES + 2)
+        if (f["collectives"], s["collectives"]) != want_coll:
+            raise SystemExit(f"G(b) rank {r}: {f['collectives']} / "
+                             f"{s['collectives']} collectives, expected "
+                             f"{want_coll}")
+    log(f"G(b) S = 2 against (a): forward rows (max err / max |ref| of "
+        f"each feature set, both ranks) {worst} (tolerance 5e-2); bf16 step "
+        f"losses {[got['step']['loss'] for got in ranks]} against the S = 1 "
+        f"step on the same routes {ref_loss:.7f} ({max(step_rel):.3e} "
+        f"relative, tolerance 1e-4; the S = 1 step with its node set fused "
+        f"{a1['step']['part']['loss']:.7f}); f32 step losses "
+        f"{[got['step_f32']['loss'] for got in ranks]} against "
+        f"{matched['f32']['loss']:.7f} ({max(rel32):.3e} relative, "
+        f"tolerance 1e-4), worst gradient {grad_norm[1]} at "
+        f"{grad_norm[0]:.4f} of 1e-3 of its 2-norm (the witness, S = 1 "
+        f"with each node's edges reordered: {wit_norm[1]} at "
+        f"{wit_norm[0]:.4f}); largest element gap {grad_top[1]} at "
+        f"{grad_top[0]:.3e} of its largest magnitude (the witness: "
+        f"{wit_top[1]} at {wit_top[0]:.3e}); the ranks' parameters after "
+        f"it bit-equal {same_params}; against S = 1's the captured-vs-eager "
+        f"rule's worst share on every element {param_all} (the witness: "
+        f"{wit_param}); {broken[0]} of {broken[1]} elements break it, "
+        f"the largest S = 1 gradient among them at {param_worst[0]:.4f} of "
+        f"4 x the witness's largest gap in its tensor ({param_worst[1]}; "
+        f"tolerance 1); {where}")
+    if (max(worst.values()) > 5e-2 or max(step_rel) > 1e-4
+            or max(rel32) > 1e-4 or grad_norm[0] > 1.0 or not same_params
+            or param_worst[0] > 1.0):
+        raise SystemExit("G(b): S = 2 disagrees with S = 1")
+    out["b"] = {"fwd_err": worst, "loss_rel": max(step_rel),
+                "loss_rel_f32": max(rel32), "worst_grad_norm": grad_norm,
+                "worst_grad_top": grad_top, "witness_grad_norm": wit_norm,
+                "witness_grad_top": wit_top, "witness_param": wit_param,
+                "worst_param_all": param_all, "worst_param": param_worst,
+                "params_broken": broken,
+                "ranks": [{k: {kk: v for kk, v in got[k].items()
+                               if kk in ("launches", "collectives",
+                                         "host_staged", "s", "loss", "halo",
+                                         "plan_s")}
+                           for k in ("fwd", "step")} for got in ranks]}
+
+    # (c) The blocks against each other and the unpartitioned GNBlock.
+    pt.enable_kernels(True)
+    a = local_arrays()
+    g, order = whole_graph(torch, pt, a, bf)
+    block = pt.GNBlock((D,) * 3, (D,) * 3, generator=torch.Generator()
+                       .manual_seed(0)).to(bf)
+    zero_counts()
+    with torch.no_grad():
+        yu = block(g)
+    torch.cuda.synchronize()
+    unpart_launches = read_counts()
+    ef_u = torch.empty_like(yu.ef)
+    ef_u[torch.from_numpy(order).cuda()] = yu.ef
+    ref = (ef_u.cpu(), yu.nf.cpu(), yu.gf.cpu())
+
+    def mapped(rows_by_rank, key):
+        """Every rank's rows of ``key`` in the input order."""
+        ef = torch.empty_like(ref[0])
+        nf = []
+        for r, got in enumerate(ranks):
+            info, rows = got["blocks"], rows_by_rank[r]
+            ei = info["edge_index"]
+            k = int((ei >= 0).sum())
+            ef[torch.from_numpy(ei[:k])] = rows[0][:k]
+            nf.append(rows[1])
+        return ef, torch.cat(nf)[:G_SMALL_N], rows_by_rank[0][2]
+
+    blocks = {v: mapped([got["blocks"][v]["rows"] for got in ranks], v)
+              for v in ("v1", "v2", "v3")}
+    errs = {v: feature_errors(blocks[v], ref) for v in blocks}
+    errs["v2 vs v1"] = feature_errors(blocks["v2"], blocks["v1"])
+    errs["v3 vs v1"] = feature_errors(blocks["v3"], blocks["v1"])
+    launches_c = {v: ranks[0]["blocks"][v]["launches"] for v in blocks}
+    collectives_c = {v: (ranks[0]["blocks"][v]["collectives"],
+                         ranks[0]["blocks"][v]["host_staged"])
+                     for v in blocks}
+    log(f"G(c) blocks at S = 2 ((384,)*3, bf16, N = {G_SMALL_N}, E = "
+        f"{G_SMALL_N * G_SMALL_DEG}, halo H = "
+        f"{ranks[0]['blocks']['halo']} of {ranks[0]['blocks']['npad']}): "
+        f"max err / max |ref| {errs} (tolerance 5e-2); rank 0 launches "
+        f"{launches_c}, collectives (all, host-staged) {collectives_c}; the "
+        f"unpartitioned GNBlock's launches {unpart_launches}")
+    if max(max(e.values()) for e in errs.values()) > 5e-2:
+        raise SystemExit("G(c): the partitioned blocks disagree")
+    for v in blocks:
+        want_counts(launches_c[v], dict(edge_g1_agg=1) if v == "v3" else {},
+                    f"G(c) {v}")
+
+    # (d) The partitioners: fewer cut edges than contiguous blocks, and v2
+    # on their layouts equal to the unpartitioned block.
+    S = 2
+    npad = -(-G_SMALL_N // S)
+    cuts = {"contiguous": cut_edges(a, np.minimum(
+        np.arange(G_SMALL_N) // npad, S - 1))}
+    errs_d, halos = {}, {"contiguous": ranks[0]["blocks"]["halo"]}
+    for name in ("locality", "mincut"):
+        info0 = ranks[0][name]
+        order_d, nm, npad_d = info0["order"], info0["node_mask"], \
+            info0["npad"]
+        # The shard of each old node, from the relabelling.
+        new_of_old = np.empty(G_SMALL_N, np.int64)
+        pos = 0
+        for s in range(S):
+            k = int(nm[s].sum())
+            new_of_old[order_d[pos:pos + k]] = s * npad_d + np.arange(k)
+            pos += k
+        cuts[name] = cut_edges(a, new_of_old // npad_d)
+        halos[name] = info0["halo"]
+        ef = torch.empty_like(ref[0])
+        nf_rows = []
+        for r, got in enumerate(ranks):
+            ei = got[name]["edge_index"]
+            k = int((ei >= 0).sum())
+            ef[torch.from_numpy(ei[:k])] = got[name]["rows"][0][:k]
+            nf_rows.append(got[name]["rows"][1])
+        nf = torch.cat(nf_rows)[torch.from_numpy(new_of_old)]
+        errs_d[name] = feature_errors((ef, nf, ranks[0][name]["rows"][2]),
+                                      ref)
+    # The v3 core on the min-cut layout's pad slots, kernel route against
+    # plain route.
+    padded = [got["padded_v3"] for got in ranks]
+    log(f"G(d) the v3 core (GNCore (384,)*3, bf16, training) on the "
+        f"min-cut layout, pad slots by rank {[p['pads'] for p in padded]}: "
+        f"kernel route against plain route (max err / max |ref|, real rows) "
+        f"{[{r: p[r]['errors'] for r in ('g1', 'composed')} for p in padded]}"
+        f" (tolerance 5e-2); rank 0 launches "
+        f"{ {r: padded[0][r]['launches'] for r in ('g1', 'composed')} }, "
+        f"the plain route's "
+        f"{ {r: padded[0][r]['plain_launches'] for r in ('g1', 'composed')} }"
+        f"; {where}")
+    if not any(p["pads"] for p in padded):
+        raise SystemExit("G(d): the min-cut layout has no pad slot")
+    for r, p in enumerate(padded):
+        if max(max(p[k]["errors"].values()) for k in ("g1", "composed")) \
+                > 5e-2:
+            raise SystemExit(f"G(d) rank {r}: the v3 core on the padded "
+                             f"layout disagrees with its plain route")
+        want_counts(p["g1"]["launches"], dict(edge_g1_agg=1),
+                    f"G(d) rank {r} v3 padded, single-graph route")
+        want_counts(p["composed"]["launches"],
+                    dict(gather_add=p["gather_add"], ln_matmul=1,
+                         segment_sum=1),
+                    f"G(d) rank {r} v3 padded, composed route")
+        for k in ("g1", "composed"):
+            if any(p[k]["plain_launches"].values()):
+                raise SystemExit(f"G(d) rank {r}: the plain route launched "
+                                 f"{p[k]['plain_launches']}")
+    log(f"G(d) partitioners on the smaller graph (S = 2): cut edges {cuts} "
+        f"of {G_SMALL_N * G_SMALL_DEG}, halo H {halos}; v2 on their layouts "
+        f"against the unpartitioned block {errs_d} (tolerance 5e-2); "
+        f"partition times {[(n, round(ranks[0][n]['partition_s'], 3)) for n in ('locality', 'mincut')]} s")
+    if (cuts["locality"] >= cuts["contiguous"]
+            or cuts["mincut"] >= cuts["contiguous"]
+            or max(max(e.values()) for e in errs_d.values()) > 5e-2):
+        raise SystemExit("G(d): a partitioner cut no fewer edges than "
+                         "contiguous blocks, or its v2 result disagrees")
+    out["c"] = {"errors": errs, "launches": launches_c,
+                "collectives": collectives_c, "unpart_launches":
+                unpart_launches}
+    out["d"] = {"cuts": cuts, "halos": halos, "errors": errs_d,
+                "padded_v3": padded}
+    out["launches"] = {
+        "partitioned_forward": a1["fwd_launches"],
+        "partitioned_train_step": a1["step"]["part"]["launches"],
+        "partitioned_train_step_captured": a1["captured"]["launches"],
+        "partitioned_s2_forward": ranks[0]["fwd"]["launches"],
+        "partitioned_s2_train_step": ranks[0]["step"]["launches"],
+        "partitioned_v3_block_s2": launches_c["v3"]}
+    out["s"] = time.perf_counter() - t_g
+    log(f"phase G took {out['s']:.1f} s (the two ranks {out['spawn_s']:.1f}"
+        f" s of it, their start included); {where}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2893,15 +3734,26 @@ def main() -> int:
     where = f"{kind}, {card.split(',')[-1].strip()}"
     log(f"card: {card}")
 
-    if "--gates" in sys.argv[1:]:
+    args = sys.argv[1:]
+    phase = args[args.index("--phase") + 1] if "--phase" in args else None
+    if phase is not None:
         _build.build()
-        log(json.dumps({"gates": gates_phase(torch, pt), "card": card}))
+        if phase == "G":
+            result = partitioned_phase(torch, pt, zero_counts, read_counts,
+                                       where, None)
+        elif phase == "gates":
+            result = gates_phase(torch, pt)
+        elif phase == "flagship":
+            seeds = ([int(x) for x in args[args.index("--seeds") + 1]
+                      .split(",")] if "--seeds" in args else None)
+            result = flagship_phase(torch, pt, seeds)
+        else:
+            raise SystemExit(f"unknown phase {phase!r}: G, gates or "
+                             f"flagship")
+        log(json.dumps({phase: result, "card": card}))
+        if phase == "flagship":
+            return 1 if any(r["fault"] for r in result.values()) else 0
         return 0
-    if "--flagship" in sys.argv[1:]:
-        _build.build()
-        flag = flagship_phase(torch, pt)
-        log(json.dumps({"flagship": flag, "card": card}))
-        return 1 if any(r["fault"] for r in flag.values()) else 0
 
     # 2. Build every kernel.
     t0 = time.perf_counter()
@@ -3252,6 +4104,10 @@ def main() -> int:
         f"{par['a']['captured_ms']} ms, the plain one here "
         f"{par['a']['plain_captured_ms']} ms; {where}")
 
+    # G. Edge-partitioned graph parallelism.
+    gpar = partitioned_phase(torch, pt, zero_counts, read_counts, where,
+                             ltrain)
+
     # 5. Results.
     paths = {"forward": fwd["launches"], "train_step": train["launches"],
              "sort_train_step": sort["first_launches"],
@@ -3270,7 +4126,8 @@ def main() -> int:
              "bucketed_train_step_captured": btrain["captured"]["launches"],
              "large_train_step_remat": ltrain["remat_launches"],
              "sampled_pipeline": pipe["launches"],
-             "random_gather": rg_launches, **par["launches"]}
+             "random_gather": rg_launches, **par["launches"],
+             **gpar["launches"]}
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src, ref = "graphnets_tpu_torch/csrc/", "graphnets_tpu/ops/pallas/"
     kernels = [
@@ -3352,6 +4209,8 @@ def main() -> int:
                     "sampled_pipeline": pipe,
                     "parallel": {k: v for k, v in par.items()
                                  if k != "launches"},
+                    "partitioned": {k: v for k, v in gpar.items()
+                                    if k != "launches"},
                     "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,17 @@ there and copies the result back, and counts the call in
 ``HOST_STAGED``, so a caller can say that it ran so.  Nothing else
 changes device or backend.  ``COLLECTIVES`` counts every call, so a
 caller can show which collectives a path ran.
+
+:func:`psum`, :func:`all_gather_grad` and :func:`all_to_all_grad` are the
+three collectives the edge-partitioned blocks differentiate through.  A
+value the ranks hold alike (a parameter, a graph update computed from
+summed pools) carries a *partial* cotangent on each rank, whose sum over
+the ranks is the gradient; a value each rank holds its own (a shard's
+rows) carries its whole cotangent.  So the backward of ``psum`` (shards
+in, the same sum out) is an all-reduce of the partials, that of the
+all-gather a reduce-scatter, and that of the all-to-all, which is its
+own inverse, the same all-to-all.  Over a group of one rank each is the
+identity and runs nothing, as JAX's collective over an axis of size 1.
 """
 
 from __future__ import annotations
@@ -91,3 +102,71 @@ def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
     out = torch.empty_like(like, memory_format=torch.contiguous_format)
     dist.recv(out, src=src, group=group)
     return out
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t [S, ...]`` split on dim 0 over the group's S ranks: row ``s`` of
+    the result is row ``r`` of rank ``s``'s ``t``, ``r`` this rank (JAX's
+    ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``)."""
+    src = t.contiguous()
+    if _host(t, group):
+        src = src.cpu()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(t.device)
+
+
+def group_size(group) -> int:
+    """The number of ranks of ``group``; 1 for ``None`` (one process)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` (a new tensor); its backward is the
+    all-reduce of the cotangents."""
+    return t if group_size(group) == 1 else _Psum.apply(t, group)
+
+
+def all_gather_grad(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather` with a gradient: its backward is the
+    reduce-scatter (sum) of the cotangent."""
+    return t if group_size(group) == 1 else _AllGather.apply(t, dim, group)
+
+
+def all_to_all_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` with a gradient: its backward is the same
+    all-to-all of the cotangent."""
+    return t if group_size(group) == 1 else _AllToAll.apply(t, group)

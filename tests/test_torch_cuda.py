@@ -1335,3 +1335,89 @@ def test_captured_schedule_matches_eager(cuda):
             for i in range(6)]
     assert rates["c"] == rates["e"] == want
     _one_step_rule((mc, me), (sc.sums["loss"], se.sums["loss"]), 3e-4)
+
+
+def _partitioned_case(cuda, layout, N=2048, deg=8, d=256, seed=3):
+    """One shard of a single graph with all three feature sets, its halo
+    plan and a ``GNCoreList`` of one core at width ``d``.  ``uniform``:
+    in-degree ``deg`` and random senders, ``N * deg`` edges, no pad slot;
+    ``padded``: 77 edges fewer, random receivers too, so in-degrees vary,
+    some nodes receive nothing and the pad slots sit on the overflow
+    segment ``Npad``."""
+    import graphnets_tpu_torch as pt
+    from graphnets_tpu_torch.parallel import edge_partition as ep
+    rng = np.random.default_rng(seed)
+    E = N * deg if layout == "uniform" else N * deg - 77
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    receivers = (np.repeat(np.arange(N), deg) if layout == "uniform"
+                 else rng.integers(0, N, E))
+    pg = ep.partition_edges(
+        rng.integers(0, N, E).astype(np.int32), receivers.astype(np.int32),
+        f(N, d), 1, ef=f(E, d), gf=f(d), device=cuda)
+    pads = int((~pg.edge_mask).sum())
+    assert pads == (0 if layout == "uniform" else 77)
+    cores = pt.GNCoreList([pt.GNCore((d, d, d), device=cuda,
+                                     generator=torch.Generator().manual_seed(
+                                         seed))])
+    return pg, ep.build_halo_plan(pg), cores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["uniform", "padded"])
+@pytest.mark.parametrize("route", ["g1", "composed"])
+def test_partitioned_v3_core_matches_plain(cuda, route, layout):
+    """The partitioned v3 core on one shard on the card, on a layout
+    without pad slots and on one with pads on the overflow segment, kernel
+    route against the plain route (kernels off) on the same inputs: bf16 rows
+    forward under training (the single-graph edge update with its sum,
+    or with ``g1_agg_fusion_training`` off the composed route:
+    ``sorted_gather_add``, ``ln_matmul`` and the sorted sum over ``Npad +
+    1`` segments), each output within 5e-2 of its largest magnitude; on
+    f32 rows the outputs and the gradients of every parameter within 1e-3
+    of their largest magnitude.  Outputs and loss take the real rows only:
+    a pad slot's row is junk, and the routes' junk differs (the kernel's
+    receiver table has zero rows past ``Npad``, the composed route clamps
+    to ``Npad - 1``).  The route's kernels launch once each, the sorted
+    sum at least once on the composed route, the plain route's none."""
+    import graphnets_tpu_torch as pt
+    from graphnets_tpu_torch.parallel.edge_partition_stack import \
+        gn_core_list_partitioned
+    from graphnets_tpu_torch.utils.config import get_config
+    pg, plan, cores = _partitioned_case(cuda, layout)
+    em, nm = pg.edge_mask[0], pg.node_mask[0]
+    get_config().g1_agg_fusion_training = route == "g1"
+    try:
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+            x = pg.replace(ef=pg.ef.to(dtype), nf=pg.nf.to(dtype),
+                           gf=pg.gf.to(dtype))
+            model = cores.to(dtype)
+            res = []
+            for kernels in (True, False):
+                pt.enable_kernels(kernels)
+                model.zero_grad(set_to_none=True)
+                before = (g1.LAUNCHES, ga.ADD_LAUNCHES, ll.FWD_LAUNCHES,
+                          ss.LAUNCHES)
+                y = gn_core_list_partitioned(model, x, plan, training=True)
+                out = (y.ef[0][em], y.nf[0][nm], y.gf)
+                sum(t.float().square().sum() for t in out).backward()
+                torch.cuda.synchronize()
+                res.append((out, {n: p.grad.clone()
+                                  for n, p in model.named_parameters()},
+                            (g1.LAUNCHES - before[0],
+                             ga.ADD_LAUNCHES - before[1],
+                             ll.FWD_LAUNCHES - before[2]),
+                            ss.LAUNCHES - before[3]))
+            (kern, kgrads, launches, sums), (plain, pgrads, none,
+                                              plain_sums) = res
+            assert launches == ((1, 0, 0) if route == "g1" else (0, 1, 1))
+            assert route == "g1" or sums >= 1
+            assert none == (0, 0, 0) and plain_sums == 0
+            for a, b in zip(kern, plain):
+                _close_max(a, b, tol)
+            if dtype == torch.float32:
+                for n in pgrads:
+                    _close_max(kgrads[n], pgrads[n], tol)
+    finally:
+        get_config().g1_agg_fusion_training = True
+        pt.enable_kernels(True)
+        cores.float()
