@@ -6,14 +6,17 @@
     python3 chip_smoke.py --phase flagship  # the flagship recipe's accuracy
     python3 chip_smoke.py --phase flagship --seeds 0,1,2  # constant, by seed
     python3 chip_smoke.py --phase G         # phase G alone
+    python3 chip_smoke.py --phase F         # phase F alone, with its kernels
 
 A ``--phase`` run builds the kernels, runs that phase alone and prints its
-JSON, with no kernels line and no ``ok`` line.
+JSON, with no kernels line and no ``ok`` line (``--phase F`` also runs
+phase 2's checks and holds the f32 FFN pair at phase 3's f32 shapes).
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
 (4b drives the training step; A and B drive the non-uniform route, S the
 sort flagship's device loop; C and D the single large graph, forward,
-training and sampled training; R the random gather):
+training and sampled training, F the default f32 precision between them;
+R the random gather):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``graphnets_tpu_torch/csrc`` with ``nvcc``
@@ -21,7 +24,9 @@ training and sampled training; R the random gather):
    compiler's register/spill report; every instance of the ``wgmma`` / TMA
    kernels (the fused FFN forward and backward, the LN->matmul backward's
    two passes, the core of both fused edge updates and of ``ln_matmul``'s
-   bf16 rows) must show 0 spill bytes;
+   bf16 rows) and of the fused FFN pair's f32 kernels must show 0 spill
+   bytes, and the f32 kernels' SASS (``cuobjdump``) FFMA and no matrix
+   instruction of any type (no TF32);
 3. hold each kernel against its plain torch version on the card, at the
    shapes the main path gives it: the fused edge update on the headline
    layout and on a padded uniform layout, and at de = dout = 512 (16
@@ -174,12 +179,35 @@ C. run the single large graph (``benchmarks/bench_large_graph.py``: one
    gather at the shapes this route gives them; and the wide rows of
    ``ln_matmul`` and its backward (d = dout = 512 and 1024 in bf16, 640 in
    f32).  The rest of the fused FFN's gate: its forward at T = 16384 in
-   bf16 at d = 512 and in f32 at d = 384, its backward at T = 65,536 in
-   bf16 at d = 384 and 512 and in f32 at d = 256.  The FFN backward and
+   bf16 at d = 512, its backward at T = 65,536 in bf16 at d = 384 and 512;
+   on f32 rows (``F_FFN_FWD``, ``F_FFN_BWD``) the forward at phase F's
+   shapes (T = 16384, 1024 and 8 at d = 384; 1,048,576 and 65,536 at
+   d = 256) and the backward at T = 65,536 (d = 128, 256, 512) and
+   1,048,576 (d = 256): forward 1e-5, dx 1e-4, the parameter gradients
+   1e-2 of their largest magnitude.  The FFN backward and
    both segment sums also launch twice on the same inputs and must be
    bit-equal (a fixed summation order), as the FFN forward and the LN
    backward do at every shape.  The million-row cases are timed by
    5 eager calls between CUDA events, not by a CUDA graph;
+F. run the JAX package's default precision (``Policy()`` computes in f32),
+   with TF32 off for every f32 product: (a) the headline forward of phase
+   4 with f32 parameters and features, no cast: per forward 9 fused FFN
+   launches on f32 rows and, since the fused edge update's gate is bf16
+   only, the split-linear edge route (3 ``ln_matmul``, 3
+   ``sorted_gather_add``, 3 sorted sums), the route JAX's ``GNBlock``
+   takes on the same batch (``tests/test_torch_f32_precision.py``);
+   output within 1e-4 of each feature set's largest magnitude of the pure
+   route; (b) C's graph with f32 features from the same numpy stream and
+   C's stack in f32: the forward (3 single-graph edge updates with the
+   sum, 6 FFN launches; 1e-4 of the pure route), then C's step through
+   ``make_train_step(..., compute_dtype=None)`` (f32 targets, AdamW(3e-4)):
+   C's launches a step (6 FFN forwards and backwards among them), loss
+   within 1e-5 relative and each gradient within 1e-3 in the 2-norm of a
+   pure-route f32 twin under ``remat``, or within twice the gap of a
+   witness of the twin's own f32 order noise (the twin with each
+   receiver's edges reordered), 3 finite losses, eager and
+   captured times, a replay's kernels, the busy share and the peak
+   memory;
 D. run sampled training (``benchmarks/bench_arxiv.py``: a synthetic graph
    of 169,343 nodes and 1,166,243 edges with power-law in-degree, 128-d
    features, 40 classes; ``NeighborSampler((10, 10), batch 512)`` with
@@ -320,15 +348,21 @@ def log(msg):
     print(msg, flush=True)
 
 
-# The wgmma / TMA kernels whose ptxas report must show no spills: the
-# fused FFN forward and backward, the LN->matmul backward's passes and the
-# core of the two fused edge updates and of ln_matmul's bf16 rows
-# (edge_wgmma.cuh, every instance of the three: ln_matmul's are the
-# instances with its LnMatmul policy).
+# The kernels whose ptxas report must show no spills: the wgmma / TMA
+# kernels (the fused FFN forward and backward, the LN->matmul backward's
+# passes and the core of the two fused edge updates and of ln_matmul's
+# bf16 rows: edge_wgmma.cuh, every instance of the three; ln_matmul's are
+# the instances with its LnMatmul policy) and the fused FFN pair's
+# register-blocked f32 kernels (F32_KERNELS).
+F32_KERNELS = ("ln_ffn_residual_f32_kernel", "ffn_bwd_hidden_f32_kernel",
+               "ffn_bwd_gemm_f32_kernel")
 TC_KERNELS = ("ln_ffn_residual_kernel", "ffn_bwd_gemm_kernel",
               "ln_bwd_rows_tc_kernel", "ln_bwd_dw_tc_kernel",
-              "edge_update_tc_kernel")
+              "edge_update_tc_kernel") + F32_KERNELS
 TC_POLICIES = ("Uniform", "Single", "LnMatmul")
+# Matrix instructions of any type: none may appear in an f32 kernel, whose
+# products are true-f32 multiply-adds (never TF32).
+MMA_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
 
 
 def tensor_core_spills(logs):
@@ -346,6 +380,31 @@ def tensor_core_spills(logs):
                           r"loads", line)
             if m and fn and any(k in fn for k in TC_KERNELS):
                 out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
+def f32_instructions(_build):
+    """``cuobjdump -sass`` of the fused FFN libraries: for each instance of
+    the ``F32_KERNELS``, its count of FFMA instructions and the matrix
+    instructions (``MMA_OPS``) it holds, which must be none."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for lib in ("fused_ffn", "fused_ffn_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build._library(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = part.split("\n", 1)[0].strip()
+            if any(k in name for k in F32_KERNELS):
+                mma = re.findall(r"\b(" + "|".join(MMA_OPS) + r")\b", part)
+                out[name] = {"FFMA": len(re.findall(r"\bFFMA\b", part)),
+                             "mma": sorted(set(mma))}
+    if (not all(any(k in n for n in out) for k in F32_KERNELS)
+            or any(v["mma"] or not v["FFMA"] for v in out.values())):
+        raise SystemExit(f"the f32 kernels must be FFMA kernels with no "
+                         f"matrix instruction: {out}")
     return out
 
 
@@ -899,16 +958,19 @@ def kernel_entry(name, source, replaces, launches, cases):
             "library_ms": head.get("library_ms"), "cases": cases}
 
 
-def forward_phase(torch, pt, g, expect, zero_counts, read_counts, what):
-    """One forward of 3 GNCores at (D, D, D) with seeded bf16 params on
-    ``g`` (bf16 features), counters set to 0 just before and read just
-    after; the output against the pure route (kernels off) on the card,
-    within 5e-2 of each feature set's largest magnitude; eager and
-    CUDA-graph times of both routes and a profile of one eager forward.
-    Raises ``SystemExit`` on a wrong launch count or a wrong output."""
+def forward_phase(torch, pt, g, expect, zero_counts, read_counts, what,
+                  dtype=None, tol=5e-2):
+    """One forward of 3 GNCores at (D, D, D) with seeded params of
+    ``dtype`` (bf16 by default) on ``g`` (features of that type), counters
+    set to 0 just before and read just after; the output against the pure
+    route (kernels off) on the card, within ``tol`` of each feature set's
+    largest magnitude; eager and CUDA-graph times of both routes and a
+    profile of one eager forward.  Raises ``SystemExit`` on a wrong launch
+    count or a wrong output."""
     gen = torch.Generator().manual_seed(0)
     model = pt.GNCoreList([pt.GNCore((D, D, D), generator=gen)
-                           for _ in range(N_CORES)]).to(torch.bfloat16)
+                           for _ in range(N_CORES)]).to(
+                               dtype or torch.bfloat16)
     pt.enable_kernels(True)
     with torch.no_grad():
         zero_counts()
@@ -930,9 +992,10 @@ def forward_phase(torch, pt, g, expect, zero_counts, read_counts, what):
         pure_graph_ms = graph_ms(torch, lambda: model(g), iters=10)
         pt.enable_kernels(True)
     out, ref = pt.unbatch(y), pt.unbatch(y_pure)
-    # test_gncore_fused_matches_pure holds the f32 routes to rtol 1e-4;
-    # in bf16 (8-bit mantissa) three cores of differently rounded residual
-    # sums are held to 5e-2 of the largest magnitude of each feature set.
+    # test_gncore_fused_matches_pure holds the f32 routes to rtol 1e-4
+    # (phase F's ``tol``); in bf16 (8-bit mantissa) three cores of
+    # differently rounded residual sums are held to 5e-2 of the largest
+    # magnitude of each feature set.
     path_err = {}
     for key in ("ef", "nf", "gf"):
         a, r = np.asarray(out[key], np.float32), np.asarray(ref[key],
@@ -941,8 +1004,8 @@ def forward_phase(torch, pt, g, expect, zero_counts, read_counts, what):
             raise SystemExit(f"{what} {key}: bad shape or non-finite")
         path_err[key] = float(np.abs(a - r).max() / np.abs(r).max())
     log(f"{what} vs pure route (max err / max |ref|): {path_err}, "
-        f"tolerance 5e-2")
-    if max(path_err.values()) > 5e-2:
+        f"tolerance {tol}")
+    if max(path_err.values()) > tol:
         raise SystemExit(f"{what} disagrees with the pure route")
     return {"launches": launches, "fwd_ms": fwd_ms,
             "fwd_graph_ms": fwd_graph_ms, "pure_ms": pure_ms,
@@ -1712,10 +1775,11 @@ def check_random_gather(torch, rg, N, d, E, seed):
             "bound_by": by, "bytes": nbytes}
 
 
-def large_graph(torch, pt):
+def large_graph(torch, pt, dtype=None):
     """``benchmarks/bench_large_graph.py``'s batch from seed 0: one graph,
     N = 65,536 nodes, E = 1,048,576 edges with sorted random receivers and
-    random senders, bf16 features of width 256 on all three sets."""
+    random senders, features of width 256 on all three sets, bf16 (or
+    ``dtype``) from one numpy stream."""
     rng = np.random.default_rng(0)
     N, E, d = LG_N, LG_E, LG_D
     senders = rng.integers(0, N, size=E).astype(np.int32)
@@ -1723,7 +1787,7 @@ def large_graph(torch, pt):
     dev = "cuda"
     t = lambda a: torch.from_numpy(a).to(dev)
     feat = lambda *s: t(rng.normal(size=s).astype(np.float32)).to(
-        torch.bfloat16)
+        dtype or torch.bfloat16)
     return pt.GraphsTuple(
         senders=t(senders), receivers=t(receivers),
         node_graph=torch.zeros(N, dtype=torch.int32, device=dev),
@@ -1798,24 +1862,26 @@ def captured_check(torch, pt, build, args, lr, per_step, zero_counts,
             **profile_replay(torch, lambda: cap(*args))}
 
 
-def large_forward_phase(torch, pt, g, zero_counts, read_counts):
-    """Phase C, forward: 3 GNCores at (256, 256, 256) with seeded bf16
-    params on the large graph; counters set to 0 just before and read just
-    after; the output against the pure route on the card within 5e-2 of
-    each feature set's largest magnitude; eager and CUDA-graph times."""
+def large_forward_phase(torch, pt, g, zero_counts, read_counts, tol=5e-2,
+                        what="large-graph forward"):
+    """Phase C, forward: 3 GNCores at (256, 256, 256) with seeded params of
+    the large graph's feature type; counters set to 0 just before and read
+    just after; the output against the pure route on the card within
+    ``tol`` of each feature set's largest magnitude; eager and CUDA-graph
+    times."""
     d = LG_D
     gen = torch.Generator().manual_seed(0)
     model = pt.GNCoreList([pt.GNCore((d, d, d), generator=gen)
-                           for _ in range(LG_CORES)]).to(torch.bfloat16)
+                           for _ in range(LG_CORES)]).to(g.ef.dtype)
     pt.enable_kernels(True)
     with torch.no_grad():
         zero_counts()
         y = model(g)
         torch.cuda.synchronize()
         launches = read_counts()
-        log(f"large-graph forward launches: {launches}")
+        log(f"{what} launches: {launches}")
         want_counts(launches, dict(edge_g1_agg=LG_CORES, ffn=2 * LG_CORES),
-                    "large-graph forward")
+                    what)
         fwd_ms = cuda_ms(torch, lambda: model(g), iters=LARGE_ITERS, warmup=1)
         fwd_graph_ms = graph_ms(torch, lambda: model(g), iters=3)
         prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: model(g))
@@ -1827,13 +1893,12 @@ def large_forward_phase(torch, pt, g, zero_counts, read_counts):
         for key in ("ef", "nf", "gf"):
             a, r = getattr(y, key).float(), getattr(y_pure, key).float()
             if a.shape != r.shape or not bool(torch.isfinite(a).all()):
-                raise SystemExit(f"large-graph forward {key}: bad shape or "
-                                 f"non-finite")
+                raise SystemExit(f"{what} {key}: bad shape or non-finite")
             path_err[key] = float((a - r).abs().max() / r.abs().max())
-    log(f"large-graph forward vs pure route (max err / max |ref|): "
-        f"{path_err}, tolerance 5e-2")
-    if max(path_err.values()) > 5e-2:
-        raise SystemExit("large-graph forward disagrees with the pure route")
+    log(f"{what} vs pure route (max err / max |ref|): {path_err}, "
+        f"tolerance {tol}")
+    if max(path_err.values()) > tol:
+        raise SystemExit(f"{what} disagrees with the pure route")
     return {"launches": launches, "fwd_ms": fwd_ms,
             "fwd_graph_ms": fwd_graph_ms, "pure_ms": pure_ms,
             "prof_rows": prof_rows, "busy_ms": busy_ms, "wall_ms": wall_ms,
@@ -2026,6 +2091,196 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
             "remat_worst_grad": remat_worst, "remat_peak_gb": remat_peak_gb,
             "own_gb": own_gb, "remat_own_gb": remat_own_gb,
             "remat_step_ms": remat_step_ms}
+
+
+# Phase F: the fused FFN pair on f32 rows at the shapes phase F gives it
+# (the headline's edge rows, C's edge and node rows) and the rest of the
+# gate's widths, forward and backward.
+F_FFN_FWD = ((16384, 384), (LG_E, LG_D), (LG_N, LG_D), (1024, 384),
+             (8, 384))
+F_FFN_BWD = ((LG_N, LG_D), (LG_E, LG_D), (LG_N, 128), (LG_N, 512))
+
+
+def f32_ffn_cases(torch, ffn):
+    """The fused FFN forward and backward on f32 rows at ``F_FFN_FWD`` and
+    ``F_FFN_BWD`` against their plain versions (phase 3's tolerances:
+    forward 1e-5, dx 1e-4, the parameter gradients 1e-2 of the largest
+    magnitude), each bit-equal on a second launch."""
+    f32 = torch.float32
+    fwd = [check_ffn(torch, ffn, T, 90 + i, D=d, large=T >= LG_E, dtype=f32)
+           for i, (T, d) in enumerate(F_FFN_FWD)]
+    bwd = [check_ffn_backward(torch, ffn, T, d, 96 + i, large=T >= LG_E,
+                              dtype=f32)
+           for i, (T, d) in enumerate(F_FFN_BWD)]
+    return fwd, bwd
+
+
+def log_f32_ffn(cases, where):
+    for c in cases:
+        log(f"f32 {'backward' if 'rel_err' in c else 'forward'} "
+            f"{c['shape']}: {c['kernel_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_ms'] / c['kernel_ms']:.3f} of "
+            f"it), plain {c['plain_ms']:.4f} ms; ok {c['ok']}; {where}")
+
+
+def f32_large_train_phase(torch, pt, g, zero_counts, read_counts):
+    """Phase F(b), training: C's step at the JAX package's default
+    precision: f32 parameters, features and targets (C's targets from the
+    same numpy stream), no compute-dtype cast, AdamW(3e-4), through
+    ``make_train_step``.  The launches of one step; its loss and gradients
+    against a pure-route f32 twin under ``remat`` from the same weights
+    (loss 1e-5 relative; each gradient within 1e-3 of the twin's in the
+    2-norm, C's million-row rule: relu masks flip within f32 order noise);
+    its peak memory; eager, captured and device times.
+
+    The pure route sums f32 rows with atomics, so its gradients move from
+    run to run by f32 order noise, and with them the relu masks of
+    pre-activations within rounding of 0: the kernel route's 2-norm gap
+    to the twin measured 5.5e-4 to 9.6e-4 over seven runs (worst on the
+    node FFNs).  Beside the 1e-3 rule the same run therefore measures a
+    witness of that noise, the twin on the same graph with each
+    receiver's edges in another order (the same function, other
+    summation orders), and a gradient may also lie within twice the
+    witness's gap in its tensor."""
+    import copy
+    d, E, N = LG_D, LG_E, LG_N
+    rng = np.random.default_rng(1)
+    target = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(g.device)
+    y = g.with_features(ef=target(E, d), nf=target(N, d), gf=None)
+
+    def build():
+        gen = torch.Generator().manual_seed(0)
+        m = pt.GNCoreList([pt.GNCore((d, d, d), generator=gen)
+                           for _ in range(LG_CORES)])
+        return m, pt.make_train_step(m, pt.adamw(m.parameters(), 3e-4))
+
+    model, step = build()
+    twin = copy.deepcopy(model)
+    twin.remat = True
+    pt.enable_kernels(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    m = step(g, y)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    own_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"F(b) f32 train step launches: {launches}")
+    per_step = dict(edge_g1_agg=LG_CORES, ffn=2 * LG_CORES,
+                    ffn_backward=2 * LG_CORES, ln_backward=LG_CORES,
+                    segment_sum=2 * LG_CORES, gather=LG_CORES)
+    want_counts(launches, per_step, "F(b) f32 train step")
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    loss = float(m["loss"])
+    pt.enable_kernels(False)
+    pure_loss, pure = loss_and_grads(torch, pt, twin, g, y)
+    pure = {n: t.clone() for n, t in pure.items()}
+    # The witness: each receiver's edges shuffled within its run.
+    perm = torch.from_numpy(np.lexsort((
+        np.random.default_rng(5).random(E),
+        g.receivers.cpu().numpy()))).to(g.device)
+    _, wit = loss_and_grads(
+        torch, pt, twin,
+        g.replace(senders=g.senders[perm]).with_features(ef=g.ef[perm]),
+        y.replace(senders=g.senders[perm]).with_features(ef=y.ef[perm]))
+    del perm
+    torch.cuda.synchronize()
+    pt.enable_kernels(True)
+    gap = lambda a, b: float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    rows = sorted(((gap(grads[n], t), n, gap(wit[n], t))
+                   for n, t in pure.items()), reverse=True)
+    worst = max((r[0] / max(1e-3, 2 * r[2]), r[1]) for r in rows)
+    loss_rel = abs(loss - pure_loss) / abs(pure_loss)
+    log(f"F(b) f32 train step vs the pure-route f32 twin: loss {loss:.7f} "
+        f"vs {pure_loss:.7f} ({loss_rel:.3e} relative, tolerance 1e-5); "
+        f"gradients furthest from the twin's (|kernel - pure|_2 / "
+        f"|pure|_2, tensor, the witness's gap): {rows[:5]}; the witness's "
+        f"largest gap {max(r[2] for r in rows):.3e}; worst share of the "
+        f"bound (the larger of 1e-3 and twice the witness's gap) "
+        f"{worst[0]:.4f} ({worst[1]})")
+    if (loss_rel > 1e-5 or worst[0] > 1.0
+            or not all(bool(torch.isfinite(t).all()) for t in grads.values())):
+        raise SystemExit(f"the F(b) f32 train step disagrees with its pure "
+                         f"twin: loss {loss} vs {pure_loss}, worst gradient "
+                         f"{worst}")
+    del grads, pure, wit, twin
+    losses = [loss] + [float(step(g, y)["loss"]) for _ in range(2)]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"non-finite F(b) f32 train loss: {losses}")
+    step_ms = cuda_ms(torch, lambda: step(g, y), iters=3, warmup=0)
+    prof_rows, busy_ms, wall_ms = profile_forward(torch, lambda: step(g, y))
+    del model, step
+    torch.cuda.empty_cache()
+    captured = captured_check(torch, pt, build, (g, y), 3e-4, per_step,
+                              zero_counts, read_counts, "F(b) f32 train step")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "captured_launches": captured["launches"],
+            "loss": loss, "pure_loss": pure_loss, "loss_rel": loss_rel,
+            "worst_grad": rows[0], "worst_share": worst,
+            "witness_gap": max(r[2] for r in rows), "losses": losses,
+            "step_ms": step_ms,
+            "prof_rows": prof_rows, "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "peak_gb": peak_gb, "own_gb": own_gb,
+            "captured_ms": captured["captured_ms"],
+            "captured_eager_ms": captured["eager_ms"],
+            "replay_busy_ms": captured["replay_busy_ms"],
+            "replay_kernels": captured["replay_kernels"]}
+
+
+def f32_phase(torch, pt, zero_counts, read_counts, where):
+    """Phase F: the JAX package's default precision (``Policy()`` computes
+    in f32) on the card.  (a) ``bench.py``'s headline forward with f32
+    parameters and features; (b) C's graph with f32 features from the same
+    numpy stream: the forward, then the train step of
+    :func:`f32_large_train_phase`.  Both routes' f32 products run without
+    TF32, as JAX's CPU reference does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = pt.batch(bench_graphs(0, N_PER_G, DEG, N_PER_G, N_PER_G * DEG),
+                 pad=pt.PadSpec.uniform(N_PER_G, N_PER_G * DEG))
+    if g.ef.dtype != torch.float32:
+        raise SystemExit("phase F: the headline batch is not f32")
+    # The fused edge update's gate is bf16 only: f32 rows take the split
+    # linear route (ln_matmul, sorted_gather_add of the receivers term,
+    # the sorted sum), as JAX's GNBlock does on the same batch.
+    fa = forward_phase(torch, pt, g,
+                       dict(ln_matmul=N_CORES, gather_add=N_CORES,
+                            segment_sum=N_CORES, ffn=3 * N_CORES),
+                       zero_counts, read_counts, "F(a) f32 forward",
+                       dtype=torch.float32, tol=1e-4)
+    log_forward("F(a) f32 forward", fa, int(g.n_edge.sum()), where)
+    del g
+    gl = large_graph(torch, pt, torch.float32)
+    fb_fwd = large_forward_phase(torch, pt, gl, zero_counts, read_counts,
+                                 tol=1e-4, what="F(b) f32 forward")
+    log(f"F(b) f32 forward (N={LG_N} E={LG_E} D={LG_D}, {LG_CORES} "
+        f"cores): {fb_fwd['fwd_ms']:.4f} ms eager, "
+        f"{fb_fwd['fwd_graph_ms']:.4f} ms as a CUDA graph, kernel route; "
+        f"pure route {fb_fwd['pure_ms']:.4f} ms eager; profile of one "
+        f"forward: {sum(r[1] for r in fb_fwd['prof_rows'])} kernels, "
+        f"{fb_fwd['busy_ms']:.4f} ms of {fb_fwd['wall_ms']:.4f} ms wall; "
+        f"{where}")
+    for dev_ms, count, name in fb_fwd["prof_rows"][:8]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    fb = f32_large_train_phase(torch, pt, gl, zero_counts, read_counts)
+    log(f"F(b) f32 train step: {fb['step_ms']:.4f} ms eager, captured "
+        f"{fb['captured_ms']:.4f} ms [eager twin {fb['captured_eager_ms']:.4f}"
+        f" ms]; one profiled replay {fb['replay_kernels']} kernels of "
+        f"{fb['replay_busy_ms'] or 0:.4f} ms, busy share "
+        f"{busy_share(fb['replay_busy_ms'], fb['captured_ms'])}; profile of "
+        f"one eager step: {sum(r[1] for r in fb['prof_rows'])} kernels, "
+        f"{fb['busy_ms']:.4f} ms of {fb['wall_ms']:.4f} ms wall; peak device "
+        f"memory {fb['peak_gb']:.4f} GiB ({fb['own_gb']:.4f} the step's "
+        f"own); losses {fb['losses']}; {where}")
+    for dev_ms, count, name in fb["prof_rows"][:12]:
+        log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
+    del gl
+    torch.cuda.empty_cache()
+    slim = lambda r: {k: v for k, v in r.items() if k != "prof_rows"}
+    return {"a": slim(fa), "b_forward": slim(fb_fwd), "b_train": slim(fb)}
 
 
 def arxiv_shaped_graph(pt, seed=0):
@@ -3702,6 +3957,32 @@ def partitioned_phase(torch, pt, zero_counts, read_counts, where, ltrain):
     return out
 
 
+def build_phase(_build):
+    """Phase 2: build every kernel (all sources at once), print the build
+    time and the compiler's register / spill report, and fail unless every
+    instance of the ``TC_KERNELS`` shows 0 spill bytes and the f32 kernels
+    hold no matrix instruction (:func:`f32_instructions`)."""
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
+        f"{', '.join(_build.kernel_names())}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    spills = tensor_core_spills(logs)
+    for fn, (stores, loads) in sorted(spills.items()):
+        log(f"  spills of {fn}: {stores} bytes stored, {loads} loaded")
+    if (any(st or ld for st, ld in spills.values())
+            or not all(any(k in fn for fn in spills)
+                       for k in TC_KERNELS + TC_POLICIES)):
+        raise SystemExit(f"the tensor-core and f32 FFN kernels must build "
+                         f"without spills: {spills}")
+    for fn, v in sorted(f32_instructions(_build).items()):
+        log(f"  SASS of {fn}: {v['FFMA']} FFMA, matrix instructions "
+            f"{v['mma'] or 'none'}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3737,18 +4018,30 @@ def main() -> int:
     args = sys.argv[1:]
     phase = args[args.index("--phase") + 1] if "--phase" in args else None
     if phase is not None:
-        _build.build()
-        if phase == "G":
+        if phase == "F":
+            build_phase(_build)  # with the checks on the f32 kernels
+            fwd_cases, bwd_cases = f32_ffn_cases(torch, ffn)
+            log_f32_ffn(fwd_cases + bwd_cases, where)
+            if not all(c["ok"] for c in fwd_cases + bwd_cases):
+                raise SystemExit("an f32 FFN kernel disagrees with its "
+                                 "plain version")
+            result = {"ffn_f32": fwd_cases, "ffn_backward_f32": bwd_cases,
+                      **f32_phase(torch, pt, zero_counts, read_counts,
+                                  where)}
+        elif phase == "G":
+            _build.build()
             result = partitioned_phase(torch, pt, zero_counts, read_counts,
                                        where, None)
         elif phase == "gates":
+            _build.build()
             result = gates_phase(torch, pt)
         elif phase == "flagship":
+            _build.build()
             seeds = ([int(x) for x in args[args.index("--seeds") + 1]
                       .split(",")] if "--seeds" in args else None)
             result = flagship_phase(torch, pt, seeds)
         else:
-            raise SystemExit(f"unknown phase {phase!r}: G, gates or "
+            raise SystemExit(f"unknown phase {phase!r}: F, G, gates or "
                              f"flagship")
         log(json.dumps({phase: result, "card": card}))
         if phase == "flagship":
@@ -3756,22 +4049,7 @@ def main() -> int:
         return 0
 
     # 2. Build every kernel.
-    t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{', '.join(_build.kernel_names())}")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-    spills = tensor_core_spills(logs)
-    for fn, (stores, loads) in sorted(spills.items()):
-        log(f"  spills of {fn}: {stores} bytes stored, {loads} loaded")
-    if (len(spills) < len(TC_KERNELS)
-            or any(st or ld for st, ld in spills.values())
-            or not all(any(k in fn for fn in spills) for k in TC_POLICIES)):
-        raise SystemExit(f"the tensor-core kernels must build without "
-                         f"spills: {spills}")
+    build_phase(_build)
 
     # 3. Each kernel against its plain version at the main-path shapes.
     g_exact = pt.batch(bench_graphs(0, N_PER_G, DEG, N_PER_G,
@@ -3849,16 +4127,17 @@ def main() -> int:
                      check_ffn_backward(torch, ffn, LG_N, 128, 55),
                      # The rest of the JAX gate: d = 384 and 512, f32 rows.
                      check_ffn_backward(torch, ffn, LG_N, 384, 71),
-                     check_ffn_backward(torch, ffn, LG_N, 512, 72),
-                     check_ffn_backward(torch, ffn, LG_N, LG_D, 73,
-                                        dtype=torch.float32)]
+                     check_ffn_backward(torch, ffn, LG_N, 512, 72)]
     rg_case = check_random_gather(torch, rg, LG_N, LG_D, LG_E, 56)
     # The earlier kernels at the shapes this route gives them.
     ffn_cases += [check_ffn(torch, ffn, LG_E, 57, D=LG_D, large=True),
                   check_ffn(torch, ffn, LG_N, 58, D=LG_D),
                   # The rest of the JAX gate: d = 512, and f32 rows.
-                  check_ffn(torch, ffn, T_E, 74, D=512),
-                  check_ffn(torch, ffn, T_E, 75, D=384, dtype=torch.float32)]
+                  check_ffn(torch, ffn, T_E, 74, D=512)]
+    # f32 rows at phase F's shapes and the rest of the gate's widths.
+    ffn_f32_cases, ffn_bwd_f32_cases = f32_ffn_cases(torch, ffn)
+    ffn_cases += ffn_f32_cases
+    ffn_bwd_cases += ffn_bwd_f32_cases
     ln_cases.append(check_ln_backward(torch, ll, lnp, LG_E, 59, D=LG_D,
                                       large=True))
     seg_large = check_segment_sums(torch, ss, g_large, 60, which=("sorted",),
@@ -3913,6 +4192,7 @@ def main() -> int:
               + g1_cases + ffn_bwd_cases + [rg_case])
     for c in checks:
         log("check: " + json.dumps(c))
+    log_f32_ffn(ffn_f32_cases + ffn_bwd_f32_cases, where)
     for c in ln_cases:
         if "pass_ms" in c:
             pm = c["pass_ms"]
@@ -4036,6 +4316,10 @@ def main() -> int:
         log(f"  {dev_ms:9.4f} ms  x{count:<4d} {name[:90]}")
     del g_large
 
+    # F. The JAX package's default precision: the headline forward and C's
+    # forward and step in f32.
+    fphase = f32_phase(torch, pt, zero_counts, read_counts, where)
+
     # D. Sampled training on the arxiv-shaped graph.
     samp = sampled_phase(torch, pt, zero_counts, read_counts, ax_graph,
                          ax_build_s)
@@ -4125,6 +4409,11 @@ def main() -> int:
              "train_step_captured": train["captured"]["launches"],
              "bucketed_train_step_captured": btrain["captured"]["launches"],
              "large_train_step_remat": ltrain["remat_launches"],
+             "f32_forward": fphase["a"]["launches"],
+             "f32_large_forward": fphase["b_forward"]["launches"],
+             "f32_large_train_step": fphase["b_train"]["launches"],
+             "f32_large_train_step_captured":
+                 fphase["b_train"]["captured_launches"],
              "sampled_pipeline": pipe["launches"],
              "random_gather": rg_launches, **par["launches"],
              **gpar["launches"]}
@@ -4204,7 +4493,7 @@ def main() -> int:
                     "bucketed_forward": slim(bfwd),
                     "bucketed_train_step": slim(btrain),
                     "large_forward": slim(lfwd),
-                    "large_train_step": slim(ltrain),
+                    "large_train_step": slim(ltrain), "f32": fphase,
                     "sampled_train": slim(samp),
                     "sampled_pipeline": pipe,
                     "parallel": {k: v for k, v in par.items()

@@ -53,12 +53,41 @@
 // d = 256 on an H100 80GB HBM3 at 700 W); persistent blocks and 2-CTA
 // clusters that multicast the weight slices are not built yet.
 //
-// f32 rows (no caller trains or infers through them at the driven shapes;
-// the kernel exists because the JAX gate takes them): true-f32 products on
-// the CUDA cores, never TF32.  A block takes 32 rows, normalises them in
-// f32 in shared memory, and walks the hidden dimension in slices of 32
-// whose W1 and W2 pieces it loads whole; every thread forms 4 hidden values
-// and keeps d / 8 output values, each a sum of multiply-adds in order of k.
+// f32 rows, the JAX package's default precision (Policy() computes in
+// f32; the headline forward and the large graph's step run them, phase F
+// of chip_smoke.py): the same function, `_fwd_kernel` / `_fused_forward`
+// on f32 tiles.  True-f32 multiply-adds on the CUDA cores, never TF32, so
+// what bounds it is 4 * T * d * 4d f32 operations at 67 TFLOP/s (0.58 ms
+// at T = 16384, d = 384; 16.4 ms at T = 1,048,576, d = 256) against
+// 3 * T * d * 4 bytes of rows (0.08 ms; 1.0 ms).  Reaching the FMA pipes
+// takes many multiply-adds a shared-memory load and loads that overlap
+// them, so the design (F32Tile) is register-blocked:
+//
+// - a block takes BM = 32768 / d rows (64 at d = 384) and keeps its f32
+//   y accumulator in registers, 8 rows x d / TX columns a thread (at most
+//   128 registers);
+// - the rows are normalised once into xn^T in shared memory (k-major, so
+//   a thread's 8 rows at one k are two float4 loads);
+// - per hidden slice of HS = d / 4 (128 at d = 384 and 512) the thread
+//   forms an 8 x 4 piece of hp = xn @ W1[:, slice] (12 loads for 32
+//   multiply-adds a k), writes relu(hp + b1) to h^T in shared memory, and
+//   adds h @ W2[slice, :] into its 8 x CY piece of y (2 + CY / 4 float4
+//   loads for 8 CY multiply-adds a k);
+// - W1 and W2 slices stream through a ring of 3 stages of 16 or 24 KB
+//   filled by 16-byte cp.async copies, one barrier a stage: the copy of
+//   stage j + 2 overlaps the multiply-adds of stage j;
+// - with few row tiles (the node and graph sets) up to 16 blocks split
+//   the hidden slices of a tile, and the last to finish adds the f32
+//   partials in split order (bit-equal from launch to launch);
+// - sums of multiply-adds run in order of k, rows past T are normalised
+//   as zeros and never written.
+//
+// Each block reads W1 and W2 once from L2 (2 MiB at d = 256): 16 GiB at
+// T = 1,048,576 against 64 GiB for the 32-row blocks of the first f32
+// kernel, which loaded a slice, synchronised and multiplied in turn and
+// issued one shared-memory load for every 2 multiply-adds (3.10 ms at
+// T = 16384, d = 384 and 78.0 ms at T = 1,048,576, d = 256 on an H100
+// 80GB HBM3 at 700 W; PERF.md has the new times).
 //
 // `extra` is read and the result goes to a separate buffer: the kernel
 // does not alias `extra` into the output as the TPU kernel does.
@@ -373,26 +402,39 @@ ln_ffn_residual_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // ---- f32 rows --------------------------------------------------------------
 
-constexpr int kRowsF32 = 32;
-constexpr int kSliceF32 = 32;     // hidden columns per step
 constexpr int kThreadsF32 = 256;
+constexpr int kStagesF32 = 3;     // the weight ring
 
+// Tile of the f32 kernel at width D.  A block takes BM = 32768 / D rows
+// (64 at D = 384) and walks the hidden dimension in slices of HS columns.
+// Its 256 threads form a TY x TX grid: a thread holds rows
+// 4 ty + i + 4 TY u (i < 4, u < 2) of hp (columns 4 tx .. 4 tx + 3 of the
+// slice) and of y (columns 4 tx + j + 4 TX v, j < 4, v < CY / 4).  Each
+// product of a slice streams its weights through the ring in Q stages of
+// F floats: W1[q BK1 .. + BK1, j0 .. j0 + HS] or W2[j0 + q BK2 .. + BK2, :].
 template <int D>
-struct LayoutF32 {
-  static constexpr int kLdx = D + 4;          // LN'd rows
-  static constexpr int kLdw1 = kSliceF32 + 4;    // W1[:, slice]
-  static constexpr int kLdw2 = D + 4;         // W2[slice, :]
-  static constexpr int kLdh = kSliceF32 + 4;     // hidden slice
-  static constexpr size_t kX = 0;
-  static constexpr size_t kW1 = kX + (size_t)kRowsF32 * kLdx * 4;
-  static constexpr size_t kW2 = kW1 + (size_t)D * kLdw1 * 4;
-  static constexpr size_t kH = kW2 + (size_t)kSliceF32 * kLdw2 * 4;
-  static constexpr size_t kBytes = kH + (size_t)kRowsF32 * kLdh * 4;
-  static_assert(kBytes <= 227 * 1024, "fits an SM's shared memory");
+struct F32Tile {
+  static constexpr int BM = D == 128 ? 256 : D == 256 ? 128 : 64;
+  static constexpr int HS = 8192 / BM;            // hp: 32 values a thread
+  static constexpr int TY = BM / 8, TX = kThreadsF32 / TY;
+  static constexpr int CY = D / TX;               // y columns a thread
+  static constexpr int kSlices = 4 * D / HS;
+  static constexpr int F = D == 384 ? 6144 : 4096;
+  static constexpr int BK1 = F / HS, BK2 = F / D;
+  static constexpr int Q = D / BK1;               // = HS / BK2
+  static constexpr int kLd = BM + 4;              // xn^T and h^T rows
+  static constexpr size_t kH = (size_t)D * kLd * 4;
+  static constexpr size_t kRing = kH + (size_t)HS * kLd * 4;
+  static constexpr size_t kFlag = kRing + (size_t)kStagesF32 * F * 4;
+  static constexpr size_t kBytes = kFlag + 16;
+  static_assert(TY * TX == kThreadsF32 && HS == 4 * TX && CY % 4 == 0,
+                "thread tile");
+  static_assert(Q * BK1 == D && Q * BK2 == HS, "stages of a product");
+  static_assert(kBytes <= 232448, "fits an SM's shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
+__global__ void __launch_bounds__(kThreadsF32, 1)
 ln_ffn_residual_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ extra,
                            const float* __restrict__ scale,
@@ -401,114 +443,239 @@ ln_ffn_residual_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ b1,
                            const float* __restrict__ w2,
                            const float* __restrict__ b2,
-                           float* __restrict__ out, int T) {
-  using L = LayoutF32<D>;
-  constexpr int DH = 4 * D;
-  constexpr int NC = D / 32;  // 4-column groups a thread keeps
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Xs = reinterpret_cast<float*>(smem + L::kX);
-  float* W1s = reinterpret_cast<float*>(smem + L::kW1);
-  float* W2s = reinterpret_cast<float*>(smem + L::kW2);
-  float* Hs = reinterpret_cast<float*>(smem + L::kH);
+                           float* __restrict__ out,
+                           float* __restrict__ partial,
+                           int* __restrict__ counters, int T) {
+  using L = F32Tile<D>;
+  constexpr int S = kStagesF32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);             // xn^T [D][kLd]
+  float* hs = reinterpret_cast<float*>(smem + L::kH);     // h^T [HS][kLd]
+  float* ring = reinterpret_cast<float*>(smem + L::kRing);
+  int* last = reinterpret_cast<int*>(smem + L::kFlag);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * kRowsF32;
-  const int rows = min(kRowsF32, T - row0);
+  const int ty = tid / L::TX, tx = tid % L::TX;
+  const int row0 = blockIdx.x * L::BM;
+  const int splits = gridDim.y;  // blocks sharing one row tile (split-K)
+  const int n_slices = L::kSlices / splits;
+  const int slice0 = blockIdx.y * n_slices;
+  const int items = n_slices * 2 * L::Q;
 
-  // LN of each row in f32, one warp a row: the plain version's arithmetic
-  // ((x - mean) / (std + eps)) * scale + bias.
-  for (int r = warp; r < kRowsF32; r += kThreadsF32 / 32) {
-    float* xs = Xs + r * L::kLdx;
-    if (r >= rows) {
-      for (int c = lane; c < D; c += 32) xs[c] = 0.f;
+  // Ring item it: stage it % Q of product (it / Q) % 2 of the block's
+  // slice it / (2 Q), 16-byte copies in flight while earlier items run.
+  auto issue = [&](int it) {
+    float* dst = ring + (it % S) * L::F;
+    const int j0 = (slice0 + it / (2 * L::Q)) * L::HS;
+    const int q = it % L::Q;
+    if ((it / L::Q) % 2 == 0) {
+#pragma unroll
+      for (int i = tid; i < L::F / 4; i += kThreadsF32) {
+        const int r = i / (L::HS / 4), c = (i % (L::HS / 4)) * 4;
+        gn::cp_async16(dst + r * L::HS + c,
+                       w1 + (size_t)(q * L::BK1 + r) * (4 * D) + j0 + c);
+      }
+    } else {
+      const float* src = w2 + (size_t)(j0 + q * L::BK2) * D;
+#pragma unroll
+      for (int i = tid; i < L::F / 4; i += kThreadsF32)
+        gn::cp_async16(dst + 4 * i, src + 4 * i);
+    }
+  };
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < items) issue(it);
+    gn::cp_async_commit();
+  }
+
+  // LN of each row in f32, one warp a row, into xn^T (rows past T are
+  // zeros): the plain version's ((x - mean) / (std + eps)) * scale + bias.
+  for (int r = warp; r < L::BM; r += kThreadsF32 / 32) {
+    const int row = row0 + r;
+    if (row >= T) {
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) xs[(lane + 32 * i) * L::kLd + r] = 0.f;
       continue;
     }
-    const float* xr = x + (size_t)(row0 + r) * D;
+    const float* xr = x + (size_t)row * D;
+    float v[D / 32];
     float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += xr[c];
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      v[i] = xr[lane + 32 * i];
+      s += v[i];
+    }
     const float mean = gn::warp_sum(s) / D;
     float q = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = xr[c] - mean;
-      q += v * v;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const float c = v[i] - mean;
+      q += c * c;
     }
     const float var = gn::warp_sum(q) / D;
     const float den = (var > 0.f ? sqrtf(var) : 0.f) + gn::kLnEps;
-    for (int c = lane; c < D; c += 32)
-      xs[c] = __fadd_rn(__fmul_rn((xr[c] - mean) / den, scale[c]), bias[c]);
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const int c = lane + 32 * i;
+      xs[c * L::kLd + r] =
+          __fadd_rn(__fmul_rn((v[i] - mean) / den, scale[c]), bias[c]);
+    }
   }
 
-  // Thread roles: hidden values (row hr, columns hc .. hc + 3) and output
-  // values (row yr, columns yc + 32 j .. + 3).
-  const int hr = tid / 8, hc = (tid % 8) * 4;
-  const int yr = tid / 8, yc = (tid % 8) * 4;
-  float acc[NC][4];
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[j][t] = 0.f;
-
-  for (int j0 = 0; j0 < DH; j0 += kSliceF32) {
-    __syncthreads();  // the previous slice's readers are done
-    for (int i = tid; i < D * (kSliceF32 / 4); i += kThreadsF32) {
-      const int k = i / (kSliceF32 / 4), v = (i % (kSliceF32 / 4)) * 4;
-      *reinterpret_cast<float4*>(W1s + k * L::kLdw1 + v) =
-          *reinterpret_cast<const float4*>(w1 + (size_t)k * DH + j0 + v);
-    }
-    for (int i = tid; i < kSliceF32 * (D / 4); i += kThreadsF32) {
-      const int k = i / (D / 4), v = (i % (D / 4)) * 4;
-      *reinterpret_cast<float4*>(W2s + k * L::kLdw2 + v) =
-          *reinterpret_cast<const float4*>(w2 + (size_t)(j0 + k) * D + v);
-    }
+  // Stage `it` of the ring is ready for every thread (and the stage that
+  // the next load overwrites is free) after the wait and the barrier.
+  auto begin = [&](int it) {
+    gn::cp_async_wait<S - 2>();
     __syncthreads();
+    if (it + S - 1 < items) issue(it + S - 1);
+    gn::cp_async_commit();
+  };
+
+  float y[8][L::CY];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < L::CY; ++c) y[r][c] = 0.f;
+
+  int it = 0;
+  for (int sl = 0; sl < n_slices; ++sl) {
+    // hp = xn @ W1[:, j0 .. j0 + HS], the thread's 8 x 4 piece.
+    float hp[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) hp[r][c] = 0.f;
+    for (int q = 0; q < L::Q; ++q, ++it) {
+      begin(it);
+      const float* w = ring + (it % S) * L::F + 4 * tx;
+      const float* a = xs + q * L::BK1 * L::kLd + 4 * ty;
+#pragma unroll 16
+      for (int k = 0; k < L::BK1; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(a + k * L::kLd);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(a + k * L::kLd + 4 * L::TY);
+        const float4 b = *reinterpret_cast<const float4*>(w + k * L::HS);
+        const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float br[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) hp[r][c] = fmaf(ar[r], br[c], hp[r][c]);
+      }
+    }
+    // h = relu(hp + b1), transposed into h^T; read after the next barrier.
     {
-      float h[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* xs = Xs + hr * L::kLdx;
-      for (int k = 0; k < D; ++k) {
-        const float a = xs[k];
-        const float4 w =
-            *reinterpret_cast<const float4*>(W1s + k * L::kLdw1 + hc);
-        h[0] = fmaf(a, w.x, h[0]);
-        h[1] = fmaf(a, w.y, h[1]);
-        h[2] = fmaf(a, w.z, h[2]);
-        h[3] = fmaf(a, w.w, h[3]);
-      }
+      const int j0 = (slice0 + sl) * L::HS;
+      const float4 bb = *reinterpret_cast<const float4*>(b1 + j0 + 4 * tx);
+      const float bc[4] = {bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float v = h[t] + b1[j0 + hc + t];
-        Hs[hr * L::kLdh + hc + t] = v > 0.f ? v : 0.f;
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float t = hp[4 * u + i][c] + bc[c];
+            v[i] = t > 0.f ? t : 0.f;
+          }
+          *reinterpret_cast<float4*>(hs + (4 * tx + c) * L::kLd + 4 * ty +
+                                     4 * L::TY * u) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+    }
+    // y += h @ W2[j0 .. j0 + HS, :], the thread's 8 x CY piece.
+    for (int q = 0; q < L::Q; ++q, ++it) {
+      begin(it);
+      const float* w = ring + (it % S) * L::F + 4 * tx;
+      const float* a = hs + q * L::BK2 * L::kLd + 4 * ty;
+#pragma unroll
+      for (int k = 0; k < L::BK2; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(a + k * L::kLd);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(a + k * L::kLd + 4 * L::TY);
+        const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float br[L::CY];
+#pragma unroll
+        for (int v = 0; v < L::CY / 4; ++v) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(w + k * D + 4 * L::TX * v);
+          br[4 * v] = b.x;
+          br[4 * v + 1] = b.y;
+          br[4 * v + 2] = b.z;
+          br[4 * v + 3] = b.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < L::CY; ++c) y[r][c] = fmaf(ar[r], br[c], y[r][c]);
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kSliceF32; ++k) {
-      const float a = Hs[yr * L::kLdh + k];
+  }
+  gn::cp_async_wait<0>();
+
+  // The thread's rows and columns.
+  auto row_of = [&](int r) { return row0 + 4 * ty + (r & 3) + 4 * L::TY * (r >> 2); };
+  auto col_of = [&](int v) { return 4 * tx + 4 * L::TX * v; };
+
+  if (splits > 1) {
+    // Split-K over the hidden dimension: publish this block's partial sum;
+    // the last of the row tile's blocks to arrive adds the partials in
+    // split order (deterministic) and finishes the rows.
+    float* mine = partial + (size_t)blockIdx.y * T * D;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(W2s + k * L::kLdw2 + yc + 32 * j);
-        acc[j][0] = fmaf(a, w.x, acc[j][0]);
-        acc[j][1] = fmaf(a, w.y, acc[j][1]);
-        acc[j][2] = fmaf(a, w.z, acc[j][2]);
-        acc[j][3] = fmaf(a, w.w, acc[j][3]);
+    for (int r = 0; r < 8; ++r) {
+      const int row = row_of(r);
+      if (row >= T) continue;
+#pragma unroll
+      for (int v = 0; v < L::CY / 4; ++v)
+        *reinterpret_cast<float4*>(mine + (size_t)row * D + col_of(v)) =
+            make_float4(y[r][4 * v], y[r][4 * v + 1], y[r][4 * v + 2],
+                        y[r][4 * v + 3]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = row_of(r);
+      if (row >= T) continue;
+#pragma unroll
+      for (int v = 0; v < L::CY / 4; ++v) {
+        const size_t g = (size_t)row * D + col_of(v);
+        float4 acc = __ldcg(reinterpret_cast<const float4*>(partial + g));
+        for (int k = 1; k < splits; ++k) {
+          const float4 p = __ldcg(reinterpret_cast<const float4*>(
+              partial + (size_t)k * T * D + g));
+          acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
+        }
+        y[r][4 * v] = acc.x;
+        y[r][4 * v + 1] = acc.y;
+        y[r][4 * v + 2] = acc.z;
+        y[r][4 * v + 3] = acc.w;
       }
     }
   }
 
-  // Epilogue: y = xf + ((acc + b2) + extra).
-  if (yr < rows) {
-    const size_t base = (size_t)(row0 + yr) * D;
+  // Epilogue: y = xf + ((acc + b2) + extra), whole float4s of a row.
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = yc + 32 * j;
+  for (int r = 0; r < 8; ++r) {
+    const int row = row_of(r);
+    if (row >= T) continue;
+#pragma unroll
+    for (int v = 0; v < L::CY / 4; ++v) {
+      const int c = col_of(v);
+      const size_t g = (size_t)row * D + c;
       const float4 bb = *reinterpret_cast<const float4*>(b2 + c);
-      float4 t = make_float4(acc[j][0] + bb.x, acc[j][1] + bb.y,
-                             acc[j][2] + bb.z, acc[j][3] + bb.w);
+      float4 t = make_float4(y[r][4 * v] + bb.x, y[r][4 * v + 1] + bb.y,
+                             y[r][4 * v + 2] + bb.z, y[r][4 * v + 3] + bb.w);
       if (extra != nullptr) {
-        const float4 e = *reinterpret_cast<const float4*>(extra + base + c);
+        const float4 e = *reinterpret_cast<const float4*>(extra + g);
         t.x += e.x; t.y += e.y; t.z += e.z; t.w += e.w;
       }
-      const float4 xv = *reinterpret_cast<const float4*>(x + base + c);
-      *reinterpret_cast<float4*>(out + base + c) =
+      const float4 xv = *reinterpret_cast<const float4*>(x + g);
+      *reinterpret_cast<float4*>(out + g) =
           make_float4(xv.x + t.x, xv.y + t.y, xv.z + t.z, xv.w + t.w);
     }
   }
@@ -521,16 +688,18 @@ int launch(const void* x, const void* extra, const void* scale,
            int splits, int is_f32, cudaStream_t stream) {
   cudaError_t err;
   if (is_f32) {
-    const size_t smem = LayoutF32<D>::kBytes;
+    using L = F32Tile<D>;
+    if (splits < 1 || L::kSlices % splits) return cudaErrorInvalidValue;
     err = cudaFuncSetAttribute(ln_ffn_residual_f32_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               (int)L::kBytes);
     if (err != cudaSuccess) return err;
-    ln_ffn_residual_f32_kernel<D>
-        <<<(T + kRowsF32 - 1) / kRowsF32, kThreadsF32, smem, stream>>>(
-            (const float*)x, (const float*)extra, (const float*)scale,
-            (const float*)bias, (const float*)w1, (const float*)b1,
-            (const float*)w2, (const float*)b2, (float*)out, T);
+    const dim3 grid((T + L::BM - 1) / L::BM, splits);
+    ln_ffn_residual_f32_kernel<D><<<grid, kThreadsF32, L::kBytes, stream>>>(
+        (const float*)x, (const float*)extra, (const float*)scale,
+        (const float*)bias, (const float*)w1, (const float*)b1,
+        (const float*)w2, (const float*)b2, (float*)out, (float*)partial,
+        (int*)counters, T);
     return cudaGetLastError();
   }
   if (splits < 1 || (4 * D / kSlice) % splits) return cudaErrorInvalidValue;
@@ -558,15 +727,37 @@ int launch(const void* x, const void* extra, const void* scale,
 // Rows of one bf16 block at width d (the split-K counters count row tiles).
 extern "C" int gn_ln_ffn_residual_rows(int d) { return rows_for(d); }
 
+// Rows of one f32 block at width d, and the hidden slices it walks (the
+// split over the hidden dimension divides them); 0 for another width.
+extern "C" int gn_ln_ffn_residual_f32_rows(int d) {
+  switch (d) {
+    case 128: return F32Tile<128>::BM;
+    case 256: return F32Tile<256>::BM;
+    case 384: return F32Tile<384>::BM;
+    case 512: return F32Tile<512>::BM;
+    default: return 0;
+  }
+}
+extern "C" int gn_ln_ffn_residual_f32_slices(int d) {
+  switch (d) {
+    case 128: return F32Tile<128>::kSlices;
+    case 256: return F32Tile<256>::kSlices;
+    case 384: return F32Tile<384>::kSlices;
+    case 512: return F32Tile<512>::kSlices;
+    default: return 0;
+  }
+}
+
 // Launches the kernel on `stream` and returns cudaGetLastError().
-// `extra` may be null.  bf16 rows: `splits` blocks share each row tile of
-// gn_ln_ffn_residual_rows(d) rows, each taking 1/splits of the hidden
+// `extra` may be null.  `splits` blocks share each row tile of
+// gn_ln_ffn_residual_rows(d) rows (f32 rows, is_f32 = 1:
+// gn_ln_ffn_residual_f32_rows(d)), each taking 1/splits of the hidden
 // dimension; with splits > 1, `partial` is f32 scratch of splits * T * d
-// and `counters` holds one zeroed int a row tile.  f32 rows (is_f32 = 1):
-// splits, partial and counters are unused.
+// and `counters` holds one zeroed int a row tile.
 // Preconditions, checked by the Python wrapper: x/extra/w1/w2/out all of
 // the rows' type, f32 scale/bias/b1/b2, contiguous and 16-byte aligned,
-// T >= 1, d in {128, 256, 384, 512}, and splits dividing 4d / 64.
+// T >= 1, d in {128, 256, 384, 512}, and splits dividing 4d / 64 (f32
+// rows: gn_ln_ffn_residual_f32_slices(d)).
 extern "C" int gn_ln_ffn_residual(const void* x, const void* extra,
                                   const void* scale, const void* bias,
                                   const void* w1, const void* b1,

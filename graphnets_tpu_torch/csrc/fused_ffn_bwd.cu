@@ -53,9 +53,29 @@
 // wgmma.mma_async m64n128k16 on the stage that has arrived, keep one
 // group in flight, and hand the previous stage back through its "empty"
 // mbarrier.  Rows past T arrive as zeros (the tensor map's bounds) and are
-// never written.  f32 rows (no driven path trains through them): the same
-// passes with true-f32 products on the CUDA cores (64 x 64 tiles, every
-// thread a 4 x 4 piece, multiply-adds in order of k, never TF32).
+// never written.
+//
+// f32 rows, the JAX package's default precision (the large graph's f32
+// step, phase F(b) of chip_smoke.py, runs them 6 times): the same passes
+// with true-f32 products on the CUDA cores, never TF32.  What bounds them
+// is 10 * T * d * 4d f32 operations at 67 TFLOP/s (2.56 ms at T = 65,536,
+// d = 256; 41.0 ms at T = 1,048,576) against 3 * T * d * 4 bytes of rows;
+// h and dhp make one round trip in f32 (16 * T * 4d bytes, 0.6 ms at
+// T = 65,536).  Every product runs on one register-blocked tile
+// (f32_gemm): 128 x 128 outputs a block of 256 threads, 8 x 8 a thread
+// (16 multiply-adds a float4 load from shared memory), k in slabs of 16
+// through a double-buffered pair of k-major slabs: B and a row-major A by
+// 16-byte cp.async copies, a K-major A (xn, g, dhp) by 16-byte loads into
+// registers stored transposed; the next slab is in flight while this one's
+// multiply-adds run, one barrier a slab, two blocks an SM.  The wrapper
+// hands W1^T and W2^T in, so every B is row-major.  The hidden pass keeps
+// the relu mask in 64 bits between its two products; the weight pass
+// splits T into ranges so that tiles x ranges >= 2 x 132 (two blocks an
+// SM), added in order by the reduction.  The first f32 passes (64 x 64
+// tiles, 4 x 4 a thread, operands loaded element by element with the
+// transposes in the scalar stores, two barriers a slab, no double buffer)
+// took 8.66 ms at T = 65,536, d = 256 and 136.6 ms at T = 1,048,576 on an
+// H100 80GB HBM3 at 700 W.
 //
 // The rejected design (the first one): a row pass and a split-K weight
 // pass that each recomputed hp and dh with WMMA, loading, synchronising
@@ -340,120 +360,225 @@ ffn_bwd_gemm_kernel(__grid_constant__ const CUtensorMap a0,
 
 // ---- the CUDA-core passes (f32 rows) ----------------------------------------
 
-constexpr int kFT = 64;      // tile rows and columns
-constexpr int kFK = 16;      // k of a step
+constexpr int kFT = 128;            // tile rows and columns
+constexpr int kFK = 16;             // k of a slab
 constexpr int kFThreads = 256;
+constexpr int kFLd = kFT + 4;       // a slab's rows in shared memory
+constexpr int kFSlab = kFK * kFLd;  // floats of one operand slab
 
-// acc[4][4] += A[m0 : m0 + 64, k0 : k1] @ B[k0 : k1, n0 : n0 + 64] for the
-// thread's 4 x 4 piece (rows 4 * (tid / 16), columns 4 * (tid % 16)).
-// A(m, k) = TA ? a[k * lda + m] : a[m * lda + k], B(k, n) likewise with
-// TB; rows m >= M and k >= k1 read as zeros.  Products in order of k.
-template <bool TA, bool TB>
-__device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
-                                           int lda,
-                                           const float* __restrict__ b,
-                                           int ldb, int m0, int n0, int k0,
-                                           int k1, int M, float (&acc)[4][4],
-                                           float* As, float* Bs) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int k = k0; k < k1; k += kFK) {
-    __syncthreads();
+// 16-byte copy that reads `gmem` when `ok` and writes zeros otherwise.
+__device__ __forceinline__ void cp_async16_or_zero(float* smem,
+                                                   const float* gmem,
+                                                   bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+// acc += A[m0 : m0 + 128, kb : ke] @ B[kb : ke, n0 : n0 + 128] for the
+// thread's 8 x 8 piece: acc[4 u + i][4 v + j] at row 4 ty + i + 64 u and
+// column 4 tx + j + 64 v (ty = tid / 16, tx = tid % 16).
+// A(m, k) = a[m * lda + k] (KMAJOR) or a[k * lda + m]; B(k, n) =
+// b[k * ldb + n].  Rows m >= M (KMAJOR) and k >= ke read as zeros; a
+// row-major A needs M to be whole tiles, a K-major one ke - kb a multiple
+// of 4.  Both operands pass through shared memory k-major ([k][m], [k][n])
+// in slabs of 16 k, double-buffered: B and a row-major A by cp.async,
+// a K-major A by 16-byte loads into registers stored transposed; the next
+// slab is in flight while this one's multiply-adds run, one barrier a
+// slab.  Multiply-adds in order of k.
+template <bool KMAJOR>
+__device__ __forceinline__ void f32_gemm(const float* __restrict__ a,
+                                         int lda,
+                                         const float* __restrict__ b,
+                                         int ldb, int m0, int n0, int kb,
+                                         int ke, int M, float (&acc)[8][8],
+                                         float* sm) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float* As = sm;               // [2][kFK][kFLd]
+  float* Bs = sm + 2 * kFSlab;  // [2][kFK][kFLd]
+  const int nk = (ke - kb + kFK - 1) / kFK;
+  if (nk <= 0) return;
+  float4 staged[2];
+  auto load_async = [&](int kt, int buf) {
+    const int k0 = kb + kt * kFK;
 #pragma unroll
-    for (int q = 0; q < kFT * kFK / kFThreads; ++q) {
-      const int i = tid + q * kFThreads;
-      const int am = TA ? i % kFT : i / kFK, ak = TA ? i / kFT : i % kFK;
-      const int bn = TB ? i / kFK : i % kFT, bk = TB ? i % kFK : i / kFT;
-      const bool aok = m0 + am < M && k + ak < k1;
-      const bool bok = k + bk < k1;
-      As[ak * (kFT + 4) + am] =
-          aok ? (TA ? a[(size_t)(k + ak) * lda + m0 + am]
-                    : a[(size_t)(m0 + am) * lda + k + ak])
-              : 0.f;
-      Bs[bk * (kFT + 4) + bn] =
-          bok ? (TB ? b[(size_t)(n0 + bn) * ldb + k + bk]
-                    : b[(size_t)(k + bk) * ldb + n0 + bn])
-              : 0.f;
+    for (int p = 0; p < 2; ++p) {
+      const int c = tid + kFThreads * p, r = c >> 5, c4 = (c & 31) * 4;
+      const bool ok = k0 + r < ke;
+      cp_async16_or_zero(Bs + buf * kFSlab + r * kFLd + c4,
+                         ok ? b + (size_t)(k0 + r) * ldb + n0 + c4 : b, ok);
+      if (!KMAJOR)
+        cp_async16_or_zero(As + buf * kFSlab + r * kFLd + c4,
+                           ok ? a + (size_t)(k0 + r) * lda + m0 + c4 : a, ok);
+    }
+    gn::cp_async_commit();
+  };
+  auto load_regs = [&](int kt) {
+    const int k0 = kb + kt * kFK;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int c = tid + kFThreads * p, r = c >> 2, k = k0 + (c & 3) * 4;
+      staged[p] = m0 + r < M && k < ke
+                      ? *reinterpret_cast<const float4*>(
+                            a + (size_t)(m0 + r) * lda + k)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_regs = [&](int buf) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int c = tid + kFThreads * p;
+      float* d = As + buf * kFSlab + (c & 3) * 4 * kFLd + (c >> 2);
+      d[0] = staged[p].x;
+      d[kFLd] = staged[p].y;
+      d[2 * kFLd] = staged[p].z;
+      d[3 * kFLd] = staged[p].w;
+    }
+  };
+
+  load_async(0, 0);
+  if (KMAJOR) {
+    load_regs(0);
+    store_regs(0);
+  }
+  gn::cp_async_wait<0>();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < nk;
+    if (more) {
+      load_async(kt + 1, cur ^ 1);
+      if (KMAJOR) load_regs(kt + 1);
+    }
+    const float* as = As + cur * kFSlab + 4 * ty;
+    const float* bs = Bs + cur * kFSlab + 4 * tx;
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * kFLd);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * kFLd + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kFLd);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kFLd + 64);
+      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
+    }
+    if (more) {
+      if (KMAJOR) store_regs(cur ^ 1);
+      gn::cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(As + kk * (kFT + 4) + 4 * ty);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(Bs + kk * (kFT + 4) + 4 * tx);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
-    }
   }
 }
 
-// Hidden pass, f32: a [64 rows, 64 hidden] tile per block (grid: hidden
-// tiles x row tiles); h and dhp in f32, the tile's column sums of dhp.
-__global__ void __launch_bounds__(kFThreads)
+__device__ __forceinline__ void zero8x8(float (&acc)[8][8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+}
+
+// Hidden pass, f32: a [128 rows, 128 hidden] tile a block (grid: hidden
+// tiles x row tiles).  hp = xn @ W1 first: h = relu(hp + b1) goes out and
+// the relu mask stays in 64 bits; then dh = g @ W2^T (W2^T [d, 4d] given):
+// dhp = dh where hp > 0 goes out with the tile's column sums (for db1),
+// added over the thread's rows, then over the 16 thread rows in order.
+__global__ void __launch_bounds__(kFThreads, 2)
 ffn_bwd_hidden_f32_kernel(const float* __restrict__ xn,
                           const float* __restrict__ g,
                           const float* __restrict__ w1,
                           const float* __restrict__ b1,
-                          const float* __restrict__ w2, float* __restrict__ h,
-                          float* __restrict__ dhp,
+                          const float* __restrict__ w2t,
+                          float* __restrict__ h, float* __restrict__ dhp,
                           float* __restrict__ part_db1, int T, int d) {
-  __shared__ __align__(16) float As[kFK * (kFT + 4)];
-  __shared__ __align__(16) float Bs[kFK * (kFT + 4)];
+  __shared__ __align__(16) float sm[4 * kFSlab];
   __shared__ float red[16][kFT];
-  const int DH = 4 * d, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int DH = 4 * d, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
-  float ah[4][4] = {}, ad[4][4] = {};
-  sgemm_tile<false, false>(xn, d, w1, DH, m0, n0, 0, d, T, ah, As, Bs);
-  sgemm_tile<false, true>(g, d, w2, d, m0, n0, 0, d, T, ad, As, Bs);
-  float sums[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[8][8];
+  zero8x8(acc);
+  f32_gemm<true>(xn, d, w1, DH, m0, n0, 0, d, T, acc, sm);
+  unsigned long long pos = 0ull;  // bit 8 r + c: hp > 0
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = m0 + 4 * ty + r;
-    if (row >= T) continue;
+  for (int r = 0; r < 8; ++r) {
+    const int row = m0 + 4 * ty + (r & 3) + 64 * (r >> 2);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = n0 + 4 * tx + c;
-      const float hp = ah[r][c] + b1[col];
-      const float v = hp > 0.f ? ad[r][c] : 0.f;
-      h[(size_t)row * DH + col] = hp > 0.f ? hp : 0.f;
-      dhp[(size_t)row * DH + col] = v;
-      sums[c] += v;
+    for (int v = 0; v < 2; ++v) {
+      const int col = n0 + 4 * tx + 64 * v;
+      const float4 bb = *reinterpret_cast<const float4*>(b1 + col);
+      const float bc[4] = {bb.x, bb.y, bb.z, bb.w};
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float hp = acc[r][4 * v + j] + bc[j];
+        if (hp > 0.f) pos |= 1ull << (8 * r + 4 * v + j);
+        o[j] = hp > 0.f ? hp : 0.f;
+      }
+      if (row < T)
+        *reinterpret_cast<float4*>(h + (size_t)row * DH + col) =
+            make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  zero8x8(acc);
+  f32_gemm<true>(g, d, w2t, DH, m0, n0, 0, d, T, acc, sm);
+  float sums[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) sums[c] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = m0 + 4 * ty + (r & 3) + 64 * (r >> 2);
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * v + j;
+        o[j] = (pos >> (8 * r + c)) & 1ull ? acc[r][c] : 0.f;
+        if (row < T) sums[c] += o[j];
+      }
+      if (row < T)
+        *reinterpret_cast<float4*>(dhp + (size_t)row * DH + n0 + 4 * tx +
+                                   64 * v) =
+            make_float4(o[0], o[1], o[2], o[3]);
     }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) red[ty][4 * tx + c] = sums[c];
+  for (int c = 0; c < 8; ++c) red[ty][4 * tx + (c & 3) + 64 * (c >> 2)] = sums[c];
   __syncthreads();
   if (tid < kFT) {
     float s = 0.f;
+#pragma unroll
     for (int q = 0; q < 16; ++q) s += red[q][tid];
     part_db1[(size_t)blockIdx.y * DH + n0 + tid] = s;
   }
 }
 
-// dxn pass (prob < 0) or weight pass (prob = 0: dW2, 1: dW1), f32.
-__global__ void __launch_bounds__(kFThreads)
+// dxn pass (WEIGHTS false: dxn [T, d] = dhp @ W1^T, W1^T [4d, d] given)
+// or weight pass (WEIGHTS: blockIdx.x a tile of dW2 = h^T @ g [4d, d],
+// then of dW1 = xn^T @ dhp [d, 4d]; blockIdx.y a range of k_split rows,
+// whose partial goes to part_dw2 / part_dw1), f32.  One instance a pass,
+// so that each keeps the registers of two blocks an SM.
+template <bool WEIGHTS>
+__global__ void __launch_bounds__(kFThreads, 2)
 ffn_bwd_gemm_f32_kernel(const float* __restrict__ xn,
                         const float* __restrict__ g,
-                        const float* __restrict__ w1,
+                        const float* __restrict__ w1t,
                         const float* __restrict__ h,
                         const float* __restrict__ dhp, float* __restrict__ dxn,
                         float* __restrict__ part_dw2,
                         float* __restrict__ part_dw1, int T, int d,
-                        int k_split, int weights) {
-  __shared__ __align__(16) float As[kFK * (kFT + 4)];
-  __shared__ __align__(16) float Bs[kFK * (kFT + 4)];
-  const int DH = 4 * d, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
+                        int k_split) {
+  __shared__ __align__(16) float sm[4 * kFSlab];
+  const int DH = 4 * d, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float acc[8][8];
+  zero8x8(acc);
   float* out;
   int ldc, M;
-  if (!weights) {
-    // dxn[T, d] = dhp @ W1^T.
+  if constexpr (!WEIGHTS) {
     const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
-    sgemm_tile<false, true>(dhp, DH, w1, DH, m0, n0, 0, DH, T, acc, As, Bs);
+    f32_gemm<true>(dhp, DH, w1t, d, m0, n0, 0, DH, T, acc, sm);
     out = dxn + (size_t)m0 * d + n0;
     ldc = d;
     M = T - m0;
@@ -466,20 +591,23 @@ ffn_bwd_gemm_f32_kernel(const float* __restrict__ xn,
     const int m0 = (t / tn) * kFT, n0 = (t % tn) * kFT;
     const int k0 = blockIdx.y * k_split, k1 = min(T, k0 + k_split);
     if (prob)  // dW1[d, 4d] = xn^T @ dhp
-      sgemm_tile<true, false>(xn, d, dhp, DH, m0, n0, k0, k1, d, acc, As, Bs);
+      f32_gemm<false>(xn, d, dhp, DH, m0, n0, k0, k1, d, acc, sm);
     else       // dW2[4d, d] = h^T @ g
-      sgemm_tile<true, false>(h, DH, g, d, m0, n0, k0, k1, DH, acc, As, Bs);
-    const size_t sz = (size_t)d * DH;
+      f32_gemm<false>(h, DH, g, d, m0, n0, k0, k1, DH, acc, sm);
     ldc = prob ? DH : d;
-    out = (prob ? part_dw1 : part_dw2) + blockIdx.y * sz + (size_t)m0 * ldc +
-          n0;
+    out = (prob ? part_dw1 : part_dw2) + blockIdx.y * (size_t)d * DH +
+          (size_t)m0 * ldc + n0;
     M = kFT;
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if (4 * ty + r >= M) continue;
-    *reinterpret_cast<float4*>(out + (size_t)(4 * ty + r) * ldc + 4 * tx) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  for (int r = 0; r < 8; ++r) {
+    const int lr = 4 * ty + (r & 3) + 64 * (r >> 2);
+    if (lr >= M) continue;
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+      *reinterpret_cast<float4*>(out + (size_t)lr * ldc + 4 * tx + 64 * v) =
+          make_float4(acc[r][4 * v], acc[r][4 * v + 1], acc[r][4 * v + 2],
+                      acc[r][4 * v + 3]);
   }
 }
 
@@ -787,11 +915,12 @@ int launch_bf16(const void* x, const void* g, const void* scale,
 }
 
 int launch_f32(const void* x, const void* g, const void* scale,
-               const void* bias, const void* w1, const void* b1,
-               const void* w2, void* dx, void* xn, void* stats, void* h,
-               void* dhp, void* dxn, void* part_db1, void* part_rows,
-               void* part_dw1, void* part_dw2, int T, int d, int post_blocks,
-               int splits, int rows_per_split, cudaStream_t s) {
+               const void* bias, const void* w1, const void* w1t,
+               const void* w2t, const void* b1, void* dx, void* xn,
+               void* stats, void* h, void* dhp, void* dxn, void* part_db1,
+               void* part_rows, void* part_dw1, void* part_dw2, int T, int d,
+               int post_blocks, int splits, int rows_per_split,
+               cudaStream_t s) {
   const int DH = 4 * d;
   const int mt = (T + kFT - 1) / kFT;
   int e;
@@ -800,20 +929,20 @@ int launch_f32(const void* x, const void* g, const void* scale,
     return e;
   ffn_bwd_hidden_f32_kernel<<<dim3(DH / kFT, mt), kFThreads, 0, s>>>(
       (const float*)xn, (const float*)g, (const float*)w1, (const float*)b1,
-      (const float*)w2, (float*)h, (float*)dhp, (float*)part_db1, T, d);
+      (const float*)w2t, (float*)h, (float*)dhp, (float*)part_db1, T, d);
   if ((e = cudaGetLastError()) != 0) return e;
-  ffn_bwd_gemm_f32_kernel<<<dim3(d / kFT, mt), kFThreads, 0, s>>>(
-      (const float*)xn, (const float*)g, (const float*)w1, (const float*)h,
-      (const float*)dhp, (float*)dxn, nullptr, nullptr, T, d, 0, 0);
+  ffn_bwd_gemm_f32_kernel<false><<<dim3(d / kFT, mt), kFThreads, 0, s>>>(
+      (const float*)xn, (const float*)g, (const float*)w1t, (const float*)h,
+      (const float*)dhp, (float*)dxn, nullptr, nullptr, T, d, 0);
   if ((e = cudaGetLastError()) != 0) return e;
   if ((e = row_pass<float>(true, x, g, scale, bias, xn, stats, dxn, dx,
                            part_rows, T, d, post_blocks, s)) != 0)
     return e;
   const int tiles = 2 * (DH / kFT) * (d / kFT);
-  ffn_bwd_gemm_f32_kernel<<<dim3(tiles, splits), kFThreads, 0, s>>>(
-      (const float*)xn, (const float*)g, (const float*)w1, (const float*)h,
+  ffn_bwd_gemm_f32_kernel<true><<<dim3(tiles, splits), kFThreads, 0, s>>>(
+      (const float*)xn, (const float*)g, (const float*)w1t, (const float*)h,
       (const float*)dhp, nullptr, (float*)part_dw2, (float*)part_dw1, T, d,
-      rows_per_split, 1);
+      rows_per_split);
   return cudaGetLastError();
 }
 
@@ -830,25 +959,27 @@ extern "C" int gn_ln_ffn_backward_tile_rows(int is_f32) {
 // xn [T, d] of the rows' type, stats [T, 3] f32, h and dhp [T, 4d] of the
 // rows' type, dxn [T, d] f32, part_db1 [ceil(T / tile_rows), 4d],
 // part_rows [3, post_blocks, d], part_dw1 [splits, d, 4d], part_dw2
-// [splits, 4d, d], all f32.  w1t is W1^T [4d, d] (bf16 rows only).
+// [splits, 4d, d], all f32.  w1t is W1^T [4d, d]; w2t is W2^T [d, 4d]
+// (f32 rows only; null for bf16).
 // Preconditions, checked there: x, g [T, d], w1 [d, 4d], w2 [4d, d] of the
 // rows' type (bf16, or f32 with is_f32 = 1); f32 scale, bias [d] and
 // b1 [4d]; contiguous and 16-byte aligned; T >= 1; d in {128, 256, 384,
 // 512}; splits = ceil(T / rows_per_split), rows_per_split % 64 == 0.
 extern "C" int gn_ln_ffn_backward(
     const void* x, const void* g, const void* scale, const void* bias,
-    const void* w1, const void* w1t, const void* b1, const void* w2, void* dx,
-    void* ds, void* db, void* dw1, void* db1, void* dw2, void* db2, void* xn,
-    void* stats, void* h, void* dhp, void* dxn, void* part_db1,
-    void* part_rows, void* part_dw1, void* part_dw2, int T, int d, int is_f32,
-    int post_blocks, int splits, int rows_per_split, void* stream) {
+    const void* w1, const void* w1t, const void* w2t, const void* b1,
+    const void* w2, void* dx, void* ds, void* db, void* dw1, void* db1,
+    void* dw2, void* db2, void* xn, void* stats, void* h, void* dhp,
+    void* dxn, void* part_db1, void* part_rows, void* part_dw1,
+    void* part_dw2, int T, int d, int is_f32, int post_blocks, int splits,
+    int rows_per_split, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d % 128 || d > 512 || T < 1 || rows_per_split % 64)
     return cudaErrorInvalidValue;
   const int DH = 4 * d;
-  int e = is_f32 ? launch_f32(x, g, scale, bias, w1, b1, w2, dx, xn, stats,
-                              h, dhp, dxn, part_db1, part_rows, part_dw1,
-                              part_dw2, T, d, post_blocks, splits,
+  int e = is_f32 ? launch_f32(x, g, scale, bias, w1, w1t, w2t, b1, dx, xn,
+                              stats, h, dhp, dxn, part_db1, part_rows,
+                              part_dw1, part_dw2, T, d, post_blocks, splits,
                               rows_per_split, s)
                  : launch_bf16(x, g, scale, bias, w1, w1t, b1, w2, dx, xn,
                                stats, h, dhp, dxn, part_db1, part_rows,

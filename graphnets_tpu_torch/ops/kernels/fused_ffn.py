@@ -16,9 +16,11 @@ weight slices stream through a ring in shared memory, and each 64-wide
 hidden slice goes from the first product's accumulator, through bias, relu
 and rounding, straight into the second product's A operand in registers,
 so the ``[rows, 4d]`` hidden activation never leaves them; f32 rows take
-true-f32 multiply-adds on the CUDA cores.  With few row tiles, up to 8
-blocks split the hidden dimension (:func:`_splits`).  The source note in
-the ``.cu`` file has the details.
+true-f32 multiply-adds on the CUDA cores, register-blocked, with the
+weight slices in a ``cp.async`` ring.  With few row tiles, up to 8 (f32:
+16) blocks split the hidden dimension (:func:`_splits`,
+:func:`_splits_f32`).  The source note in the ``.cu`` file has the
+details.
 
 Backward kernel: ``csrc/fused_ffn_bwd.cu``.  It replaces the Pallas kernel
 of ``_fused_backward`` (``fused_ffn.py:176-283``), with its arithmetic:
@@ -26,7 +28,8 @@ only ``x`` is kept from the forward, the LN statistics and the hidden
 activation are recomputed.  On the H100 it is bound by the tensor cores
 (2.75 TFLOP against 1.6 GB at T = 1,048,576, d = 256).  The five products
 the function needs run as warp-specialised ``wgmma`` passes fed by TMA
-(bf16 rows; true-f32 CUDA-core passes for f32 rows): hp and dh per row
+(bf16 rows; for f32 rows true-f32 CUDA-core passes on one register-blocked
+128 x 128 tile, given W1^T and W2^T): hp and dh per row
 tile, which write ``h`` and ``dhp`` once to device memory in x's type;
 ``dxn``; then dW1 and dW2 split over row ranges.  Partials are added in a
 fixed order (no atomics).  One call of :func:`ln_ffn_backward` runs the
@@ -110,6 +113,16 @@ def _splits(T: int, rows: int, device) -> int:
     return splits
 
 
+def _splits_f32(T: int, rows: int, slices: int, device) -> int:
+    """f32 rows: the most blocks per row tile (a divisor of the kernel's
+    hidden slices, at most 16) that the SMs hold at one block each; 1 once
+    the row tiles fill the card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-T // rows)
+    return max(s for s in range(1, 17)
+               if slices % s == 0 and (s == 1 or tiles * s <= sms))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ffn")
     fn = lib.gn_ln_ffn_residual
@@ -117,8 +130,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.gn_ln_ffn_residual_rows.argtypes = [ctypes.c_int]
-        lib.gn_ln_ffn_residual_rows.restype = ctypes.c_int
+        for name in ("gn_ln_ffn_residual_rows", "gn_ln_ffn_residual_f32_rows",
+                     "gn_ln_ffn_residual_f32_slices"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -161,8 +176,13 @@ def _launch(x, scale, bias, w1, b1, w2, b2, extra):
     out = torch.empty_like(x)
     lib = _lib()
     is_f32 = x.dtype == torch.float32
-    rows = lib.gn_ln_ffn_residual_rows(d)
-    splits = 1 if is_f32 else _splits(T, rows, x.device)
+    if is_f32:
+        rows = lib.gn_ln_ffn_residual_f32_rows(d)
+        splits = _splits_f32(T, rows, lib.gn_ln_ffn_residual_f32_slices(d),
+                             x.device)
+    else:
+        rows = lib.gn_ln_ffn_residual_rows(d)
+        splits = _splits(T, rows, x.device)
     partial = counters = None
     if splits > 1:
         partial = torch.empty(splits * T * d, dtype=torch.float32,
@@ -226,7 +246,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_ffn_bwd")
     fn = lib.gn_ln_ffn_backward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.gn_ln_ffn_backward_tile_rows.argtypes = [ctypes.c_int]
@@ -248,6 +268,26 @@ def _weight_splits(T: int, tiles: int, sms: int) -> int:
     return best
 
 
+def _weight_splits_f32(T: int, tiles: int, sms: int):
+    """Row ranges of the f32 weight pass and the rows of each (a multiple
+    of 64, at least 256 unless there is one range): at least two blocks an
+    SM (``tiles x splits >= 2 x sms``) where T allows, and among those the
+    fewest ranges whose blocks fill their waves of two blocks an SM within
+    10% of the best split (each range adds a partial product to add)."""
+    slots = 2 * sms
+    options = {}
+    for want in range(1, 65):
+        rows = -(-T // (want * 64)) * 64
+        splits = -(-T // rows)
+        if splits == 1 or rows >= 256:
+            options[splits] = rows
+    full = [s for s in options if tiles * s >= slots] or list(options)
+    cost = lambda s: -(-tiles * s // slots) / s
+    best = min(cost(s) for s in full)
+    splits = min(s for s in full if cost(s) <= 1.1 * best)
+    return splits, options[splits]
+
+
 def _launch_backward(x, scale, bias, w1, b1, w2, g):
     global BWD_LAUNCHES
     T, d = x.shape
@@ -260,18 +300,22 @@ def _launch_backward(x, scale, bias, w1, b1, w2, g):
                    "w2": (w2, (4 * d, d)), "g": (g, (T, d)),
                    "scale": (scale, (d,)), "bias": (bias, (d,))})
     is_f32 = x.dtype == torch.float32
-    w1c = w1.to(x.dtype)
+    w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
     args = [x, g.to(x.dtype), scale.float(), bias.float(), w1c,
-            None if is_f32 else w1c.t().contiguous(), b1.float(),
-            w2.to(x.dtype)]
+            w1c.t().contiguous(), w2c.t().contiguous() if is_f32 else None,
+            b1.float(), w2c]
     _check_args("ln_ffn_backward", x, args)
     lib = _bwd_lib()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tile = lib.gn_ln_ffn_backward_tile_rows(int(is_f32))
     post_blocks = max(1, min(-(-T // 8), 4 * sms))
-    splits = _weight_splits(T, 2 * (4 * d // tile) * (d // tile), sms)
-    rows_per_split = -(-T // (splits * 64)) * 64
-    splits = -(-T // rows_per_split)
+    tiles = 2 * (4 * d // tile) * (d // tile)
+    if is_f32:
+        splits, rows_per_split = _weight_splits_f32(T, tiles, sms)
+    else:
+        splits = _weight_splits(T, tiles, sms)
+        rows_per_split = -(-T // (splits * 64)) * 64
+        splits = -(-T // rows_per_split)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     outs = [torch.empty(d, **f32), torch.empty(d, **f32),

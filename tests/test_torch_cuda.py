@@ -22,7 +22,8 @@ another order).  ``sorted_gather_add`` is one f32 add of the same two
 values and one rounding: bit-equal.  The single-graph edge update: ``h``
 one bf16 ulp (f32: 1e-5), ``agg`` 1e-5 against an f32 sum of the kernel's
 own ``h``, gradients 5e-2 (f32: 1e-4).  The fused FFN forward on f32
-rows: 1e-5 (f32 sums in another order).  The fused FFN backward: dx 2^-6
+rows: 1e-5 (f32 sums in another order), two launches bit-equal at the
+row counts around its row tile.  The fused FFN backward: dx 2^-6
 (f32: 1e-4), the parameter gradients 1e-2 (a relu mask may flip where the
 f32 pre-activation is within rounding of 0, on f32 rows too; at d = 384
 and 512 by the 2-norm, where one flip at T = 8192 moves a tail element by
@@ -156,6 +157,56 @@ def test_ln_ffn_residual_tensor_core_tiles(cuda, d, case):
     assert ffn.LAUNCHES == before + 2
     assert torch.equal(out, again)
     _close_max(out, ref, 2.0 ** -6)
+
+
+def _f32_tile_rows(rows, case):
+    """Row counts around an f32 kernel's row tile of ``rows``: 8, one tile
+    less and more 8 rows, three tiles and 24 rows."""
+    return {"8": 8, "tile_lo": rows - 8, "tile_hi": rows + 8,
+            "three": 3 * rows + 24}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["8", "tile_lo", "tile_hi", "three"])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_ln_ffn_residual_f32_tiles(cuda, d, case):
+    """The register-blocked f32 kernel at every width of the gate, at row
+    counts around its row tile (each with the split over the hidden
+    dimension that ``_splits_f32`` picks for it), rows with var == 0
+    (zeros, and a constant): 1e-5 of the largest magnitude against the
+    plain version, two launches bit-equal."""
+    lib = ffn._lib()
+    T = _f32_tile_rows(lib.gn_ln_ffn_residual_f32_rows(d), case)
+    rng = np.random.default_rng(23)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x = f(T, d)
+    x[:2], x[2] = 0.0, 1.5
+    args = [t.to(cuda) for t in (
+        x, 1 + 0.1 * f(d), 0.1 * f(d), f(d, 4 * d) * d ** -0.5,
+        0.1 * f(4 * d), f(4 * d, d) * (4 * d) ** -0.5, 0.1 * f(d))]
+    extra = f(T, d).to(cuda)
+    ref = ffn.ln_ffn_residual_plain(*args, extra=extra)
+    before = ffn.LAUNCHES
+    out = ffn.ln_ffn_residual(*args, extra=extra)
+    again = ffn.ln_ffn_residual(*args, extra=extra)
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    _close_max(out, ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["8", "tile_lo", "tile_hi", "three"])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_ln_ffn_backward_f32_tiles(cuda, d, case):
+    """The register-blocked f32 backward at every width of the gate, at
+    row counts around its 128-row tile: dx within 1e-4 and the parameter
+    gradients within 1e-2 of their largest magnitude against the plain
+    version, two launches bit-equal."""
+    T = _f32_tile_rows(ffn._bwd_lib().gn_ln_ffn_backward_tile_rows(1), case)
+    out, ref = _ffn_backward_case(cuda, torch.float32, d, T)
+    for o, r, tol in zip(out, ref, (1e-4,) + (1e-2,) * 6):
+        _close_max(o, r, tol)
 
 
 @pytest.mark.cuda
