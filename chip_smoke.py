@@ -352,10 +352,15 @@ def log(msg):
 # kernels (the fused FFN forward and backward, the LN->matmul backward's
 # passes and the core of the two fused edge updates and of ln_matmul's
 # bf16 rows: edge_wgmma.cuh, every instance of the three; ln_matmul's are
-# the instances with its LnMatmul policy) and the fused FFN pair's
-# register-blocked f32 kernels (F32_KERNELS).
+# the instances with its LnMatmul policy) and the register-blocked f32
+# kernels (F32_KERNELS) of the fused FFN pair, the LN->matmul backward and
+# the single-graph edge update.
 F32_KERNELS = ("ln_ffn_residual_f32_kernel", "ffn_bwd_hidden_f32_kernel",
-               "ffn_bwd_gemm_f32_kernel")
+               "ffn_bwd_gemm_f32_kernel", "ln_bwd_rows_f32_kernel",
+               "ln_bwd_dxn_f32_kernel", "ln_bwd_pullback_f32_kernel",
+               "ln_bwd_weights_f32_kernel", "g1_edge_update_f32_kernel")
+F32_LIBRARIES = ("fused_ffn", "fused_ffn_bwd", "ln_linear_bwd",
+                 "edge_update_g1")
 TC_KERNELS = ("ln_ffn_residual_kernel", "ffn_bwd_gemm_kernel",
               "ln_bwd_rows_tc_kernel", "ln_bwd_dw_tc_kernel",
               "edge_update_tc_kernel") + F32_KERNELS
@@ -384,14 +389,14 @@ def tensor_core_spills(logs):
 
 
 def f32_instructions(_build):
-    """``cuobjdump -sass`` of the fused FFN libraries: for each instance of
+    """``cuobjdump -sass`` of the ``F32_LIBRARIES``: for each instance of
     the ``F32_KERNELS``, its count of FFMA instructions and the matrix
     instructions (``MMA_OPS``) it holds, which must be none."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for lib in ("fused_ffn", "fused_ffn_bwd"):
+    for lib in F32_LIBRARIES:
         sass = subprocess.run([tool, "-sass", str(_build._library(lib))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -2115,12 +2120,44 @@ def f32_ffn_cases(torch, ffn):
     return fwd, bwd
 
 
-def log_f32_ffn(cases, where):
+def log_f32_ffn(cases, where, what=None):
     for c in cases:
-        log(f"f32 {'backward' if 'rel_err' in c else 'forward'} "
-            f"{c['shape']}: {c['kernel_ms']:.4f} ms, bound "
-            f"{c['bound_ms']:.4f} ms ({c['bound_ms'] / c['kernel_ms']:.3f} of "
-            f"it), plain {c['plain_ms']:.4f} ms; ok {c['ok']}; {where}")
+        kind = what or ("backward" if "rel_err" in c else "forward")
+        passes = c.get("pass_ms")
+        split = ("" if passes is None else
+                 f" (row pass {passes['rows']:.4f}, dW pass "
+                 f"{passes['dw']:.4f}, its sums {passes['reduction']:.4f})")
+        log(f"f32 {kind} {c['shape']}: {c['kernel_ms']:.4f} ms{split}, "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_ms'] / c['kernel_ms']:.3f}"
+            f" of it), plain {c['plain_ms']:.4f} ms; ok {c['ok']}; {where}")
+
+
+# Phase F: the f32 LN->matmul backward and single-graph edge update at the
+# shapes F(b) gives them (C's edge rows and graph), and at the sort task's
+# and a sampled subgraph's (f32 partials, power-law receivers).
+F_SORT_ROWS, F_SORT_D = 512, 384
+F_G1_SMALL = (65536, 4096)
+
+
+def f32_row_cases(torch, ll, lnp, g1, small=True):
+    """The f32 LN->matmul backward at T = LG_E, d = dout = LG_D and the
+    f32 single-graph edge update at E = LG_E, N = LG_N, LG_D -> LG_D, f32
+    partials, uniform receivers, with and without the edge->node sum
+    (F(b)'s shapes), and with ``small`` also at ``F_SORT_ROWS`` /
+    ``F_SORT_D`` and ``F_G1_SMALL``: against their plain versions under
+    phase 3's tolerances (``check_ln_backward``, ``check_g1``), each
+    bit-equal on a second launch."""
+    f32 = torch.float32
+    ln = [check_ln_backward(torch, ll, lnp, LG_E, 68, f32, D=LG_D,
+                            large=True)]
+    g1_cases = check_g1(torch, g1, LG_E, LG_N, LG_D, f32, f32, "uniform", 69,
+                        large=True)
+    if small:
+        ln.append(check_ln_backward(torch, ll, lnp, F_SORT_ROWS, 34, f32,
+                                    D=F_SORT_D))
+        g1_cases += check_g1(torch, g1, *F_G1_SMALL, LG_D, f32, f32,
+                             "power", 52)
+    return ln, g1_cases
 
 
 def f32_large_train_phase(torch, pt, g, zero_counts, read_counts):
@@ -4019,13 +4056,24 @@ def main() -> int:
     phase = args[args.index("--phase") + 1] if "--phase" in args else None
     if phase is not None:
         if phase == "F":
-            build_phase(_build)  # with the checks on the f32 kernels
+            if "--no-build-checks" in args:
+                # An earlier tree's kernels, whose f32 kernels the checks
+                # do not all name: built, not checked.
+                _build.build()
+            else:
+                build_phase(_build)  # with the checks on the f32 kernels
             fwd_cases, bwd_cases = f32_ffn_cases(torch, ffn)
             log_f32_ffn(fwd_cases + bwd_cases, where)
-            if not all(c["ok"] for c in fwd_cases + bwd_cases):
-                raise SystemExit("an f32 FFN kernel disagrees with its "
-                                 "plain version")
+            ln_f32, g1_f32 = f32_row_cases(torch, ll, lnp, g1)
+            log_f32_ffn(ln_f32, where, "LN->matmul backward")
+            log_f32_ffn(g1_f32, where, "single-graph edge update")
+            failed = [c["shape"] for c in fwd_cases + bwd_cases + ln_f32
+                      + g1_f32 if not c["ok"]]
+            if failed:
+                raise SystemExit(f"an f32 kernel disagrees with its plain "
+                                 f"version: {failed}")
             result = {"ffn_f32": fwd_cases, "ffn_backward_f32": bwd_cases,
+                      "ln_backward_f32": ln_f32, "g1_f32": g1_f32,
                       **f32_phase(torch, pt, zero_counts, read_counts,
                                   where)}
         elif phase == "G":
@@ -4102,8 +4150,8 @@ def main() -> int:
                     check_gather(torch, ga, g_bucket, 41)]
     ln_cases = [check_ln_backward(torch, ll, lnp, T_E, 32),
                 check_ln_backward(torch, ll, lnp, T_E, 32, two_step=True),
-                check_ln_backward(torch, ll, lnp, T_SORT, 34,
-                                  torch.float32)]
+                check_ln_backward(torch, ll, lnp, F_SORT_ROWS, 34,
+                                  torch.float32, D=F_SORT_D)]
     bf, f32 = torch.bfloat16, torch.float32
     lnm_cases = [check_ln_matmul(torch, ll, lnp, T_E, 35, bf, f32),
                  check_ln_matmul(torch, ll, lnp, T_E, 36, bf, None),
@@ -4118,8 +4166,12 @@ def main() -> int:
                          large=True)
                 + check_g1(torch, g1, 56320, 56960, LG_D, bf, f32, "power",
                            51)
-                + check_g1(torch, g1, 65536, 4096, LG_D, f32, f32, "power",
+                + check_g1(torch, g1, *F_G1_SMALL, LG_D, f32, f32, "power",
                            52))
+    # f32 rows at F(b)'s shapes: the LN->matmul backward and the
+    # single-graph edge update, with and without the sum.
+    ln_f32, g1_f32 = f32_row_cases(torch, ll, lnp, g1, small=False)
+    g1_cases += g1_f32
     g1_agg_cases, g1_h_cases = g1_cases[0::2], g1_cases[1::2]
     ffn_bwd_cases = [check_ffn_backward(torch, ffn, LG_E, LG_D, 53,
                                         large=True),
@@ -4138,8 +4190,8 @@ def main() -> int:
     ffn_f32_cases, ffn_bwd_f32_cases = f32_ffn_cases(torch, ffn)
     ffn_cases += ffn_f32_cases
     ffn_bwd_cases += ffn_bwd_f32_cases
-    ln_cases.append(check_ln_backward(torch, ll, lnp, LG_E, 59, D=LG_D,
-                                      large=True))
+    ln_cases += [check_ln_backward(torch, ll, lnp, LG_E, 59, D=LG_D,
+                                   large=True)] + ln_f32
     seg_large = check_segment_sums(torch, ss, g_large, 60, which=("sorted",),
                                    D=LG_D, large=True)
     gather_cases.append(check_gather(torch, ga, g_large, 61, D=LG_D,
@@ -4193,6 +4245,10 @@ def main() -> int:
     for c in checks:
         log("check: " + json.dumps(c))
     log_f32_ffn(ffn_f32_cases + ffn_bwd_f32_cases, where)
+    log_f32_ffn([c for c in ln_cases if "f32" in c["shape"]], where,
+                "LN->matmul backward")
+    log_f32_ffn([c for c in g1_cases if "d=256 float32" in c["shape"]],
+                where, "single-graph edge update")
     for c in ln_cases:
         if "pass_ms" in c:
             pm = c["pass_ms"]

@@ -31,13 +31,25 @@
 // per column tile and W0 re-read from L2 by every block: 2.58 ms at the
 // large graph on an H100 80GB HBM3 at 700 W).
 //
-// f32 rows (no driven path takes them): 32 x 128 tiles of ln_gemm.cuh, ef
-// streamed in k-chunks, true f32 multiply-adds.
+// f32 rows, the JAX package's default precision (the large graph's f32
+// step, phase F(b) of chip_smoke.py, takes them three times in its forward
+// and three in its step): true f32 multiply-adds on the CUDA cores, never
+// TF32.  What bounds them is 2 E de dout f32 operations at 67 TFLOP/s
+// (2.05 ms at E = 1,048,576, N = 65,536, 256 -> 256, f32 partials; 0.128
+// ms at E = 65,536) against ~3.4 GB of rows (1.0 ms).  A block takes 64
+// rows across 256 output columns (128 where 256 do not divide dout) on the
+// register-blocked tile of f32_tile.cuh, 4 x 16 values a thread, two
+// blocks an SM: ef is normalised once, on its way into shared memory, W0
+// (256 KB, too large to stay) streams through the tile's double-buffered
+// slabs from L2, and the partials are added to the registers.  The design
+// it replaced (32 x 128 tiles, 4 x 4 a thread, every ef row normalised
+// once per 128 output columns, one chunk fetched ahead) took 5.67 ms at
+// the large shape and 0.465 ms at E = 65,536, N = 4096 on an H100 80GB
+// HBM3 at 700 W.
 //
 // The sum.  The TPU kernel read-modify-wrote agg across its sequential
-// grid.  Blocks here run concurrently, so each tile of rows (64 for bf16
-// rows, 32 for f32) sums its rounded h by node, column by column in row
-// order: a node whose edges lie wholly inside the tile gets its complete sum
+// grid.  Blocks here run concurrently, so each tile of 64 rows sums its
+// rounded h by node, column by column in row order: a node whose edges lie wholly inside the tile gets its complete sum
 // written to agg, and the runs that touch the tile's first and last rows go
 // to two partial rows of the tile, which a second kernel adds in tile
 // order: deterministic, no atomics, and a hub node that spans many tiles
@@ -48,12 +60,10 @@
 #include <type_traits>
 
 #include "edge_wgmma.cuh"
-#include "ln_gemm.cuh"
+#include "f32_tile.cuh"
+#include "row_stats.cuh"
 
 namespace {
-
-constexpr int kThreadsF = gn::kGemmThreads;
-constexpr int kColsF = gn::kTileCols;
 
 enum Part { kF32 = 1, kBf16 = 2 };
 
@@ -139,40 +149,106 @@ int launch_single(const void* ef, const void* w0, const void* scale,
                           s);
 }
 
-// f32 rows: the epilogue of one [kTileRowsF x 128] tile held in Cs: add the
-// partials, write h, and (with agg) sum by node.
-__device__ __forceinline__ void finish_tile_f32(
-    float* Cs, int* rls, const void* src, int src_kind, const void* tr,
-    int tr_kind, const int* rl, const float* gb, float* h, float* agg,
-    float* part_first, float* part_last, int E, int N, int dout, int row0,
-    int c0) {
-  constexpr int kRows = gn::kTileRowsF;
-  const int tid = threadIdx.x;
-  const int rows = min(kRows, E - row0);
-  for (int r = tid; r < kRows; r += kThreadsF)
-    rls[r] = r < rows ? rl[row0 + r] : -1;
+// ---- f32 rows ----------------------------------------------------------------
+
+constexpr int kFThreads = gn::f32t::kThreads;
+constexpr int kRowsF = 64;  // rows of an f32 tile
+
+// ((x - mean) / s) * scale + bias on ef's way into shared memory, with
+// one division a float4 ((x - mean) times 1 / s) and no fused
+// multiply-add.
+struct LnRows {
+  const float* st;  // [rows][2]: mean, s
+  const float* scale;
+  const float* bias;
+  __device__ __forceinline__ float4 operator()(float4 v, int r, int k) const {
+    const float mean = st[2 * r], rs = 1.f / st[2 * r + 1];
+    const float4 sc = gn::load4(scale + k), bi = gn::load4(bias + k);
+    v.x = __fadd_rn(__fmul_rn(__fmul_rn(v.x - mean, rs), sc.x), bi.x);
+    v.y = __fadd_rn(__fmul_rn(__fmul_rn(v.y - mean, rs), sc.y), bi.y);
+    v.z = __fadd_rn(__fmul_rn(__fmul_rn(v.z - mean, rs), sc.z), bi.z);
+    v.w = __fadd_rn(__fmul_rn(__fmul_rn(v.w - mean, rs), sc.w), bi.w);
+    return v;
+  }
+};
+
+// A tile of 64 rows across 16 CW output columns, 4 x CW a thread.
+// Dynamic shared memory: the product's slabs, then the tile of h for the
+// node sums; the rows' statistics [64][2]; their receivers [64].
+template <int CW>
+struct G1F32 {
+  using Tl = gn::f32t::Tile<kRowsF / 16, CW>;
+  static constexpr int kLdc = Tl::kCols + 4;
+  static constexpr int kMain =
+      Tl::kFloats > kRowsF * kLdc ? Tl::kFloats : kRowsF * kLdc;
+  static constexpr size_t kBytes = (size_t)(kMain + 3 * kRowsF) * 4;
+};
+
+// f32 rows: [LN](ef) @ W0 for one tile in registers (ef normalised once,
+// on its way into shared memory), the partials added in the TPU kernel's
+// order, h written, and with agg the node sums of the tile's rows.
+template <bool kLn, int CW>
+__global__ void __launch_bounds__(kFThreads, 2)
+g1_edge_update_f32_kernel(const float* __restrict__ ef,
+                          const float* __restrict__ w0,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias,
+                          const void* src, int src_kind,
+                          const void* __restrict__ tr, int tr_kind,
+                          const int* __restrict__ rl,
+                          const float* __restrict__ gb, float* h,
+                          float* __restrict__ agg,
+                          float* __restrict__ part_first,
+                          float* __restrict__ part_last, int E, int N, int de,
+                          int dout) {
+  using P = G1F32<CW>;
+  using Tl = typename P::Tl;
+  extern __shared__ __align__(16) float smf[];
+  float* Cs = smf;  // the tile of h, over the slabs once the product is done
+  float* st = smf + P::kMain;
+  int* rls = reinterpret_cast<int*>(st + 2 * kRowsF);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int m0 = blockIdx.x * kRowsF, c0 = blockIdx.y * Tl::kCols;
+  const int rows = min(kRowsF, E - m0);
+  for (int r = tid; r < kRowsF; r += kFThreads)
+    rls[r] = r < rows ? rl[m0 + r] : -1;
+  if (kLn) gn::tile_row_stats<kRowsF, kFThreads>(ef, de, m0, rows, st);
   __syncthreads();
-  for (int i = tid; i < rows * (kColsF / 4); i += kThreadsF) {
-    const int r = i / (kColsF / 4), q = (i % (kColsF / 4)) * 4;
-    const size_t row = (size_t)row0 + r;
-    const int c = c0 + q, n = rls[r];
-    const float4 p = *reinterpret_cast<const float4*>(Cs + r * gn::kLdc + q);
-    const float4 s = part4(src, src_kind, row, dout, c);
+  float acc[kRowsF / 16][CW];
+  Tl::zero(acc);
+  if constexpr (kLn)
+    Tl::template mma<false>(ef, de, w0, dout, m0, c0, 0, de, E, acc, smf,
+                            LnRows{st, scale, bias});
+  else
+    Tl::template mma<false>(ef, de, w0, dout, m0, c0, 0, de, E, acc, smf,
+                            gn::f32t::Plain{});
+  // h = ((src + gb) + tr[rl]) + product; src is read before h is written
+  // (h may be src itself).
+#pragma unroll
+  for (int v = 0; v < CW / 4; ++v) {
+    const int q = 4 * tx + 64 * v, c = c0 + q;
     const float4 g4 = gn::load4(gb + c);
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n >= 0 && n < N) t = part4(tr, tr_kind, (size_t)n, dout, c);
-    float4 v;
-    v.x = ((s.x + g4.x) + t.x) + p.x;
-    v.y = ((s.y + g4.y) + t.y) + p.y;
-    v.z = ((s.z + g4.z) + t.z) + p.z;
-    v.w = ((s.w + g4.w) + t.w) + p.w;
-    gn::store4(h + row * dout + c, v);
-    if (agg != nullptr)
-      *reinterpret_cast<float4*>(Cs + r * gn::kLdc + q) = v;
+#pragma unroll
+    for (int r = 0; r < kRowsF / 16; ++r) {
+      const int lr = Tl::row(ty, r);
+      if (lr >= rows) continue;
+      const size_t row = (size_t)m0 + lr;
+      const int n = rls[lr];
+      const float4 s = part4(src, src_kind, row, dout, c);
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n >= 0 && n < N) t = part4(tr, tr_kind, (size_t)n, dout, c);
+      float4 o;
+      o.x = ((s.x + g4.x) + t.x) + acc[r][4 * v];
+      o.y = ((s.y + g4.y) + t.y) + acc[r][4 * v + 1];
+      o.z = ((s.z + g4.z) + t.z) + acc[r][4 * v + 2];
+      o.w = ((s.w + g4.w) + t.w) + acc[r][4 * v + 3];
+      gn::store4(h + row * dout + c, o);
+      if (agg != nullptr) gn::store4(Cs + lr * P::kLdc + q, o);
+    }
   }
   if (agg == nullptr) return;
   __syncthreads();
-  if (tid >= kColsF) return;
+  if (tid >= Tl::kCols) return;
   // Column c0 + tid: runs of equal ids, in row order.
   const int c = c0 + tid;
   const size_t tile = (size_t)blockIdx.x;
@@ -188,49 +264,45 @@ __device__ __forceinline__ void finish_tile_f32(
       cur = n;
       sum = 0.f;
     }
-    sum += Cs[r * gn::kLdc + tid];
+    sum += Cs[r * P::kLdc + tid];
   }
   // The run that reaches the tile's last row.
   if (is_first) part_first[tile * dout + c] = sum;
   else part_last[tile * dout + c] = sum;
 }
 
-template <bool kLn>
-__global__ void __launch_bounds__(kThreadsF)
-g1_edge_update_f32_kernel(const float* __restrict__ ef,
-                          const float* __restrict__ w0,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ bias,
-                          const void* src, int src_kind,
-                          const void* __restrict__ tr, int tr_kind,
-                          const int* __restrict__ rl,
-                          const float* __restrict__ gb, float* h,
-                          float* __restrict__ agg,
-                          float* __restrict__ part_first,
-                          float* __restrict__ part_last, int E, int N, int de,
-                          int dout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int rls[gn::kTileRowsF];
-  const int row0 = blockIdx.x * gn::kTileRowsF, c0 = blockIdx.y * kColsF;
-  float acc[4][4];
-  gn::ln_gemm_tile_f32<kLn>(ef, w0, scale, bias, E, de, dout, row0, c0, smem,
-                            acc);
-  float* Cs = gn::tile_cs_f32(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(Cs + (warp * 4 + i) * gn::kLdc + lane * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  __syncthreads();
-  finish_tile_f32(Cs, rls, src, src_kind, tr, tr_kind, rl, gb, h, agg,
-                  part_first, part_last, E, N, dout, row0, c0);
+template <int CW>
+int launch_f32(const void* ef, const void* w0, const void* scale,
+               const void* bias, const void* src, int src_kind,
+               const void* tr, int tr_kind, const void* rl, const void* gb,
+               void* h, void* agg, void* part_first, void* part_last, int E,
+               int N, int de, int dout, int has_ln, cudaStream_t s) {
+  using P = G1F32<CW>;
+  const int tiles = (E + kRowsF - 1) / kRowsF;
+  const dim3 grid(tiles, dout / P::Tl::kCols);
+  auto kernel = has_ln ? g1_edge_update_f32_kernel<true, CW>
+                       : g1_edge_update_f32_kernel<false, CW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFThreads, P::kBytes, s>>>(
+      (const float*)ef, (const float*)w0, (const float*)scale,
+      (const float*)bias, src, src_kind, tr, tr_kind, (const int*)rl,
+      (const float*)gb, (float*)h, (float*)agg, (float*)part_first,
+      (float*)part_last, E, N, de, dout);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || agg == nullptr) return err;
+  gn::edge::edge_agg_boundary_kernel<<<tiles, 256, 0, s>>>(
+      (const int*)rl, (const float*)part_first, (const float*)part_last,
+      (float*)agg, E, N, dout, kRowsF, tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Rows of ef a partial row of the edge->node sum covers.
 extern "C" int gn_g1_edge_update_tile_rows(int is_f32) {
-  return is_f32 ? gn::kTileRowsF : gn::edge::kRows;
+  return is_f32 ? kRowsF : gn::edge::kRows;
 }
 
 // Launches the kernel (and, with agg, the boundary pass) on `stream` and
@@ -261,24 +333,8 @@ extern "C" int gn_g1_edge_update(const void* ef, const void* w0,
       return launch_single<false, true>(ef, w0, scale, bias, src, tr, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
     return launch_single<false, false>(ef, w0, scale, bias, src, tr, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
   }
-  const int tile_rows = gn::kTileRowsF;
-  const int tiles = (E + tile_rows - 1) / tile_rows;
-  const size_t smem = gn::kTileBytesF;
-  const dim3 grid(tiles, dout / kColsF);
-  auto kernel = has_ln ? g1_edge_update_f32_kernel<true>
-                       : g1_edge_update_f32_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreadsF, smem, s>>>(
-      (const float*)ef, (const float*)w0, (const float*)scale,
-      (const float*)bias, src, src_kind, tr, tr_kind, (const int*)rl,
-      (const float*)gb, (float*)h, (float*)agg, (float*)part_first,
-      (float*)part_last, E, N, de, dout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || agg == nullptr) return err;
-  gn::edge::edge_agg_boundary_kernel<<<tiles, 256, 0, s>>>(
-      (const int*)rl, (const float*)part_first, (const float*)part_last,
-      (float*)agg, E, N, dout, tile_rows, tiles);
-  return cudaGetLastError();
+  // Output columns in blocks of 256 where they divide, else of 128.
+  if (dout % 256 == 0)
+    return launch_f32<16>(ef, w0, scale, bias, src, src_kind, tr, tr_kind, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
+  return launch_f32<8>(ef, w0, scale, bias, src, src_kind, tr, tr_kind, rl, gb, h, agg, part_first, part_last, E, N, de, dout, has_ln, s);
 }

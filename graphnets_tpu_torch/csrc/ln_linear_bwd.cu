@@ -63,17 +63,40 @@
 // adds the block's column sums; then a split-K WMMA dW pass that rebuilds
 // xn from x, and three fixed-order reductions.
 //
-// f32 rows (the sort task trains in f32) take every product on the CUDA
-// cores in plain f32 multiply-adds, never TF32: pass 1 always in two steps
-// (32 x 128 tiles of dxn, 4 x 4 a thread; the scratch is no wider than the
-// rows themselves), the dW pass in 64 x 64 tiles, 4 x 4 a thread.  At the
-// sort task's shape (T = 512, d = dout = 384) that is 0.4 GFLOP of f32 work
-// (~6 us at 67 TFLOP/s) against 3.7 MB, so operations bound it.
+// f32 rows of d = 128, 256, 384 or 512, the JAX package's default
+// precision (phase F(b) of chip_smoke.py takes them three times a step at
+// T = 1,048,576, d = dout = 256; the sort task's f32 training twice a step
+// at T = 512, d = dout = 384): every product on the CUDA cores in true f32
+// multiply-adds, never TF32, on the register-blocked tile of f32_tile.cuh.
+// What bounds them is 4 T d dout f32 operations at 67 TFLOP/s (4.10 ms at
+// the large graph's shape, 4.5 us at the sort task's) against ~4 GB of
+// rows (1.2 ms) and 3.7 MB.
+// 1. Row pass: a block a tile of 64 rows (128 at d = 128) across all d
+//    columns, 4 x 16 values a thread at d = 256, two blocks an SM: the
+//    rows' statistics, dxn = g @ W^T in registers (the wrapper hands W^T
+//    in), then through shared memory to the pullback, a warp a row: dx and
+//    the f32 xn rows out, and the tile's column sums of dxn * z and dxn.
+//    No dxn in device memory.  Where the rows are few (the sort task's 512
+//    rows make 8 tiles), 16-row tiles in two steps instead: dxn in 16 x 128
+//    tiles into an f32 scratch (96 blocks at the sort task's shape), then
+//    the pullback of each 16-row tile.
+// 2. dW pass: 128 x 128 tiles of dW = xn^T @ g, 8 x 8 a thread, two blocks
+//    an SM, each tile split over ranges of whole row tiles that fill whole
+//    waves; the first column of tiles also adds the row pass's column sums
+//    of its ranges, and the last block of each tile adds the partials in
+//    range order (dscale and dbias too).  No atomics in any sum.
+// The design it replaced (dxn into a [T, d] scratch in 32 x 128 tiles, 4 x
+// 4 a thread, a pullback pass that read x three times and dxn twice, a 64
+// x 64 dW pass that normalised x again, three reduce launches) took 16.56
+// ms at the large graph's shape and 0.0775 ms at the sort task's on an
+// H100 80GB HBM3 at 700 W.  f32 rows of other widths keep it.
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 #include "hopper.cuh"
+#include "row_stats.cuh"
 
 using namespace nvcuda;
 
@@ -236,7 +259,7 @@ reduce_partials_kernel(const float* __restrict__ part, int parts, int n,
   }
 }
 
-// ---- f32 rows ------------------------------------------------------------
+// ---- f32 rows of another width (outside 128 .. 512) ---------------------
 
 constexpr int kTileF = 64;         // dW tile (both dims), f32 dW pass
 constexpr int kLdtF = kTileF + 4;
@@ -1103,6 +1126,348 @@ int launch_rows_tc(const CUtensorMap& xm, const CUtensorMap& gm,
   return cudaGetLastError();
 }
 
+
+// ---- f32 rows, d = 128 .. 512: register-blocked tiles on the CUDA cores ----
+
+using gn::f32t::Tile;
+constexpr int kFThreads = gn::f32t::kThreads;
+constexpr int kFSmall = 16;  // rows of a tile where the rows are few
+
+// The LN pullback of a tile of rows whose dxn is in `dxr` (row r at
+// dxr + r * ldd, shared or device memory), a warp a row: the row sums of
+// dz, dz * z and z across the warp, dx and the f32 xn rows out, and each
+// lane's column sums of dxn * z and dxn over its warp's rows, added over
+// the 8 warps in order into part[0 .. 2 D) (dscale's, then dbias's).
+// st: the rows' mean, s, sigma.  `red` [16][D] of shared memory may
+// overlap a shared `dxr`: it is written after a barrier.
+template <int D>
+__device__ __forceinline__ void pullback_f32(
+    const float* __restrict__ x, const float* dxr, int ldd, const float* st,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ dx, float* __restrict__ xn, float* __restrict__ part,
+    int m0, int rows, float* red) {
+  constexpr int kQ = D / 128;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float csz[kQ][4], csd[kQ][4];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) csz[q][j] = csd[q][j] = 0.f;
+  for (int lr = warp; lr < rows; lr += kFThreads / 32) {
+    const float mean = st[3 * lr], rs = 1.f / st[3 * lr + 1];
+    const float sigma = st[3 * lr + 2];
+    const size_t off = (size_t)(m0 + lr) * D + 4 * lane;
+    float4 xv[kQ], dv[kQ];
+    float sdz = 0.f, sdzz = 0.f, sz = 0.f;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      xv[q] = gn::load4(x + off + 128 * q);
+      dv[q] = gn::load4(dxr + (size_t)lr * ldd + 4 * lane + 128 * q);
+      const float4 sc = gn::load4(scale + 4 * lane + 128 * q);
+      const float xs[4] = {xv[q].x, xv[q].y, xv[q].z, xv[q].w};
+      const float ds[4] = {dv[q].x, dv[q].y, dv[q].z, dv[q].w};
+      const float scs[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float z = (xs[j] - mean) * rs;
+        const float dz = ds[j] * scs[j];
+        sdz += dz;
+        sdzz += dz * z;
+        sz += z;
+      }
+    }
+    const float mdz = gn::warp_sum(sdz) / D, mz = gn::warp_sum(sz) / D;
+    const float k = (gn::warp_sum(sdzz) / D) / sigma;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int c = 4 * lane + 128 * q;
+      const float4 sc = gn::load4(scale + c), bi = gn::load4(bias + c);
+      const float xs[4] = {xv[q].x, xv[q].y, xv[q].z, xv[q].w};
+      const float ds[4] = {dv[q].x, dv[q].y, dv[q].z, dv[q].w};
+      const float scs[4] = {sc.x, sc.y, sc.z, sc.w};
+      const float bis[4] = {bi.x, bi.y, bi.z, bi.w};
+      float o[4], n[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float z = (xs[j] - mean) * rs;
+        const float dz = ds[j] * scs[j];
+        o[j] = (dz - mdz) * rs - (z - mz) * k;
+        n[j] = __fadd_rn(__fmul_rn(z, scs[j]), bis[j]);
+        csz[q][j] += ds[j] * z;
+        csd[q][j] += ds[j];
+      }
+      gn::store4(dx + off + 128 * q, make_float4(o[0], o[1], o[2], o[3]));
+      gn::store4(xn + off + 128 * q, make_float4(n[0], n[1], n[2], n[3]));
+    }
+  }
+  __syncthreads();  // a shared dxr is read: its space takes the sums
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int c = 4 * lane + 128 * q;
+    gn::store4(red + (2 * warp) * D + c,
+               make_float4(csz[q][0], csz[q][1], csz[q][2], csz[q][3]));
+    gn::store4(red + (2 * warp + 1) * D + c,
+               make_float4(csd[q][0], csd[q][1], csd[q][2], csd[q][3]));
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * D; i += kFThreads) {
+    const int which = i / D, c = i % D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFThreads / 32; ++w)
+      sum += red[(2 * w + which) * D + c];
+    part[i] = sum;
+  }
+}
+
+// The row pass at width D where the rows are many: a block a tile of 16 RY
+// rows across all D columns, RY rows and D / 16 columns a thread; two
+// blocks an SM where the accumulators leave 128 registers enough (64 of
+// them: d = 128, 8 x 8, and d = 256, 4 x 16).  Dynamic shared memory: the
+// product's slabs, then the tile of dxn [rows][D + 4]; the rows'
+// statistics [rows][3].
+template <int RY, int D>
+struct F32Rows {
+  using Tl = Tile<RY, D / 16>;
+  static constexpr int kBlocks = RY * D / 16 <= 64 ? 2 : 1;
+  static constexpr int kLdd = D + 4;
+  static constexpr int kMain =
+      Tl::kFloats > Tl::kRows * kLdd ? Tl::kFloats : Tl::kRows * kLdd;
+  static_assert(kMain >= 16 * D, "the warps' column sums fit");
+  static constexpr size_t kBytes = (size_t)(kMain + 3 * Tl::kRows) * 4;
+};
+
+// Row pass, f32: the rows' statistics (mean, s, sigma) from x, dxn = g @
+// W^T in registers (wt = W^T [dout, D], the row-major B), then through
+// shared memory to the pullback (the accumulators are dead by then, so
+// its registers do not add to theirs); part_rows[tile] = the tile's
+// column sums.  Block 0 zeroes the dW pass's tile counters.
+template <int RY, int D>
+__global__ void __launch_bounds__(kFThreads, F32Rows<RY, D>::kBlocks)
+ln_bwd_rows_f32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ g,
+                       const float* __restrict__ wt,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, float* __restrict__ dx,
+                       float* __restrict__ xn, float* __restrict__ part_rows,
+                       int* __restrict__ counters, int n_counters, int T,
+                       int dout) {
+  using P = F32Rows<RY, D>;
+  using Tl = typename P::Tl;
+  constexpr int CW = D / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* st = smf + P::kMain;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  if (blockIdx.x == 0)
+    for (int i = tid; i < n_counters; i += kFThreads) counters[i] = 0;
+  const int m0 = blockIdx.x * Tl::kRows;
+  const int rows = min(Tl::kRows, T - m0);
+  gn::tile_row_stats<Tl::kRows, kFThreads, true>(x, D, m0, rows, st);
+  {
+    float acc[RY][CW];
+    Tl::zero(acc);
+    Tl::template mma<false>(g, dout, wt, D, m0, 0, 0, dout, T, acc, smf,
+                            gn::f32t::Plain{});
+#pragma unroll
+    for (int r = 0; r < RY; ++r)
+#pragma unroll
+      for (int v = 0; v < CW / 4; ++v)
+        gn::store4(smf + Tl::row(ty, r) * P::kLdd + 4 * tx + 64 * v,
+                   make_float4(acc[r][4 * v], acc[r][4 * v + 1],
+                               acc[r][4 * v + 2], acc[r][4 * v + 3]));
+  }
+  __syncthreads();
+  pullback_f32<D>(x, smf, P::kLdd, st, scale, bias, dx, xn,
+                  part_rows + (size_t)blockIdx.x * 2 * D, m0, rows, smf);
+}
+
+// Where the rows are few, the row pass in two steps that spread the work
+// over more SMs: dxn = g @ W^T into an f32 [T, D] scratch in 16 x 128
+// tiles (grid: 16-row tiles x D / 128 column blocks), then the pullback of
+// each 16-row tile from it.
+__global__ void __launch_bounds__(kFThreads, 2)
+ln_bwd_dxn_f32_kernel(const float* __restrict__ g,
+                      const float* __restrict__ wt, float* __restrict__ dxn,
+                      int T, int D, int dout) {
+  using Tl = Tile<1, 8>;
+  __shared__ __align__(16) float sm[Tl::kFloats];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int m0 = blockIdx.x * Tl::kRows, n0 = blockIdx.y * Tl::kCols;
+  float acc[1][8];
+  Tl::zero(acc);
+  Tl::mma<false>(g, dout, wt, D, m0, n0, 0, dout, T, acc, sm,
+                 gn::f32t::Plain{});
+  if (m0 + ty >= T) return;
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+    gn::store4(dxn + (size_t)(m0 + ty) * D + n0 + 4 * tx + 64 * v,
+               make_float4(acc[0][4 * v], acc[0][4 * v + 1],
+                           acc[0][4 * v + 2], acc[0][4 * v + 3]));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFThreads, 2)
+ln_bwd_pullback_f32_kernel(const float* __restrict__ x,
+                           const float* __restrict__ dxn,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           float* __restrict__ dx, float* __restrict__ xn,
+                           float* __restrict__ part_rows,
+                           int* __restrict__ counters, int n_counters,
+                           int T) {
+  __shared__ __align__(16) float red[16 * D];
+  __shared__ float st[3 * kFSmall];
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < n_counters; i += kFThreads) counters[i] = 0;
+  const int m0 = blockIdx.x * kFSmall;
+  const int rows = min(kFSmall, T - m0);
+  gn::tile_row_stats<kFSmall, kFThreads, true>(x, D, m0, rows, st);
+  __syncthreads();
+  pullback_f32<D>(x, dxn + (size_t)m0 * D, D, st, scale, bias, dx, xn,
+                  part_rows + (size_t)blockIdx.x * 2 * D, m0, rows, red);
+}
+
+struct F32DwArgs {
+  int T, d, dout, tiles_n, splits, unit, units, reduce;
+  const float* xn;         // [T, d]
+  const float* g;          // [T, dout]
+  float* part_dw;          // [splits, d, dout]
+  float* dw;               // [d, dout]
+  const float* part_rows;  // [units, 2, d]: the row pass's column sums
+  float* part_sd;          // [splits, 2, d]
+  float* ds;
+  float* db;
+  int* counters;           // one a tile, zeroed by the row pass
+};
+
+// dW pass, f32: blockIdx.x a 128 x 128 tile of dW = xn^T @ g (8 x 8 a
+// thread, two blocks an SM), blockIdx.y a range of rows: whole row-pass
+// tiles (`unit` rows), range y = tiles [units * y / splits, units * (y +
+// 1) / splits).  Each block writes its partial tile; the blocks of the
+// first column of tiles also add the row pass's column sums of their
+// range's tiles for their 128 columns.  The last of a tile's blocks to
+// finish adds the partials in range order (and those sums, into dscale
+// and dbias).  No atomics in any sum: a relaunch is bit-equal.
+__global__ void __launch_bounds__(kFThreads, 2)
+ln_bwd_weights_f32_kernel(const F32DwArgs p) {
+  using Tl = Tile<8, 8>;
+  __shared__ __align__(16) float sm[Tl::kFloats];
+  __shared__ int last;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int m0 = (tile / p.tiles_n) * Tl::kRows;
+  const int n0 = (tile % p.tiles_n) * Tl::kCols;
+  const int u0 = (int)((long long)split * p.units / p.splits);
+  const int u1 = (int)((long long)(split + 1) * p.units / p.splits);
+  const int k0 = p.unit * u0, k1 = min(p.T, p.unit * u1);
+  {
+    float acc[8][8];
+    Tl::zero(acc);
+    Tl::mma<true>(p.xn, p.d, p.g, p.dout, m0, n0, k0, k1, p.d, acc, sm,
+                  gn::f32t::Plain{});
+    float* mine = p.part_dw + (size_t)split * p.d * p.dout;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+        gn::store4(mine + (size_t)(m0 + Tl::row(ty, r)) * p.dout + n0 +
+                       4 * tx + 64 * v,
+                   make_float4(acc[r][4 * v], acc[r][4 * v + 1],
+                               acc[r][4 * v + 2], acc[r][4 * v + 3]));
+  }
+  const int col = m0 + (tid & 127), which = tid >> 7;
+  if (n0 == 0) {
+    float sum = 0.f;
+    for (int u = u0; u < u1; ++u)
+      sum += p.part_rows[(size_t)(2 * u + which) * p.d + col];
+    p.part_sd[(size_t)(2 * split + which) * p.d + col] = sum;
+  }
+  if (!p.reduce) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(p.counters + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // 16 float4 of the tile a thread, in batches of 4 loads in flight.
+  const size_t sz = (size_t)p.d * p.dout;
+  const float* tile0 = p.part_dw + (size_t)m0 * p.dout + n0;
+#pragma unroll 1
+  for (int b = 0; b < 4; ++b) {
+    int at[4];
+    float4 a[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int i = tid + kFThreads * (4 * b + v);
+      at[v] = (i / 32) * p.dout + (i % 32) * 4;
+      a[v] = __ldcg(reinterpret_cast<const float4*>(tile0 + at[v]));
+    }
+    for (int k = 1; k < p.splits; ++k) {
+      const float* part = tile0 + k * sz;
+      float4 q[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        q[v] = __ldcg(reinterpret_cast<const float4*>(part + at[v]));
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        a[v].x += q[v].x; a[v].y += q[v].y;
+        a[v].z += q[v].z; a[v].w += q[v].w;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      gn::store4(p.dw + (size_t)m0 * p.dout + n0 + at[v], a[v]);
+  }
+  if (n0 == 0) {
+    float sum = 0.f;
+    for (int k = 0; k < p.splits; ++k)
+      sum += __ldcg(p.part_sd + (size_t)(2 * k + which) * p.d + col);
+    (which ? p.db : p.ds)[col] = sum;
+  }
+}
+
+template <int RY, int D>
+int launch_rows_f32(const void* x, const void* g, const void* wt,
+                    const void* scale, const void* bias, void* dx, void* xn,
+                    void* part_rows, void* counters, int n_counters, int T,
+                    int dout, cudaStream_t s) {
+  using P = F32Rows<RY, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_rows_f32_kernel<RY, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (T + P::Tl::kRows - 1) / P::Tl::kRows;
+  ln_bwd_rows_f32_kernel<RY, D><<<tiles, kFThreads, P::kBytes, s>>>(
+      (const float*)x, (const float*)g, (const float*)wt,
+      (const float*)scale, (const float*)bias, (float*)dx, (float*)xn,
+      (float*)part_rows, (int*)counters, n_counters, T, dout);
+  return cudaGetLastError();
+}
+
+// The row pass at width D: 16-row tiles in two steps (small), else 128-row
+// tiles at d = 128 and 64-row tiles above.
+template <int D>
+int launch_rows_f32_at(bool small, const void* x, const void* g,
+                       const void* wt, const void* scale, const void* bias,
+                       void* dx, void* xn, void* dxn, void* part_rows,
+                       void* counters, int n_counters, int T, int dout,
+                       cudaStream_t s) {
+  if (!small)
+    return launch_rows_f32<D == 128 ? 8 : 4, D>(x, g, wt, scale, bias, dx,
+                                                xn, part_rows, counters,
+                                                n_counters, T, dout, s);
+  const int tiles = (T + kFSmall - 1) / kFSmall;
+  ln_bwd_dxn_f32_kernel<<<dim3(tiles, D / 128), kFThreads, 0, s>>>(
+      (const float*)g, (const float*)wt, (float*)dxn, T, D, dout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_bwd_pullback_f32_kernel<D><<<tiles, kFThreads, 0, s>>>(
+      (const float*)x, (const float*)dxn, (const float*)scale,
+      (const float*)bias, (float*)dx, (float*)xn, (float*)part_rows,
+      (int*)counters, n_counters, T);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The bf16 rows of d = 128, 256, 384 or 512 on the tensor cores.  Runs on
@@ -1163,6 +1528,66 @@ extern "C" int gn_ln_linear_backward_tc(
       (int)kWBytes);
   if (err != cudaSuccess) return err;
   ln_bwd_dw_tc_kernel<<<tiles * splits, kWThreads, kWBytes, s>>>(nm, gm, a);
+  return cudaGetLastError();
+}
+
+// The f32 rows of d = 128, 256, 384 or 512 on register-blocked CUDA-core
+// tiles, true f32 multiply-adds, never TF32.  Runs on `stream` the passes
+// selected by `passes` (1: row pass, 2: dW pass, 4: the dW pass's fused
+// sums; 7 for the gradients, the others only to time a pass) and returns
+// the first launch error.  Scratch, allocated by the Python wrapper as
+// `f32_backward_plan` sizes it: xn [T, d], dxn [T, d] (16-row tiles only),
+// part_rows [ceil(T / tile_rows), 2, d], part_dw [splits, d, dout] and
+// part_sd [splits, 2, d] f32, counters (d / 128) * (dout / 128) int.
+// Preconditions, checked there: f32 x [T, d], g [T, dout], wt = W^T
+// [dout, d], scale, bias [d]; contiguous and 16-byte aligned; T >= 1;
+// dout % 128 == 0; tile_rows 16, or 128 at d = 128 and 64 above;
+// 1 <= splits <= ceil(T / tile_rows).
+extern "C" int gn_ln_linear_backward_f32_tiles(
+    const void* x, const void* g, const void* wt, const void* scale,
+    const void* bias, void* dx, void* dw, void* ds, void* db, void* xn,
+    void* dxn, void* part_rows, void* part_dw, void* part_sd,
+    void* counters, int T, int d, int dout, int tile_rows, int splits,
+    int passes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int big = d == 128 ? 128 : 64;
+  const int units = (T + tile_rows - 1) / max(tile_rows, 1);
+  if (d % 128 || d > 512 || dout % 128 || T < 1 ||
+      (tile_rows != kFSmall && tile_rows != big) || splits < 1 ||
+      splits > units)
+    return cudaErrorInvalidValue;
+  const int tiles = (d / 128) * (dout / 128);
+  const bool small = tile_rows == kFSmall;
+  int e = 0;
+  if (passes & 1) {
+    switch (d) {
+      case 128: e = launch_rows_f32_at<128>(small, x, g, wt, scale, bias, dx, xn, dxn, part_rows, counters, tiles, T, dout, s); break;
+      case 256: e = launch_rows_f32_at<256>(small, x, g, wt, scale, bias, dx, xn, dxn, part_rows, counters, tiles, T, dout, s); break;
+      case 384: e = launch_rows_f32_at<384>(small, x, g, wt, scale, bias, dx, xn, dxn, part_rows, counters, tiles, T, dout, s); break;
+      default: e = launch_rows_f32_at<512>(small, x, g, wt, scale, bias, dx, xn, dxn, part_rows, counters, tiles, T, dout, s); break;
+    }
+    if (e != 0) return e;
+  }
+  if (!(passes & 2)) return 0;
+  F32DwArgs a;
+  a.T = T;
+  a.d = d;
+  a.dout = dout;
+  a.tiles_n = dout / 128;
+  a.splits = splits;
+  a.unit = tile_rows;
+  a.units = units;
+  a.reduce = (passes & 4) != 0;
+  a.xn = (const float*)xn;
+  a.g = (const float*)g;
+  a.part_dw = (float*)part_dw;
+  a.dw = (float*)dw;
+  a.part_rows = (const float*)part_rows;
+  a.part_sd = (float*)part_sd;
+  a.ds = (float*)ds;
+  a.db = (float*)db;
+  a.counters = (int*)counters;
+  ln_bwd_weights_f32_kernel<<<dim3(tiles, splits), kFThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 

@@ -53,7 +53,7 @@
 // 700 W).
 
 #include "edge_wgmma.cuh"
-#include "ln_gemm.cuh"
+#include "row_stats.cuh"
 
 namespace {
 

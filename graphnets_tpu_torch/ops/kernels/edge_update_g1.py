@@ -6,7 +6,10 @@
     agg[n] = f32 sum of the rounded h[e] over the edges with rl[e] == n
 
 Kernel: ``csrc/edge_update_g1.cu``; bf16 rows on the wgmma + TMA core
-of ``csrc/edge_wgmma.cuh``.  It replaces the Pallas kernel of
+of ``csrc/edge_wgmma.cuh``, f32 rows (the JAX package's default
+precision, bound by f32 operations: 2.05 ms at the shape below) on the
+register-blocked CUDA-core tile of ``csrc/f32_tile.cuh``, 64 rows across
+256 output columns (:func:`g1_f32_plan`).  It replaces the Pallas kernel of
 ``fused_g1_edge_update`` and ``fused_g1_edge_update_agg``
 (``edge_update_g1.py:119-358``).  On the H100 it is bound by memory (about
 1.7 GB at E = 1,048,576, N = 65,536, 256 -> 256 in bf16, ~0.5 ms), so ef,
@@ -58,12 +61,14 @@ from .segment_sum import sorted_segment_sum
 
 __all__ = ["fused_g1_edge_update", "fused_g1_edge_update_agg",
            "supports_g1_edge_update", "g1_edge_update_plain",
-           "g1_edge_update_agg_plain", "LAUNCHES", "LAUNCHES_NO_AGG"]
+           "g1_edge_update_agg_plain", "g1_f32_plan", "LAUNCHES",
+           "LAUNCHES_NO_AGG"]
 
 LAUNCHES = 0          # launches with the edge->node sum
 LAUNCHES_NO_AGG = 0   # launches that write h alone
 _VMEM_BUDGET = 12 << 20
 _DTYPES = (torch.bfloat16, torch.float32)
+_F32_ROWS = 64        # rows of an f32 tile (and of a partial row of agg)
 
 
 def _tiles(num_edges: int, num_nodes: int):
@@ -101,6 +106,15 @@ def supports_g1_edge_update(num_edges: int, num_nodes: int, de: int,
     if with_agg:
         vmem += 2 * tn * dout * 4            # double-buffered agg chunks
     return vmem <= _VMEM_BUDGET
+
+
+def g1_f32_plan(num_edges: int, dout: int):
+    """``(tile_rows, col_block, tiles)`` of the f32 rows: tiles of 64 rows
+    across 256 output columns where 256 divide ``dout``, else 128; one
+    partial row of the edge->node sum a tile (``part_first`` /
+    ``part_last`` are ``[tiles, dout]``)."""
+    cols = 256 if dout % 256 == 0 else 128
+    return _F32_ROWS, cols, -(-num_edges // _F32_ROWS)
 
 
 def g1_edge_update_plain(ef, scale, bias, w0, src, tr, rl, gb,
@@ -181,7 +195,12 @@ def _launch(ef, scale, bias, w0, src, tr, rl, gb, has_ln: bool,
                                                 device=ef.device)
     agg = first = last = None
     if with_agg:
-        tiles = -(-E // lib.gn_g1_edge_update_tile_rows(is_f32))
+        tile_rows = lib.gn_g1_edge_update_tile_rows(is_f32)
+        if is_f32 and tile_rows != g1_f32_plan(E, dout)[0]:
+            raise RuntimeError(f"fused_g1_edge_update: the library's f32 "
+                               f"tile has {tile_rows} rows, the plan "
+                               f"{_F32_ROWS}")
+        tiles = -(-E // tile_rows)
         f32 = dict(dtype=torch.float32, device=ef.device)
         agg = torch.zeros(N, dout, **f32)
         first, last = torch.empty(tiles, dout, **f32), \

@@ -27,10 +27,13 @@ carried dW, dscale and dbias across its sequential grid; here bf16 rows of
 d = 128 / 256 / 384 / 512 take two ``wgmma`` passes fed by TMA: a row pass
 that writes dx, the bf16 normalised rows and per-block column sums, and a
 dW pass over row ranges whose last blocks add the partials in a fixed
-order (no atomics).  Every other width, and f32 rows
-(on the CUDA cores), take a row pass in two steps, a split-K dW pass and
-three fixed-order reductions.  One call of :func:`ln_linear_backward` runs
-the passes and counts as one launch.  The source notes in the ``.cu``
+order (no atomics).  f32 rows of those widths (bound by f32 operations:
+4.10 ms at T = 1,048,576, d = dout = 256) take the same two passes on the
+register-blocked CUDA-core tile of ``csrc/f32_tile.cuh``, as
+:func:`f32_backward_plan` sizes them.  Every other width takes a row pass
+in two steps, a split-K dW pass and three fixed-order reductions.  One
+call of :func:`ln_linear_backward` runs the passes and counts as one
+launch.  The source notes in the ``.cu``
 files have the details.
 
 :func:`ln_matmul` is differentiable: its backward is
@@ -46,7 +49,8 @@ for bf16 and f32 rows.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,8 +58,8 @@ from ..ln_linear import ln_linear_backward_plain, ln_matmul_reference
 from . import _build
 
 __all__ = ["ln_matmul", "supports_ln_matmul", "ln_linear_backward",
-           "supports_ln_linear_backward", "f32_plan", "LAUNCHES",
-           "FWD_LAUNCHES"]
+           "supports_ln_linear_backward", "f32_plan", "f32_backward_plan",
+           "LAUNCHES", "FWD_LAUNCHES"]
 
 LAUNCHES = 0            # backward launches, for proving the path was taken
 FWD_LAUNCHES = 0        # ln_matmul (forward) launches
@@ -75,10 +79,11 @@ def supports_ln_linear_backward(n_rows: int, d: int, dout: int,
 
 
 def _one_step_rows(d: int, dout: int, dtype: torch.dtype) -> bool:
-    """Whether the bf16 rows take the tensor-core passes (the widths they
-    are built for, any ``dout``) or the row pass in two steps through an
-    f32 ``[T, d]`` scratch (every other width, and f32 rows)."""
-    return dtype == torch.bfloat16 and d in _DIMS
+    """Whether the rows take a one-kernel row pass (the widths it is built
+    for, any ``dout``: ``wgmma`` for bf16 rows, register-blocked CUDA-core
+    tiles for f32 rows) or the row pass in two steps through an f32
+    ``[T, d]`` scratch (every other width)."""
+    return d in _DIMS
 
 
 _VMEM_BUDGET = 12 << 20
@@ -117,6 +122,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.gn_ln_linear_backward_f32_tiles
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -143,6 +152,59 @@ def f32_plan(T: int, dout: int, sms: int = 132):
     return rows, cols, blocks
 
 
+_F32_SMALL = 16         # rows of an f32 row tile where the rows are few
+_F32_TILE = 128         # dW tile (both dims) of the f32 dW pass
+
+
+class F32BackwardPlan(NamedTuple):
+    """The grids of the f32 LN->matmul backward at ``d`` in 128 .. 512."""
+    tile_rows: int      # rows of a row-pass tile
+    row_tiles: int      # ceil(T / tile_rows): row-pass blocks, dW units
+    tiles: int          # 128 x 128 tiles of dW
+    splits: int         # row ranges of the dW pass, in whole row tiles
+
+
+def f32_backward_plan(T: int, d: int, dout: int,
+                      sms: int = 132) -> F32BackwardPlan:
+    """The f32 backward's grids.  Row pass: a block a tile of 128 rows at
+    d = 128 and 64 above, across all d columns; where those leave SMs
+    without a tile, 16-row tiles in two steps (the product in 16 x 128
+    tiles, then the pullback).  dW pass: 128 x 128 tiles of dW, each split
+    over ranges of whole row tiles: where T has the tiles, as many ranges
+    as make whole waves of two blocks an SM (tiles x splits a multiple of
+    2 x ``sms``), else at most one wave of ranges of about 64 rows or
+    more."""
+    tile_rows = 128 if d == 128 else 64
+    if -(-T // tile_rows) < sms:
+        tile_rows = _F32_SMALL
+    row_tiles = -(-T // tile_rows)
+    tiles = (d // _F32_TILE) * (dout // _F32_TILE)
+    wave = 2 * sms
+    whole = wave // math.gcd(tiles, wave)  # splits for whole waves
+    splits = (whole if row_tiles >= whole
+              else max(1, min(row_tiles, wave // tiles, T // 64)))
+    return F32BackwardPlan(tile_rows, row_tiles, tiles, splits)
+
+
+def f32_split_rows(plan: F32BackwardPlan, T: int):
+    """The ``[k0, k1)`` rows of each range of the f32 dW pass, as the
+    kernel computes them."""
+    at = lambda i: min(T, plan.tile_rows
+                       * (i * plan.row_tiles // plan.splits))
+    return [(at(i), at(i + 1)) for i in range(plan.splits)]
+
+
+def f32_backward_scratch(plan: F32BackwardPlan, T: int, d: int, dout: int):
+    """Shapes of the scratch the f32 entry is given, in its order: f32
+    ``xn``, ``dxn`` (16-row tiles only), ``part_rows``, ``part_dw``,
+    ``part_sd``, and the dW tiles' int32 ``counters``."""
+    small = plan.tile_rows == _F32_SMALL
+    return {"xn": (T, d), "dxn": (T, d) if small else (0,),
+            "part_rows": (plan.row_tiles, 2, d),
+            "part_dw": (plan.splits, d, dout),
+            "part_sd": (plan.splits, 2, d), "counters": (plan.tiles,)}
+
+
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("ln_linear_fwd")
     fn = lib.gn_ln_matmul
@@ -154,9 +216,10 @@ def _fwd_lib() -> ctypes.CDLL:
 
 
 def _launch(x, scale, bias, w, g, passes: int = 7):
-    """The kernels on the card.  ``passes`` selects the tensor-core passes
-    (1: row pass, 2: dW pass, 4: its fused reduction); anything but 7 is
-    for timing a pass alone and leaves some outputs unset."""
+    """The kernels on the card.  ``passes`` selects the passes of the
+    widths with a one-kernel row pass (1: row pass, 2: dW pass, 4: its
+    fused reduction); anything but 7 is for timing a pass alone and leaves
+    some outputs unset."""
     global LAUNCHES
     T, d = x.shape
     dout = w.shape[1]
@@ -186,7 +249,22 @@ def _launch(x, scale, bias, w, g, passes: int = 7):
     db = torch.empty(d, **f32)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if _one_step_rows(d, dout, x.dtype):
+    one_step = _one_step_rows(d, dout, x.dtype)
+    if one_step and is_f32:
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        plan = f32_backward_plan(T, d, dout, sms)
+        shapes = f32_backward_scratch(plan, T, d, dout)
+        scratch = [torch.empty(shape, **f32) for shape in shapes.values()]
+        scratch[-1] = torch.empty(shapes["counters"], dtype=torch.int32,
+                                  device=x.device)
+        # W^T [dout, d], the row pass's row-major B operand.
+        args[2] = args[2].t().contiguous()
+        with torch.cuda.device(x.device):
+            err = lib.gn_ln_linear_backward_f32_tiles(
+                *[t.data_ptr() for t in (*args, dx, dw, ds, db, *scratch)],
+                T, d, dout, plan.tile_rows, plan.splits, passes, stream)
+    elif one_step:
         sms = torch.cuda.get_device_properties(
             x.device).multi_processor_count
         row_blocks, splits, rows_per_split = _tc_plan(T, d, dout, sms)

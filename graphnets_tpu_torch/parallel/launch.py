@@ -21,6 +21,7 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.config import resolve_device
 from .distributed import init_distributed
 
 __all__ = ["run_ranks"]
@@ -34,7 +35,8 @@ def _rank_main(fn, rank: int, world: int, workdir: str, device: str,
     try:
         init_distributed(f"file://{os.path.join(workdir, 'store')}", world,
                          rank, device=device, backend=backend,
-                         local_rank=0 if device == "cuda" else None,
+                         local_rank=(0 if torch.device(device).type == "cuda"
+                                     else None),
                          timeout_s=timeout_s)
         torch.save({"result": fn(rank, world, *args)}, out)
     except BaseException:
@@ -46,16 +48,18 @@ def _rank_main(fn, rank: int, world: int, workdir: str, device: str,
 
 
 def run_ranks(fn: Callable[..., Any], world: int, workdir: str, *args,
-              device: str = "cpu", backend: Optional[str] = None,
+              device: Optional[str] = None, backend: Optional[str] = None,
               timeout_s: float = 300.0, threads: int = 1) -> List[Any]:
     """``[fn(0, world, *args), ..., fn(world - 1, world, *args)]``, each
-    on its own rank.  ``device`` and ``backend`` go to
-    ``init_distributed`` (every rank takes ``cuda:0`` on the card, so
-    several ranks share one card over ``backend="gloo"``).  ``fn`` and
+    on its own rank.  ``device`` (the card unless the caller asks for the
+    CPU, as ``utils.config.resolve_device`` resolves it) and ``backend``
+    go to ``init_distributed`` (every rank takes ``cuda:0`` on the card,
+    so several ranks share one card over ``backend="gloo"``).  ``fn`` and
     ``args`` must pickle; ``workdir`` must be empty of a previous run's
     store.  Raises ``RuntimeError`` with a rank's traceback if one fails,
     ``TimeoutError`` if the ranks have not all ended after ``timeout_s``
     seconds."""
+    device = str(resolve_device(device))
     os.makedirs(workdir, exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,

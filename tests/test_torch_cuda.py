@@ -35,7 +35,12 @@ tolerances above, both outputs bit-equal on a second launch and when ``h``
 is written over a dead ``src``.  The sorted sum on the layouts of
 ``tests/segment_layouts.py``: one bf16 ulp (f32: 1e-5), two launches and
 two replays of a CUDA graph bit-equal.  ``ln_matmul`` on its ``wgmma``
-core: its tolerances above, two launches bit-equal.
+core: its tolerances above, two launches bit-equal.  The f32 LN backward's
+register-blocked passes at every width they serve, around their row tiles:
+every output at 1e-4 (f32 sums in another order), two launches bit-equal;
+the f32 single-graph update around its 64-row tile, both column blocks,
+with and without the LN: ``h`` and ``agg`` at 1e-5, bit-equal on a second
+launch and over a dead ``src``.
 """
 
 import numpy as np
@@ -207,6 +212,100 @@ def test_ln_ffn_backward_f32_tiles(cuda, d, case):
     out, ref = _ffn_backward_case(cuda, torch.float32, d, T)
     for o, r, tol in zip(out, ref, (1e-4,) + (1e-2,) * 6):
         _close_max(o, r, tol)
+
+
+def _f32_backward_rows(d, dout, case):
+    """Row counts around the f32 LN backward's tiles (``f32_backward_plan``
+    on this card): 8 rows, three 16-row tiles and 8 rows, and its large
+    tile on every SM and one ragged more (the dW pass's ranges then fill
+    whole waves, unevenly)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = ll.f32_backward_plan(1 << 22, d, dout, sms).tile_rows
+    return {"8": 8, "small": 3 * 16 + 8, "large": big * sms + 24}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["8", "small", "large"])
+@pytest.mark.parametrize("d,dout", [(128, 128), (256, 256), (384, 384),
+                                    (512, 512), (256, 384)])
+def test_ln_linear_backward_f32_tiles(cuda, d, dout, case):
+    """The register-blocked f32 passes at every width they are built for
+    (and d != dout), at row counts around their row tiles and the dW
+    pass's ranges, rows with var == 0 (zeros, and a constant): dx,
+    dscale, dbias and dW within 1e-4 of their largest magnitudes against
+    the plain version, one launch a call, two launches bit-equal."""
+    T = _f32_backward_rows(d, dout, case)
+    rng = np.random.default_rng(27)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x = f(T, d)
+    x[:2], x[2] = 0.0, 1.5
+    args = [t.to(cuda) for t in (x, 1 + 0.1 * f(d), 0.1 * f(d),
+                                 f(d, dout) * d ** -0.5, f(T, dout))]
+    assert ll._one_step_rows(d, dout, torch.float32)
+    ref = lnp.ln_linear_backward_plain(*args)
+    before = ll.LAUNCHES
+    out = ll.ln_linear_backward(*args)
+    again = ll.ln_linear_backward(*args)
+    torch.cuda.synchronize()
+    assert ll.LAUNCHES == before + 2
+    for o, a in zip(out, again):
+        assert torch.equal(o, a)
+    assert out[0].dtype == torch.float32
+    for o, r in zip(out, ref):
+        _close_max(o, r, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_ln", [True, False])
+@pytest.mark.parametrize("E,N,dout", [(56, 32, 256), (72, 40, 128),
+                                      (216, 64, 256), (4104, 512, 256),
+                                      (4104, 512, 384)])
+def test_g1_edge_update_f32_tiles(cuda, E, N, dout, has_ln):
+    """The f32 single-graph kernel through its launcher at edge counts
+    around its 64-row tile (one tile and less, one and more, three and
+    more, 65 tiles) and both column blocks (256 and 128 columns), with and
+    without the LN: ascending receivers with a hub across several tiles,
+    empty nodes and pad edges on the last node, var == 0 rows.  ``h``
+    within 1e-5 and ``agg`` within 1e-5 (of the f32 sum of its own ``h``)
+    of their largest magnitudes, zero rows for empty nodes, both bit-equal
+    on a second launch and when ``h`` is written over a dead ``src``."""
+    de = 256
+    rng = np.random.default_rng(28)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(cuda)
+    ef = f(E, de)
+    ef[:3] = 0.0
+    scale, bias = 1 + 0.1 * f(de), 0.1 * f(de)
+    w0 = f(de, dout) * de ** -0.5
+    src, tr, gb = f(E, dout), f(N, dout), f(dout)
+    rl = _sorted_receivers(rng, E, N, True).to(cuda)
+    if not has_ln:
+        scale, bias = torch.ones_like(scale), torch.zeros_like(bias)
+    assert g1._lib().gn_g1_edge_update_tile_rows(1) == \
+        g1.g1_f32_plan(E, dout)[0]
+    plain = g1.g1_edge_update_plain(ef, scale, bias, w0, src, tr, rl, gb,
+                                    has_ln)
+    run = lambda with_agg, out=None: g1._launch(
+        ef, scale, bias, w0, src if out is None else out, tr, rl, gb, has_ln,
+        with_agg, out=out)
+    kept = src.clone()
+    h, agg = run(True)
+    h2, agg2 = run(True)
+    h3 = run(False)
+    torch.cuda.synchronize()
+    assert torch.equal(src, kept)
+    _close_max(h, plain, 1e-5)
+    assert torch.equal(h, h2) and torch.equal(agg, agg2)
+    assert torch.equal(h3, h)
+    own = torch.zeros_like(agg).index_add_(0, rl.long(), h)
+    _close_max(agg, own, 1e-5)
+    empty = torch.bincount(rl.long(), minlength=N) == 0
+    assert bool(empty.any()) and not agg[empty].any()
+    dead = src.clone()
+    ha, agga = run(True, out=dead)
+    torch.cuda.synchronize()
+    assert ha.data_ptr() == dead.data_ptr()
+    assert torch.equal(ha, h) and torch.equal(agga, agg)
 
 
 @pytest.mark.cuda

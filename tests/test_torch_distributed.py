@@ -105,7 +105,7 @@ def test_init_distributed_from_environment(tmp_path):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     got = run_ranks(rc.env_init_case, 2, str(tmp_path), port,
-                    timeout_s=120)
+                    device="cpu", timeout_s=120)
     assert got == [(True, "gloo", 3.0)] * 2
 
 
@@ -118,3 +118,12 @@ def test_init_distributed_runs_on_the_card_unless_asked(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_distributed(num_processes=1, process_id=0)
         assert not torch.distributed.is_initialized()
+
+
+def test_run_ranks_runs_on_the_card_unless_asked(tmp_path):
+    """Without ``device`` the ranks take the card; without a card that
+    raises before any rank starts, instead of running on the CPU."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_ranks(rc.env_init_case, 2, str(tmp_path / "ranks"), 1)
+        assert not (tmp_path / "ranks").exists()

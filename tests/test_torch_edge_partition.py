@@ -204,7 +204,7 @@ def _flat_tree(tree, prefix=""):
 def ranks(jax_side, tmp_path_factory):
     return run_ranks(rc.edge_partition_cases, S,
                      str(tmp_path_factory.mktemp("ranks")), jax_side[0],
-                     timeout_s=300)
+                     device="cpu", timeout_s=300)
 
 
 def _port_pg(c, which="contiguous"):

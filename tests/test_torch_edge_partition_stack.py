@@ -166,7 +166,7 @@ def pending_ranks(built, tmp_path_factory):
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         yield pool.submit(run_ranks, rc.edge_partition_stack_cases, S,
                           str(tmp_path_factory.mktemp("ranks")), built[0],
-                          timeout_s=300)
+                          device="cpu", timeout_s=300)
 
 
 def _jax_partitioned_kernels(c, model, params):

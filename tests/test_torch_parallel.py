@@ -122,7 +122,7 @@ def ranks(jax_side, tmp_path_factory):
     return run_ranks(rc.parallel_cases, 4,
                      str(tmp_path_factory.mktemp("ranks")),
                      jax_side["dp_tree"], jax_side["tp_tree"], DROPOUT_SEED,
-                     timeout_s=300)
+                     device="cpu", timeout_s=300)
 
 
 def _tp_specs_jax(params, tp, min_size, cpu_devices):

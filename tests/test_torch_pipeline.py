@@ -89,7 +89,8 @@ def cases(cpu_devices, tmp_path_factory):
     strip = lambda c: {k: v for k, v in c.items() if k != "jax"}
     ranks = run_ranks(rc.pipeline_cases, 4,
                       str(tmp_path_factory.mktemp("ranks")),
-                      strip(fwd), strip(grad), strip(small), timeout_s=300)
+                      strip(fwd), strip(grad), strip(small), device="cpu",
+                      timeout_s=300)
     return {"fwd": fwd, "grad": grad, "small": small, "ranks": ranks}
 
 
