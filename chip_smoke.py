@@ -7,10 +7,14 @@
     python3 chip_smoke.py --phase flagship --seeds 0,1,2  # constant, by seed
     python3 chip_smoke.py --phase G         # phase G alone
     python3 chip_smoke.py --phase F         # phase F alone, with its kernels
+    python3 chip_smoke.py --phase sums      # the segment sums, then A and S
 
 A ``--phase`` run builds the kernels, runs that phase alone and prints its
 JSON, with no kernels line and no ``ok`` line (``--phase F`` also runs
-phase 2's checks and holds the f32 FFN pair at phase 3's f32 shapes).
+phase 2's checks and holds the f32 FFN pair at phase 3's f32 shapes;
+``--phase sums`` holds the segment sums at phase 3's layouts and the
+senders' fallback on one large graph, then runs phases A and S and prints
+their captured steps).
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line
 (4b drives the training step; A and B drive the non-uniform route, S the
@@ -187,7 +191,12 @@ C. run the single large graph (``benchmarks/bench_large_graph.py``: one
    1e-2 of their largest magnitude.  The FFN backward and
    both segment sums also launch twice on the same inputs and must be
    bit-equal (a fixed summation order), as the FFN forward and the LN
-   backward do at every shape.  The million-row cases are timed by
+   backward do at every shape.  Each segment-sum case prints the kernel
+   the wrapper took (the one-pass kernel of ``small_plan`` for few rows,
+   else the large-row one) beside ``index_add_``'s time and its bound; two
+   more cases sit on each side of the one-pass kernel's crossover (16 and
+   17 graphs of 16 nodes and 128 edges: 2048 and 2176 rows) and time the
+   other path too.  The million-row cases are timed by
    5 eager calls between CUDA events, not by a CUDA graph;
 F. run the JAX package's default precision (``Policy()`` computes in f32),
    with TF32 off for every f32 product: (a) the headline forward of phase
@@ -728,15 +737,29 @@ def check_edge_update_h(torch, eu, g, seed):
             **times, "bound_ms": bms, "bound_by": by}
 
 
+def sum_path(torch, ss, name, E, N, D, dtype, G):
+    """The kernel the wrapper takes for a sum: "one-pass" where
+    ``small_plan`` gives a plan (few rows), else "large-row" (the chunked
+    sorted kernel or the windowed tiles)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ss.small_plan(E, N, D, dtype, sms,
+                         graphs=None if name == "sorted" else G)
+    return ("one-pass" if plan else "large-row"), plan
+
+
 def check_segment_sums(torch, ss, g, seed, dtype=None,
-                       which=("sorted", "windowed"), D=D, large=False):
+                       which=("sorted", "windowed"), D=D, large=False,
+                       other=False):
     """The sorted (receivers) and windowed (senders) sums of an [E, D]
     input (bf16, or ``dtype``) into the N node segments of ``g``, against
     their plain versions: one bf16 ulp at the largest magnitude, or 1e-5
     of it for f32 rows (an f32 sum in another order).  The windows are the
     model's (``searchsorted`` of the graph ids), so on a bucketed batch
     the last one holds the padding.  ``library_ms``: ``index_add_`` of the
-    f32 widening of x into a zeroed f32 buffer."""
+    f32 widening of x into a zeroed f32 buffer.  ``path``: the kernel the
+    wrapper took (:func:`sum_path`); ``other`` (the crossover's cases):
+    also the device time of the other path, launched directly
+    (``other_path_ms``)."""
     dev = g.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     E, N, G = g.num_edge_slots, g.num_node_slots, g.num_graph_slots
@@ -775,15 +798,102 @@ def check_segment_sums(torch, ss, g, seed, dtype=None,
         nbytes = E * D * es + E * 4 + N * D * es + (
             2 * (G + 1) * 4 if name == "windowed" else 0)
         bms, by = bound_ms(nbytes, 0, flops_f32=E * D)
+        path, plan = sum_path(torch, ss, name, E, N, D, dtype, G)
+        extra = {}
+        if other:
+            if plan is None:  # the one-pass kernel at the plan of 1 row
+                plan = ss.small_plan(1, N, D, dtype, graphs=(
+                    None if name == "sorted" else G))
+                if name == "sorted":
+                    fn = lambda: ss._launch_sorted_small(x, ids, N, plan)
+                else:
+                    fn = lambda: ss._launch_windowed_small(x, ids, N, *wins,
+                                                           plan)
+            elif name == "sorted":
+                fn = lambda: ss._launch_sorted(x, ids, N)
+            else:
+                fn = lambda: ss._launch_windowed(x, ids, N, *wins)
+            with torch.no_grad():
+                alt = fn()
+                torch.cuda.synchronize()
+                extra = {"other_path_ms": graph_ms(torch, fn),
+                         "other_path_max_err": max_err(alt, ref)}
         cases[name] = {"shape": f"{name} E={E} N={N} G={G} d={D} "
                                 f"{'bf16' if es == 2 else 'f32'}",
+                       "path": path,
                        "max_err": err, "tol": tol,
                        "bit_equal_relaunch": same,
                        "ok": (err <= tol and out.dtype == ref.dtype and same
+                              and extra.get("other_path_max_err", 0) <= tol
                               and bool(torch.isfinite(out.float()).all())),
                        **timed(torch, kernel, plain, library, large),
-                       "bound_ms": bms, "bound_by": by}
+                       "bound_ms": bms, "bound_by": by, **extra}
     return cases
+
+
+def crossover_graph(torch, G, seed, npg=16, epg=128):
+    """``G`` graphs of ``npg`` nodes and ``epg`` edges (by default the sort
+    task's uniform slots) as the sums see them: receivers ascending,
+    senders unsorted within their graph.  G = 16 gives 2048 rows, the
+    one-pass kernel's largest; G = 17, 2176."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    snd = np.concatenate([rng.integers(0, npg, epg) + b * npg
+                          for b in range(G)])
+    rcv = np.sort(np.concatenate([rng.integers(0, npg, epg) + b * npg
+                                  for b in range(G)]))
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()
+    receivers = t(rcv)
+    return SimpleNamespace(
+        device=receivers.device, num_edge_slots=G * epg,
+        num_node_slots=G * npg, num_graph_slots=G, senders=t(snd),
+        receivers=receivers, node_graph=t(np.repeat(np.arange(G), npg)),
+        edge_graph=t(np.repeat(np.arange(G), epg)))
+
+
+def sum_cases(torch, ss, g):
+    """Phase 3's segment sums by name, on the layouts ``g`` (a dict:
+    exact, bucket, sort, sort_u, large, samp, and the crossover's two)."""
+    f32 = torch.float32
+    return {
+        "exact": check_segment_sums(torch, ss, g["exact"], 30),
+        "bucket": check_segment_sums(torch, ss, g["bucket"], 33),
+        # f32 rows: the cotangents that the bucketed step's deferred
+        # receivers term and senders gather scatter back, and the sort
+        # task's.
+        "bucket32": check_segment_sums(torch, ss, g["bucket"], 39, f32),
+        "sort32": check_segment_sums(torch, ss, g["sort"], 40, f32,
+                                     which=("windowed",)),
+        "large": check_segment_sums(torch, ss, g["large"], 60,
+                                    which=("sorted",), D=LG_D, large=True),
+        # The sampled route's (D): the first batch's receivers, ~51,670 of
+        # whose 56,320 slots are pad edges on the pad node.
+        "samp": check_segment_sums(torch, ss, g["samp"], 80,
+                                   which=("sorted",), D=LG_D),
+        "sort_u": check_segment_sums(torch, ss, g["sort_u"], 86),
+        "sort_u32": check_segment_sums(torch, ss, g["sort_u"], 87, f32),
+        # Each side of the one-pass kernel's crossover, with the time of
+        # the other path.
+        "cross_small": check_segment_sums(torch, ss, g["cross_small"], 89,
+                                          other=True),
+        "cross_large": check_segment_sums(torch, ss, g["cross_large"], 90,
+                                          other=True),
+    }
+
+
+def log_sums(seg, where):
+    """One line a segment-sum case: the path it took, its time beside
+    ``index_add_``'s and its bound."""
+    for cases in seg.values():
+        for c in cases.values():
+            other = (f", other path {c['other_path_ms']:.4f} ms"
+                     if "other_path_ms" in c else "")
+            lib = c["library_ms"]
+            log(f"segment sum {c['shape']}: {c['path']} {c['kernel_ms']:.4f} "
+                f"ms, index_add_ {lib:.4f} ms ({c['kernel_ms'] / lib:.2f}x), "
+                f"bound {c['bound_ms']:.4f} ms ({c['bound_ms'] / c['kernel_ms']:.3f} "
+                f"of it), plain {c['plain_ms']:.4f} ms{other}; ok {c['ok']}; "
+                f"{where}")
 
 
 def check_gather(torch, ga, g, seed, D=D, large=False):
@@ -3994,6 +4104,148 @@ def partitioned_phase(torch, pt, zero_counts, read_counts, where, ltrain):
     return out
 
 
+# The crossover sweep of ``--phase sums``: (graphs, nodes and edges a
+# graph) with 128 to 1024 edges a graph, 2048 to 8192 rows.
+SWEEP = ((16, 16, 128), (24, 16, 128), (32, 16, 128), (40, 16, 128),
+         (64, 16, 128), (4, 32, 512), (8, 32, 512), (16, 32, 512),
+         (2, 64, 1024), (4, 64, 1024), (8, 64, 1024))
+
+
+def crossover_sweep(torch, ss, where):
+    """Device times of the one-pass kernel (at the plan ``small_plan``
+    gives its shape, rows and windows aside) and of the large-row kernels
+    on the ``SWEEP`` layouts, sorted and windowed ids, bf16 and f32 rows,
+    d = 384 and 128: where ``small_plan``'s crossover comes from."""
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (G, npg, epg) in enumerate(SWEEP):
+        g = crossover_graph(torch, G, 100 + i, npg, epg)
+        N, E = G * npg, G * epg
+        gi = torch.arange(G + 1, dtype=torch.int32, device=g.device)
+        wins = (gi * npg, gi * epg)
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in (384, 128):
+                plan = ss.small_plan(1, N, d, dtype, sms, graphs=G)
+                if plan is None:  # more than two blocks an SM
+                    continue
+                x = torch.randn(E, d, device=g.device).to(dtype)
+                planned = [ss.small_plan(E, N, d, dtype, sms, graphs=k)
+                           is not None for k in (None, G)]
+                r = {"E": E, "N": N, "G": G, "d": d, "dtype": str(dtype),
+                     "tile": plan.tile, "planned_sorted": planned[0],
+                     "planned_windowed": planned[1]}
+                with torch.no_grad():
+                    r["one_pass_sorted_ms"] = graph_ms(
+                        torch, lambda: ss._launch_sorted_small(
+                            x, g.receivers, N, plan))
+                    r["chunked_ms"] = graph_ms(
+                        torch, lambda: ss._launch_sorted(x, g.receivers, N))
+                    r["one_pass_windowed_ms"] = graph_ms(
+                        torch, lambda: ss._launch_windowed_small(
+                            x, g.senders, N, *wins, plan))
+                    r["large_windowed_ms"] = graph_ms(
+                        torch, lambda: ss._launch_windowed(x, g.senders, N,
+                                                           *wins))
+                rows.append(r)
+                log(f"crossover E={E} N={N} G={G} d={d} {dtype}: one-pass "
+                    f"{r['one_pass_sorted_ms']:.4f} / "
+                    f"{r['one_pass_windowed_ms']:.4f} ms, large-row "
+                    f"{r['chunked_ms']:.4f} / {r['large_windowed_ms']:.4f} "
+                    f"ms (sorted / windowed), one-pass planned {planned}; "
+                    f"{where}")
+    return rows
+
+
+def edge_order_case(torch, ss, where, seed=91):
+    """The senders' fallback where the windowed gate refuses a width
+    (``edge_order_segment_sum``: ids sorted stably, rows gathered in that
+    order, each tile's rows added in edge order, every add rounded) on
+    one graph of C's size at d = 64 ([1,048,576, 64] bf16 -> 65,536, ids
+    drawn uniformly): bit-equal to its plain version and to a relaunch;
+    device times of 5 eager calls between CUDA events, beside
+    ``index_add_`` into a bf16 buffer, the bound, and the sort and gather
+    alone (``sort_gather_ms``: the wrapper's work before its kernel)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, N, d = LG_E, LG_N, 64
+    seg = torch.randint(0, N, (E,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    x = torch.randn(E, d, generator=gen, device="cuda").to(torch.bfloat16)
+    seg_long = seg.long()
+    kernel = lambda: ss.edge_order_segment_sum(x, seg, N)
+    plain = lambda: ss.edge_order_segment_sum_plain(x, seg, N)
+    library = lambda: torch.zeros(N, d, dtype=torch.bfloat16,
+                                  device="cuda").index_add_(0, seg_long, x)
+    out, again, ref = kernel(), kernel(), plain()
+    ok = bool(torch.equal(out, again) and torch.equal(out, ref))
+    bms, by = bound_ms(E * d * 2 + E * 4 + N * d * 2, 0, flops_f32=E * d)
+    case = {"shape": f"edge-order E={E} N={N} G=1 d={d} bf16",
+            "bit_equal_plain_and_relaunch": ok,
+            **timed(torch, kernel, plain, library, large=True),
+            "sort_gather_ms": cuda_ms(torch, lambda: x.index_select(
+                0, torch.sort(seg, stable=True)[1]), iters=LARGE_ITERS,
+                warmup=1),
+            "bound_ms": bms, "bound_by": by}
+    log(f"segment sum {case['shape']}: {case['kernel_ms']:.4f} ms (sort "
+        f"and gather {case['sort_gather_ms']:.4f}), index_add_ "
+        f"{case['library_ms']:.4f} ms, bound {bms:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms; bit-equal {ok}; {where}")
+    if not ok:
+        raise SystemExit("edge_order_segment_sum disagrees with its plain "
+                         "version or a relaunch")
+    return case
+
+
+def sums_phase(torch, pt, ss, zero_counts, read_counts, where):
+    """``--phase sums``: the segment sums at phase 3's layouts and the
+    crossover's two (:func:`sum_cases`), the crossover sweep
+    (:func:`crossover_sweep`), the senders' fallback on one large graph
+    (:func:`edge_order_case`), then phases A and S, whose steps take the
+    one-pass kernel; their captured step times, launches and busy shares.
+    Raises ``SystemExit`` where a sum disagrees with its plain version."""
+    uniform = pt.PadSpec.uniform(N_PER_G, N_PER_G * DEG)
+    bucketed = pt.PadSpec.bucketed(B * N_PER_G, B * N_PER_G * DEG, B,
+                                   node_multiple=32)
+    cfg = pt.SortTaskConfig()
+    g = dict(
+        exact=pt.batch(bench_graphs(0, N_PER_G, DEG, N_PER_G,
+                                    N_PER_G * DEG), pad=uniform),
+        bucket=pt.batch(bench_graphs(0, N_PER_G, DEG, N_PER_G,
+                                     N_PER_G * DEG), pad=bucketed),
+        sort=pt.get_batch(np.random.default_rng(0), cfg)[0],
+        sort_u=pt.device_batch(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, pt.sort_pad_spec(cfg, uniform=True))[0],
+        large=large_graph(torch, pt),
+        samp=sampled_batch(pt, arxiv_shaped_graph(pt)).graph,
+        cross_small=crossover_graph(torch, 16, 0),
+        cross_large=crossover_graph(torch, 17, 1))
+    seg = sum_cases(torch, ss, g)
+    log_sums(seg, where)
+    failed = [c["shape"] for cases in seg.values() for c in cases.values()
+              if not c["ok"]]
+    if failed:
+        raise SystemExit(f"a segment sum disagrees with its plain version: "
+                         f"{failed}")
+    del g
+    out = {"sums": seg, "crossover": crossover_sweep(torch, ss, where),
+           "edge_order": edge_order_case(torch, ss, where)}
+    for name, fn in (("A", sort_phase), ("S", device_sort_phase)):
+        r = fn(torch, pt, zero_counts, read_counts)
+        # One step's launches (A: through train_sort, its warm-ups and
+        # capture included; S: one eager step).
+        launches = r.get("first_launches", r.get("step_launches"))
+        out[name] = {k: r.get(k) for k in (
+            "captured_step_ms", "replay_kernels", "replay_busy_ms",
+            "eager_step_ms", "step_ms", "busy_ms", "kernels_per_step",
+            "steps_per_sec")}
+        out[name]["launches"] = launches
+        log(f"{name}: captured step {r['captured_step_ms']:.4f} ms, one "
+            f"profiled replay {r['replay_kernels']} kernels of "
+            f"{r['replay_busy_ms'] or 0:.4f} ms, busy share "
+            f"{busy_share(r['replay_busy_ms'], r['captured_step_ms'])}; "
+            f"launches {launches}; {where}")
+    return out
+
+
 def build_phase(_build):
     """Phase 2: build every kernel (all sources at once), print the build
     time and the compiler's register / spill report, and fail unless every
@@ -4076,6 +4328,10 @@ def main() -> int:
                       "ln_backward_f32": ln_f32, "g1_f32": g1_f32,
                       **f32_phase(torch, pt, zero_counts, read_counts,
                                   where)}
+        elif phase == "sums":
+            _build.build()
+            result = sums_phase(torch, pt, ss, zero_counts, read_counts,
+                                where)
         elif phase == "G":
             _build.build()
             result = partitioned_phase(torch, pt, zero_counts, read_counts,
@@ -4089,8 +4345,8 @@ def main() -> int:
                       .split(",")] if "--seeds" in args else None)
             result = flagship_phase(torch, pt, seeds)
         else:
-            raise SystemExit(f"unknown phase {phase!r}: F, G, gates or "
-                             f"flagship")
+            raise SystemExit(f"unknown phase {phase!r}: F, G, sums, gates "
+                             f"or flagship")
         log(json.dumps({phase: result, "card": card}))
         if phase == "flagship":
             return 1 if any(r["fault"] for r in result.values()) else 0
@@ -4139,13 +4395,6 @@ def main() -> int:
     # the headline's cases, whose times head the kernels line).
     edge_cases.append(check_edge_update_wide(torch, eu, 16, 64, 1024, 512,
                                              512, 26))
-    seg_cases = check_segment_sums(torch, ss, g_exact, 30)
-    seg_bucket = check_segment_sums(torch, ss, g_bucket, 33)
-    # f32 rows: the cotangents that the bucketed step's deferred receivers
-    # term and senders gather scatter back, and the sort task's.
-    seg_bucket32 = check_segment_sums(torch, ss, g_bucket, 39, torch.float32)
-    seg_sort32 = check_segment_sums(torch, ss, g_sort, 40, torch.float32,
-                                    which=("windowed",))
     gather_cases = [check_gather(torch, ga, g_exact, 31),
                     check_gather(torch, ga, g_bucket, 41)]
     ln_cases = [check_ln_backward(torch, ll, lnp, T_E, 32),
@@ -4192,8 +4441,6 @@ def main() -> int:
     ffn_bwd_cases += ffn_bwd_f32_cases
     ln_cases += [check_ln_backward(torch, ll, lnp, LG_E, 59, D=LG_D,
                                    large=True)] + ln_f32
-    seg_large = check_segment_sums(torch, ss, g_large, 60, which=("sorted",),
-                                   D=LG_D, large=True)
     gather_cases.append(check_gather(torch, ga, g_large, 61, D=LG_D,
                                      large=True))
     # The sampled route's (D): the first batch's receivers, ~51,670 of
@@ -4202,8 +4449,6 @@ def main() -> int:
     ax_graph = arxiv_shaped_graph(pt)
     ax_build_s = time.perf_counter() - t0
     g_samp = sampled_batch(pt, ax_graph).graph
-    seg_samp = check_segment_sums(torch, ss, g_samp, 80, which=("sorted",),
-                                  D=LG_D)
     gather_cases.append(check_gather(torch, ga, g_samp, 81, D=LG_D))
     gather_add_samp = check_gather_add(torch, ga, g_samp, 82, D=LG_D)
     # The repaired wide rows of ln_matmul and its backward: d = dout = 512
@@ -4231,19 +4476,21 @@ def main() -> int:
                                              83))
     lnm_cases.append(check_ln_matmul(torch, ll, lnp, T_SORT, 84, bf, f32))
     ln_cases.append(check_ln_backward(torch, ll, lnp, T_SORT, 85))
-    seg_sort_u = check_segment_sums(torch, ss, g_sort_u, 86)
-    seg_sort_u32 = check_segment_sums(torch, ss, g_sort_u, 87, torch.float32)
+    # The segment sums at every layout above, and each side of the
+    # one-pass kernel's crossover.
+    seg = sum_cases(torch, ss, dict(
+        exact=g_exact, bucket=g_bucket, sort=g_sort, sort_u=g_sort_u,
+        large=g_large, samp=g_samp, cross_small=crossover_graph(torch, 16, 0),
+        cross_large=crossover_graph(torch, 17, 1)))
     gather_add_sort = check_gather_add(torch, ga, g_sort_u, 88)
     checks = (edge_cases + ffn_cases + edge_h_cases
-              + list(seg_cases.values()) + list(seg_bucket.values())
-              + list(seg_bucket32.values()) + list(seg_sort32.values())
-              + list(seg_large.values()) + list(seg_samp.values())
-              + list(seg_sort_u.values()) + list(seg_sort_u32.values())
+              + [c for cases in seg.values() for c in cases.values()]
               + gather_cases + ln_cases + lnm_cases
               + [gather_add_case, gather_add_samp, gather_add_sort]
               + g1_cases + ffn_bwd_cases + [rg_case])
     for c in checks:
         log("check: " + json.dumps(c))
+    log_sums(seg, where)
     log_f32_ffn(ffn_f32_cases + ffn_bwd_f32_cases, where)
     log_f32_ffn([c for c in ln_cases if "f32" in c["shape"]], where,
                 "LN->matmul backward")
@@ -4486,15 +4733,15 @@ def main() -> int:
                      edge_h_cases),
         kernel_entry("sorted_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("segment_sum"),
-                     [seg_cases["sorted"], seg_bucket["sorted"],
-                      seg_bucket32["sorted"], seg_large["sorted"],
-                      seg_samp["sorted"], seg_sort_u["sorted"],
-                      seg_sort_u32["sorted"]]),
+                     [seg[k]["sorted"] for k in (
+                         "exact", "bucket", "bucket32", "large", "samp",
+                         "sort_u", "sort_u32", "cross_small",
+                         "cross_large")]),
         kernel_entry("windowed_segment_sum", src + "segment_sum.cu",
                      ref + "segment_sum.py:193", by_path("windowed"),
-                     [seg_cases["windowed"], seg_bucket["windowed"],
-                      seg_bucket32["windowed"], seg_sort32["windowed"],
-                      seg_sort_u["windowed"], seg_sort_u32["windowed"]]),
+                     [seg[k]["windowed"] for k in (
+                         "exact", "bucket", "bucket32", "sort32", "sort_u",
+                         "sort_u32", "cross_small", "cross_large")]),
         kernel_entry("sorted_gather", src + "gather.cu",
                      ref + "gather.py:226", by_path("gather"),
                      gather_cases),

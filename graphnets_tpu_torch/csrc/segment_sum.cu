@@ -69,6 +69,26 @@
 // or the width; the sum order depends only on the ids: no float atomics,
 // deterministic.  At the main path (E = 16384, 8 graphs of 128 nodes,
 // d = 384 bf16) that is 64 tiles x 2 column groups = 128 blocks.
+//
+// Few rows (at most 2048, windows of at most 512 rows a graph: the sort
+// task's 512 rows; ops/kernels/segment_sum.py small_plan): the kernels
+// above run chains of serial phases on 8-9 blocks there (0.008-0.010 ms)
+// for bytes that take 0.1-0.3 us, and what bounds the sum is latency: the
+// launch and two dependent loads, the tile's window and then its rows.
+// One pass, for sorted and windowed ids alike (small_segment_sum_kernel):
+// blocks of 32 sub-warps over tiles of 4-16 segments x slabs of 8 16-byte
+// vectors (a block an SM or fewer), each sub-warp a contiguous part of its
+// tile's window into partial rows in shared memory, then every row
+// written once, the parts added in order: no partial rows in device
+// memory, counters, sort or float atomics, and the order depends only on
+// the ids.  0.0035-0.0047 ms at the sort task's shapes, against
+// index_add_'s 0.0049-0.0070 (chip_smoke.py --phase sums, H100 80GB HBM3,
+// 700 W).  Rejected: 16 rows a batch and 16 ids a scan (slower: more
+// code), 16 sub-warps (slower where a pad node sends 297 of a window's
+// rows), a partial row added in shared memory row by row (scalar
+// accesses with 4-way bank conflicts).
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -737,6 +757,287 @@ int launch_windowed(const void* x, const void* seg, const void* node_off,
 }
 
 
+// ---- few rows: one pass, sorted or windowed ids ----------------------------
+
+constexpr int kSmallLanes = 8;     // 16-byte vectors of a sub-warp (a slab)
+constexpr int kSmallBatch = 8;     // rows a sub-warp loads before it adds
+constexpr int kSmallScan = 4;      // ids or offsets a thread reads at once
+constexpr int kSmallThreads = 256;  // at most: 32 sub-warps
+
+// One value of a row (any width; the edge-order sum's odd widths).
+template <typename T> struct Vec<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void add(float (&a)[1], Raw r) {
+    a[0] += static_cast<float>(r);
+  }
+  static __device__ __forceinline__ void store(T* p, const float (&a)[1]) {
+    *p = static_cast<T>(a[0]);
+  }
+};
+template <> struct Vec<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return *p;
+  }
+  static __device__ __forceinline__ void add(float (&a)[1], Raw r) {
+    a[0] += __bfloat162float(r);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&a)[1]) {
+    *p = __float2bfloat16_rn(a[0]);
+  }
+};
+
+// f32 rounded to T and back (the edge-order sum's accumulator).
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Q consecutive floats of shared memory (Q = 4: one 16-byte access).
+template <int Q> struct Quad {
+  float v[Q];
+  __device__ __forceinline__ void load(const float* p) {
+    if constexpr (Q == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < Q; ++u) v[u] = p[u];
+    }
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    if constexpr (Q == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+#pragma unroll
+      for (int u = 0; u < Q; ++u) p[u] = v[u];
+  }
+};
+
+// Blocks: (tile of TS segments, slab of kSmallLanes column vectors); K
+// sub-warps of kSmallLanes threads.  The tile's window of rows is found
+// first (sorted: the two rows where an id crosses n0 and n0 + TS, every
+// thread testing its own positions of ids[0, E]; windowed: the graphs
+// whose node ranges meet the tile, from the offsets), then sub-warp k adds
+// the window's k-th contiguous K-th part, all kSmallBatch rows' loads
+// issued before their id-dependent adds, into its own f32 partial rows
+// parts[k][TS] in shared memory: a run of equal ids is added in registers
+// onto its partial row, in edge order, and written back when the id
+// changes; a thread's bit mask marks the partial rows it wrote (the others
+// read as 0, so nothing is zeroed).  The block then writes each of its
+// rows once, the K partials added in sub-warp order and rounded once.
+// kRound (the edge-order sum: sorted ids, K = 1) rounds the running sum to
+// T after every add, as a scatter-add in T does; its window is found by two
+// binary searches, so each block reads only its tile's rows.  Shared memory: K * TS *
+// kSmallLanes * VEC floats (TS <= 32); float (lane, e) of a partial row at
+// ((e / Q) * kSmallLanes + lane) * Q + e % Q, so that a sub-warp's 16-byte
+// accesses fall on distinct banks.
+template <typename T, int VEC, bool kSorted, bool kRound>
+__global__ void __launch_bounds__(kSmallThreads)
+small_segment_sum_kernel(const T* __restrict__ x, const int* __restrict__ seg,
+                         const int* __restrict__ node_off,
+                         const int* __restrict__ edge_off, int G,
+                         T* __restrict__ out, int E, int S, int D, int TS,
+                         int K) {
+  using V = Vec<T, VEC>;
+  constexpr int Q = VEC < 4 ? VEC : 4;   // floats of a shared access
+  constexpr int kRow = kSmallLanes * VEC;
+  extern __shared__ float4 smem4[];
+  float* parts = reinterpret_cast<float*>(smem4);
+  __shared__ int win[2];
+  __shared__ unsigned masks[kSmallThreads];  // each thread's rows written
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int k = tid / kSmallLanes, lane = tid % kSmallLanes;
+  const int n0 = blockIdx.x * TS, n1 = n0 + TS;
+  const int c = (blockIdx.y * kSmallLanes + lane) * VEC;
+
+  // The window [w0, w1): one position meets each test where the ids (or
+  // offsets) ascend, as the caller guarantees.  The edge-order sum (8
+  // threads a block, any row count) searches the ids instead: no scan.
+  constexpr bool kSearch = kSorted && kRound;
+  if (kSearch && tid < 2) {  // lower_bound(ids, n0) and lower_bound(ids, n1)
+    const int key = tid ? n1 : n0;
+    int lo = 0, hi = E;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (seg[mid] < key) lo = mid + 1; else hi = mid;
+    }
+    win[tid] = lo;
+  }
+  const int len = kSearch ? -1 : kSorted ? E : G;
+  for (int base = 0; base <= len; base += kSmallScan * nthreads) {
+    int lo[kSmallScan], here[kSmallScan], hi[kSmallScan], e[kSmallScan];
+#pragma unroll
+    for (int j = 0; j < kSmallScan; ++j) {
+      const int i = base + j * nthreads + tid;
+      if (kSorted) {  // ids[i - 1] and ids[i]
+        lo[j] = i > 0 && i <= E ? seg[i - 1] : INT_MIN;
+        here[j] = i < E ? seg[i] : INT_MAX;
+      } else {        // node_off[i - 1, i, i + 1] and edge_off[i]
+        const bool ok = i <= G;
+        here[j] = ok ? node_off[i] : 0;
+        e[j] = ok ? edge_off[i] : 0;
+        lo[j] = ok && i > 0 ? node_off[i - 1] : INT_MIN;
+        hi[j] = ok && i < G ? node_off[i + 1] : INT_MAX;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSmallScan; ++j) {
+      const int i = base + j * nthreads + tid;
+      if (i > len) continue;
+      if (kSorted) {  // lower_bound(ids, n0) and lower_bound(ids, n1)
+        if (lo[j] < n0 && n0 <= here[j]) win[0] = i;
+        if (lo[j] < n1 && n1 <= here[j]) win[1] = i;
+      } else {
+        // edge_off of max(0, upper_bound(node_off, n0) - 1) and of
+        // min(G, lower_bound(node_off, n1)), as the large-row kernel's.
+        if ((here[j] <= n0 || i == 0) && hi[j] > n0) win[0] = e[j];
+        if ((here[j] >= n1 || i == G) && lo[j] < n1) win[1] = e[j];
+      }
+    }
+  }
+  __syncthreads();
+  const int w0 = min(max(win[0], 0), E), w1 = min(max(win[1], w0), E);
+  const int W = w1 - w0;
+
+  // Sub-warp k's part of the window, into parts[k].
+  unsigned done = 0;        // bit s: this thread's part of row s written
+  if (c < D) {
+    const int r0 = w0 + (int)((long long)W * k / K);
+    const int r1 = w0 + (int)((long long)W * (k + 1) / K);
+    float* mine = parts + (size_t)k * TS * kRow + lane * Q;
+    int cur = -1;           // the run's segment in the tile (-1: none)
+    float acc[VEC];         // its partial row, running
+    auto flush = [&] {
+#pragma unroll
+      for (int t = 0; t < VEC; t += Q) {
+        Quad<Q> q;
+#pragma unroll
+        for (int u = 0; u < Q; ++u) q.v[u] = acc[t + u];
+        q.store(mine + cur * kRow + t * kSmallLanes);
+      }
+      done |= 1u << cur;
+    };
+    auto fetch = [&] {
+      const bool was = done >> cur & 1u;
+#pragma unroll
+      for (int t = 0; t < VEC; t += Q) {
+        Quad<Q> q;
+        if (was) q.load(mine + cur * kRow + t * kSmallLanes);
+#pragma unroll
+        for (int u = 0; u < Q; ++u) acc[t + u] = was ? q.v[u] : 0.f;
+      }
+    };
+    for (int r = r0; r < r1; r += kSmallBatch) {
+      typename V::Raw raw[kSmallBatch];
+      int id[kSmallBatch];
+#pragma unroll
+      for (int j = 0; j < kSmallBatch; ++j) {
+        id[j] = -1;
+        if (r + j < r1) {
+          id[j] = seg[r + j] - n0;
+          raw[j] = V::load(x + (size_t)(r + j) * D + c);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kSmallBatch; ++j) {
+        const int s = (unsigned)id[j] < (unsigned)TS ? id[j] : -1;
+        if (s < 0) continue;
+        if (s != cur) {
+          if (cur >= 0) flush();
+          cur = s;
+          fetch();
+        }
+        float v[VEC];
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) v[t] = 0.f;
+        V::add(v, raw[j]);
+#pragma unroll
+        for (int t = 0; t < VEC; ++t)
+          acc[t] = kRound ? round_to<T>(acc[t] + v[t]) : acc[t] + v[t];
+      }
+    }
+    if (cur >= 0) flush();
+  }
+  masks[tid] = done;
+  __syncthreads();
+
+  // Each row of the tile once: the K partials in order, one rounding.
+  constexpr int kPos = kSmallLanes * (VEC / Q);  // Q-float groups a row
+  for (int job = tid; job < TS * kPos; job += nthreads) {
+    const int s = job / kPos, pos = job % kPos;
+    const int n = n0 + s;
+    const int col = (blockIdx.y * kSmallLanes + pos % kSmallLanes) * VEC +
+                    (pos / kSmallLanes) * Q;
+    if (n >= S || col >= D) continue;
+    Quad<Q> sum, part;
+#pragma unroll
+    for (int u = 0; u < Q; ++u) sum.v[u] = 0.f;
+    const float* p = parts + (size_t)s * kRow + pos * Q;
+    for (int kk = 0; kk < K; ++kk, p += (size_t)TS * kRow) {
+      if (!(masks[kk * kSmallLanes + pos % kSmallLanes] >> s & 1u)) continue;
+      part.load(p);
+#pragma unroll
+      for (int u = 0; u < Q; ++u) sum.v[u] += part.v[u];
+    }
+    if constexpr (Q == 4)
+      gn::store4(out + (size_t)n * D + col,
+                 make_float4(sum.v[0], sum.v[1], sum.v[2], sum.v[3]));
+    else
+      Vec<T, 1>::store(out + (size_t)n * D + col, sum.v);
+  }
+}
+
+template <typename T, int VEC, bool kSorted, bool kRound>
+int launch_small_as(const void* x, const void* seg, const void* node_off,
+                    const void* edge_off, int G, void* out, int E, int S,
+                    int D, int TS, int K, cudaStream_t stream) {
+  auto kernel = small_segment_sum_kernel<T, VEC, kSorted, kRound>;
+  const size_t smem = (size_t)K * TS * kSmallLanes * VEC * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((S + TS - 1) / TS,
+                  (D / VEC + kSmallLanes - 1) / kSmallLanes);
+  kernel<<<grid, K * kSmallLanes, smem, stream>>>(
+      (const T*)x, (const int*)seg, (const int*)node_off,
+      (const int*)edge_off, G, (T*)out, E, S, D, TS, K);
+  return cudaGetLastError();
+}
+
+template <bool kSorted, bool kRound>
+int launch_small(const void* x, const void* seg, const void* node_off,
+                 const void* edge_off, int G, void* out, int E, int S, int D,
+                 int TS, int K, int vec, int is_bf16, cudaStream_t s) {
+  if (is_bf16 && vec == 8)
+    return launch_small_as<__nv_bfloat16, 8, kSorted, kRound>(
+        x, seg, node_off, edge_off, G, out, E, S, D, TS, K, s);
+  if (is_bf16 && vec == 4)
+    return launch_small_as<__nv_bfloat16, 4, kSorted, kRound>(
+        x, seg, node_off, edge_off, G, out, E, S, D, TS, K, s);
+  if (!is_bf16 && vec == 4)
+    return launch_small_as<float, 4, kSorted, kRound>(
+        x, seg, node_off, edge_off, G, out, E, S, D, TS, K, s);
+  if constexpr (kRound) {  // odd widths: the edge-order sum only
+    if (vec == 1)
+      return is_bf16 ? launch_small_as<__nv_bfloat16, 1, kSorted, kRound>(
+                           x, seg, node_off, edge_off, G, out, E, S, D, TS,
+                           K, s)
+                     : launch_small_as<float, 1, kSorted, kRound>(
+                           x, seg, node_off, edge_off, G, out, E, S, D, TS,
+                           K, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+
 }  // namespace
 
 // Both entry points launch on `stream` and return cudaGetLastError().
@@ -781,4 +1082,34 @@ extern "C" int gn_windowed_segment_sum(const void* x, const void* seg,
                                                  G, out, N, D, s)
              : launch_windowed<__nv_bfloat16, 4>(x, seg, node_off, edge_off,
                                                  G, out, N, D, s);
+}
+
+// The one-pass kernel for few rows (the sort task's 512), as planned by
+// ops/kernels/segment_sum.py `small_plan`: tiles of `tile` segments,
+// `subwarps` sub-warps of 8 threads a block, `vec` values a thread (8 or 4
+// for bf16 rows, 4 for f32; 1 for the edge-order sum's odd widths, which
+// D % vec == 0 must allow).  sorted = 1: ascending ids (node_off and
+// edge_off unused); 0: windowed ids with [G + 1] offsets.  rounded = 1
+// (sorted, subwarps = 1): every add rounded to x's type, each segment's
+// rows in the order given.  Output [S, D] of x's type.
+extern "C" int gn_small_segment_sum(const void* x, const void* seg,
+                                    const void* node_off,
+                                    const void* edge_off, int G, void* out,
+                                    int E, int S, int D, int tile,
+                                    int subwarps, int vec, int is_bf16,
+                                    int sorted, int rounded, void* stream) {
+  if (tile < 1 || tile > 32 || subwarps < 1 ||
+      subwarps * kSmallLanes > kSmallThreads ||
+      S < 1 || vec < 1 || D % vec != 0 ||
+      (rounded && (!sorted || subwarps != 1)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rounded)
+    return launch_small<true, true>(x, seg, node_off, edge_off, G, out, E, S,
+                                    D, tile, subwarps, vec, is_bf16, s);
+  if (sorted)
+    return launch_small<true, false>(x, seg, node_off, edge_off, G, out, E, S,
+                                     D, tile, subwarps, vec, is_bf16, s);
+  return launch_small<false, false>(x, seg, node_off, edge_off, G, out, E, S,
+                                    D, tile, subwarps, vec, is_bf16, s);
 }

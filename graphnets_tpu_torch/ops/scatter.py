@@ -18,7 +18,10 @@ than 64 graph slots) takes the sorted segment-sum kernel instead
 :func:`take_rows_sorted_grad` is a row gather whose backward scatter-add
 runs as such a sorted f32 sum (``scatter.py:91-190``): directly for
 ascending ids, through the windowed kernel for ids local to their graph
-(the senders), after one stable sort otherwise.
+(the senders), after one stable sort otherwise.  Where the windowed
+kernel's gate refuses the shape with kernels on, a bf16 senders' sum runs
+as the JAX package's fallback does: in bf16, rows in edge order
+(``segment_sum.edge_order_segment_sum``).
 """
 
 from __future__ import annotations
@@ -134,6 +137,13 @@ class _TakeRowsWindowed(torch.autograd.Function):
                 g.shape[0], n, g.shape[1]):
             dx = kss.windowed_segment_sum(g, idx, n, node_offsets,
                                           edge_offsets)
+        elif use_kernels() and g.dtype == torch.bfloat16:
+            # The JAX package's kernel route on a shape its kernel refuses
+            # (``segment_sum.py:270-271``): a sum in bf16, rows in edge
+            # order, as ``jax.ops.segment_sum`` sums on JAX's CPU backend.
+            # (On f32 rows that sum and this f32 one differ only in their
+            # order.)
+            dx = kss.edge_order_segment_sum(g, idx, n)
         else:
             dx = segment_sum(g, idx, n)
         return dx.to(g.dtype), None, None, None

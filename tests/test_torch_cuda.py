@@ -55,7 +55,8 @@ from graphnets_tpu_torch.ops.kernels import gather as ga
 from graphnets_tpu_torch.ops.kernels import ln_linear as ll
 from graphnets_tpu_torch.ops.kernels import random_gather as rg
 from graphnets_tpu_torch.ops.kernels import segment_sum as ss
-from segment_layouts import LAYOUTS, layout
+from segment_layouts import (LAYOUTS, WINDOWS, layout, small_sum_order,
+                             windowed_layout)
 
 
 @pytest.fixture
@@ -359,26 +360,30 @@ def test_segment_sums_match_plain(cuda, dtype, padded, n_slots):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wrapper", "chunked"])
 @pytest.mark.parametrize("d", [384, 256, 12])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
-def test_sorted_segment_sum_layouts(cuda, name, dtype, d):
+def test_sorted_segment_sum_layouts(cuda, name, dtype, d, path):
     """The chunked kernel on every layout of ``tests/segment_layouts.py``
     (a pad node with 90% of the rows and empty segments behind it, a hub
     across chunks, empty runs, ids outside [0, S), segments ending on
-    chunk edges, E = 128): one launch a call, two launches bit-equal (a
-    fixed summation order, no float atomics), within one bf16 ulp of the
-    largest magnitude (f32: 1e-5) of the plain sum; d = 12 takes the
-    4-value vectors of bf16 rows, d = 384 in f32 two column slabs."""
+    chunk edges, E = 128), through the wrapper (which takes the one-pass
+    kernel where ``small_plan`` says so) and forced: one launch a call,
+    two launches bit-equal (a fixed summation order, no float atomics),
+    within one bf16 ulp of the largest magnitude (f32: 1e-5) of the plain
+    sum; d = 12 takes the 4-value vectors of bf16 rows, d = 384 in f32 two
+    column slabs."""
     ids, S = layout(name)
     x = torch.from_numpy(np.random.default_rng(25).normal(
         size=(ids.size, d)).astype(np.float32)).to(dtype)
     seg = torch.from_numpy(ids)
     args = (x.to(cuda), seg.to(cuda), S)
+    launch = ss.sorted_segment_sum if path == "wrapper" else ss._launch_sorted
     before = ss.LAUNCHES
-    out = ss.sorted_segment_sum(*args)
+    out = launch(*args)
     assert ss.LAUNCHES == before + 1
-    again = ss.sorted_segment_sum(*args)
+    again = launch(*args)
     torch.cuda.synchronize()
     assert ss.LAUNCHES == before + 2
     assert out.dtype == dtype and torch.equal(out, again)
@@ -411,53 +416,223 @@ def test_sorted_segment_sum_replays_in_a_cuda_graph(cuda, name):
         assert torch.equal(out, ref)
 
 
-# Windowed-sum layouts: (node count, edge count) a graph.  The sort
-# task's five small graphs (a 16-segment tile spans several; padded, one
-# node takes more rows than a warp batches), the headline
-# (eight 128-node graphs of 2,048 edges), the bucketed headline (a ninth,
-# edgeless padding graph of 32 nodes), empty graphs between full ones, and
-# windows longer than one sorted piece of 2,048 edges.
-_WINDOWS = {
-    "sort": ([8, 9, 7, 9, 8], [100, 110, 90, 112, 100]),
-    # the sort task's padded batch: a pad node sends 297 of 512 edges
-    "sort_pad_node": ([9, 7, 7, 6, 12], [81, 49, 49, 36, 297]),
-    "headline": ([128] * 8, [2048] * 8),
-    "bucketed": ([128] * 8 + [32], [2048] * 8 + [0]),
-    "empty_graphs": ([5, 0, 20, 0, 3, 17], [40, 0, 0, 0, 30, 200]),
-    "long_windows": ([16, 40, 1], [5000, 9000, 3]),
-}
+def _small_plan_or_widest(E, S, d, dtype, graphs=None):
+    """The one-pass kernel's plan, or its largest tile where the plan
+    sends the shape to the large-row kernels (to run it there anyway)."""
+    plan = ss.small_plan(E, S, d, dtype, graphs=graphs)
+    if plan is None:
+        base = ss.small_plan(1, 1, d, dtype, graphs=graphs)
+        plan = base._replace(tile=16, tiles=-(-S // 16),
+                             shared_bytes=base.shared_bytes * 16 // base.tile)
+    return plan
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wrapper", "large"])
 @pytest.mark.parametrize("d", [384, 12])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("layout", sorted(_WINDOWS))
-def test_windowed_segment_sum_layouts(cuda, layout, dtype, d):
-    """Unsorted graph-local ids against the plain sum, and two launches
-    bit-equal (a fixed summation order, no float atomics); d = 12 takes
-    the 4-value path of bf16 rows."""
-    nodes, edges = _WINDOWS[layout]
-    rng = np.random.default_rng(24)
-    no = np.concatenate([[0], np.cumsum(nodes)]).astype(np.int32)
-    eo = np.concatenate([[0], np.cumsum(edges)]).astype(np.int32)
-    seg = np.concatenate([rng.integers(no[i], max(no[i + 1], no[i] + 1),
-                                       size=edges[i])
-                          for i in range(len(nodes))]).astype(np.int32)
-    if layout == "sort_pad_node":
-        seg[eo[-2]:] = no[-2]
+@pytest.mark.parametrize("layout", sorted(WINDOWS))
+def test_windowed_segment_sum_layouts(cuda, layout, dtype, d, path):
+    """Unsorted graph-local ids (``segment_layouts.WINDOWS``: the sort
+    task's graphs, its pad node sending 297 of 512 rows, its uniform
+    layout, the headline, an edgeless padding graph, empty graphs, long
+    windows) against the plain sum, through the wrapper (the one-pass
+    kernel where ``small_plan`` says so) and the large-row kernel forced,
+    and two launches bit-equal (a fixed summation order, no float
+    atomics); d = 12 takes the 4-value path of bf16 rows."""
+    snd, _, no, eo = windowed_layout(layout)
     N, E = int(no[-1]), int(eo[-1])
+    rng = np.random.default_rng(24)
     x = torch.from_numpy(rng.normal(size=(E, d)).astype(np.float32)).to(dtype)
-    ids, wins = torch.from_numpy(seg), (torch.from_numpy(no),
+    ids, wins = torch.from_numpy(snd), (torch.from_numpy(no),
                                         torch.from_numpy(eo))
     before = ss.WINDOWED_LAUNCHES
     args = (x.to(cuda), ids.to(cuda), N, *[w.to(cuda) for w in wins])
-    out = ss.windowed_segment_sum(*args)
-    again = ss.windowed_segment_sum(*args)
+    launch = (ss.windowed_segment_sum if path == "wrapper"
+              else ss._launch_windowed)
+    out = launch(*args)
+    again = launch(*args)
     torch.cuda.synchronize()
     assert ss.WINDOWED_LAUNCHES == before + 2
     assert out.dtype == dtype and torch.equal(out, again)
     _close_max(out, ss.windowed_segment_sum_plain(x, ids, N, *wins),
                2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+
+
+_SMALL_CASES = ([("sorted", n) for n in sorted(LAYOUTS)]
+                + [("windowed", n) for n in sorted(WINDOWS)])
+
+
+def _small_case(kind, name, d, dtype, seed=26):
+    """Inputs of a one-pass sum: ``(x, seg, S, windows or None)`` on the
+    CPU, and the plan (forced to the largest tile where ``small_plan``
+    refuses the shape)."""
+    if kind == "sorted":
+        seg, S = layout(name)
+        windows = None
+    else:
+        seg, _, no, eo = windowed_layout(name)
+        S, windows = int(no[-1]), (no, eo)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(seg.size, d)).astype(np.float32)).to(dtype)
+    plan = _small_plan_or_widest(seg.size, S, d, dtype,
+                                 None if windows is None else len(no) - 1)
+    return x, seg, S, windows, plan
+
+
+def _launch_small(kind, x, seg, S, windows, plan, cuda):
+    args = (x.to(cuda), torch.from_numpy(seg).to(cuda), S)
+    if kind == "sorted":
+        return ss._launch_sorted_small(*args, plan)
+    return ss._launch_windowed_small(
+        *args, *[torch.from_numpy(w).to(cuda) for w in windows], plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 128, 12])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,name", _SMALL_CASES)
+def test_small_segment_sums_match_plain_and_order(cuda, kind, name, dtype,
+                                                  d):
+    """The one-pass kernel on every sorted and windowed layout (empty
+    segments, a pad node with most rows, ids outside [0, S), tiles that
+    span graphs, an edgeless padding graph, empty graphs; those the plan
+    sends to the large-row kernels at the largest tile): within one bf16
+    ulp (f32: 1e-5) of the plain sum, bit-equal to its summation order
+    replayed in numpy (``segment_layouts.small_sum_order``) and on a
+    second launch."""
+    x, seg, S, windows, plan = _small_case(kind, name, d, dtype)
+    counter = "LAUNCHES" if kind == "sorted" else "WINDOWED_LAUNCHES"
+    before = getattr(ss, counter)
+    out = _launch_small(kind, x, seg, S, windows, plan, cuda)
+    again = _launch_small(kind, x, seg, S, windows, plan, cuda)
+    torch.cuda.synchronize()
+    assert getattr(ss, counter) == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)
+    order, _ = small_sum_order(x.float().numpy(), seg, S, plan.tile,
+                               plan.subwarps, windows)
+    assert torch.equal(out.cpu(), torch.from_numpy(order).to(dtype))
+    ref = ss.sorted_segment_sum_plain(x, torch.from_numpy(seg), S)
+    _close_max(out, ref, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "windowed"])
+@pytest.mark.parametrize("rows", [ss._SMALL_MAX_ROWS, ss._SMALL_MAX_ROWS
+                                  + 128])
+def test_small_path_threshold(cuda, monkeypatch, kind, rows):
+    """Row counts on both sides of the crossover take the kernel that
+    ``small_plan`` names: 16 graphs of 16 nodes and rows / 16 edges."""
+    G, npg = 16, 16
+    epg = rows // G
+    rng = np.random.default_rng(27)
+    no = np.arange(G + 1, dtype=np.int32) * npg
+    eo = np.arange(G + 1, dtype=np.int32) * epg
+    seg = np.concatenate([rng.integers(0, npg, epg) + b * npg
+                          for b in range(G)]).astype(np.int32)
+    graphs = None
+    if kind == "sorted":
+        seg = np.sort(seg)
+    else:
+        graphs = G
+    S, d = G * npg, 384
+    x = torch.randn(rows, d).to(torch.bfloat16)
+    small = []
+    real = ss._launch_small
+    monkeypatch.setattr(ss, "_launch_small",
+                        lambda *a, **k: small.append(1) or real(*a, **k))
+    args = (x.to(cuda), torch.from_numpy(seg).to(cuda), S)
+    if kind == "sorted":
+        out = ss.sorted_segment_sum(*args)
+    else:
+        out = ss.windowed_segment_sum(
+            *args, torch.from_numpy(no).to(cuda),
+            torch.from_numpy(eo).to(cuda))
+    torch.cuda.synchronize()
+    want = ss.small_plan(rows, S, d, torch.bfloat16, graphs=graphs)
+    assert bool(small) == (want is not None) == (rows <= ss._SMALL_MAX_ROWS)
+    _close_max(out, ss.sorted_segment_sum_plain(x, torch.from_numpy(seg), S),
+               2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,name", [("sorted", "e128"),
+                                       ("windowed", "sort_pad_node"),
+                                       ("windowed", "sort_uniform")])
+def test_small_segment_sums_replay_in_a_cuda_graph(cuda, kind, name, dtype):
+    """Captured once and replayed twice, the one-pass kernel gives its
+    eager result bit for bit."""
+    x, seg, S, windows, plan = _small_case(kind, name, 384, dtype)
+    ref = _launch_small(kind, x, seg, S, windows, plan, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _launch_small(kind, x, seg, S, windows, plan, cuda)
+    torch.cuda.current_stream().wait_stream(side)
+    xs, segs = x.to(cuda), torch.from_numpy(seg).to(cuda)
+    wins = None if windows is None else [torch.from_numpy(w).to(cuda)
+                                         for w in windows]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        if kind == "sorted":
+            out = ss._launch_sorted_small(xs, segs, S, plan)
+        else:
+            out = ss._launch_windowed_small(xs, segs, S, *wins, plan)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 64, 10])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(WINDOWS))
+def test_edge_order_segment_sum_matches_plain(cuda, name, dtype, d):
+    """The sum of the senders' fallback (rows in edge order, every add
+    rounded to the rows' type): bit-equal to its plain version, ids
+    outside [0, N) dropped, at odd widths too."""
+    snd, _, no, _ = windowed_layout(name)
+    N = int(no[-1])
+    seg = snd.copy()
+    seg[::17] = -1
+    seg[5::23] = N
+    x = torch.from_numpy(np.random.default_rng(28).normal(
+        size=(seg.size, d)).astype(np.float32)).to(dtype)
+    before = ss.WINDOWED_LAUNCHES
+    out = ss.edge_order_segment_sum(x.to(cuda),
+                                    torch.from_numpy(seg).to(cuda), N)
+    torch.cuda.synchronize()
+    assert ss.WINDOWED_LAUNCHES == before + 1
+    ref = ss.edge_order_segment_sum_plain(x, torch.from_numpy(seg), N)
+    assert out.dtype == dtype and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_edge_order_segment_sum_is_linear_on_one_large_graph(cuda):
+    """The senders' fallback on one graph of 262,144 edges and 16,384
+    nodes (d = 64 bf16, a width the windowed gate refuses): bit-equal to
+    its plain version and to a relaunch, and within 2 ms on the card.
+    Each block reads only its own tile's rows; a block that walked the
+    whole window would take seconds here."""
+    E, N, d = 1 << 18, 1 << 14, 64
+    rng = np.random.default_rng(29)
+    seg = torch.from_numpy(rng.integers(0, N, E).astype(np.int32)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(E, d)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    out = ss.edge_order_segment_sum(x, seg, N)
+    again = ss.edge_order_segment_sum(x, seg, N)
+    ref = ss.edge_order_segment_sum_plain(x, seg, N)
+    assert torch.equal(out, again) and torch.equal(out, ref)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        ss.edge_order_segment_sum(x, seg, N)
+    end.record()
+    end.synchronize()
+    assert start.elapsed_time(end) / 5 < 2.0
 
 
 @pytest.mark.cuda
