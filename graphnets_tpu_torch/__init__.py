@@ -25,7 +25,8 @@ step, ``train_sort_device`` and ``evaluate_sort``, checkpoints
 (``CheckpointManager``), the SVG renderings, the debug checks
 (``validate_graph``, ``GRAPHNETS_TPU_TORCH_DEBUG``), the views and edge
 collapsing of ``graph``, ``segment_mean`` / ``segment_max``, the precision
-policy, metrics and profiling helpers; and learning-rate schedules
+policy, metrics and profiling helpers (spans and device phase markers
+under ``GRAPHNETS_TPU_TORCH_TRACE=1``); and learning-rate schedules
 (``training/schedules``) and parallel training over ``torch.distributed``
 (``parallel/``: meshes, the multi-process runtime, data, tensor and
 pipeline parallelism).
@@ -99,7 +100,8 @@ from .training.train import (CapturedStep, SortTrainResult, TrainState,
                              train_sort, train_sort_device)
 from .util import get_edge_features, get_graph_features, get_node_features
 from .utils.config import (debug_checks, enable_debug_checks,
-                           enable_kernels, use_kernels)
+                           enable_kernels, enable_tracing, tracing,
+                           use_kernels)
 from .utils.debug import assert_finite, checked, validate_graph
 from .utils.metrics import MetricLogger, host0_logger, is_host0
 from .utils.profiling import StepTimer, annotate, trace
@@ -136,7 +138,8 @@ __all__ = [
     "segment_sum", "segment_mean", "segment_max",
     "Policy", "DEFAULT", "BF16_COMPUTE", "cast_features", "cast_params",
     "get_edge_features", "get_node_features", "get_graph_features",
-    "debug_checks", "enable_debug_checks", "validate_graph",
+    "debug_checks", "enable_debug_checks", "tracing", "enable_tracing",
+    "validate_graph",
     "assert_finite", "checked", "MetricLogger", "host0_logger", "is_host0",
     "trace", "annotate", "StepTimer", "render_graph_svg", "sort_input_svg",
     "sort_target_svg", "constant_schedule", "warmup_cosine_decay_schedule",

@@ -30,6 +30,7 @@ import torch
 
 from .runtime import native
 from .utils.config import resolve_device
+from .utils.profiling import span
 
 __all__ = [
     "GraphsTuple", "PadSpec", "batch", "unbatch", "adjacency_matrices",
@@ -210,8 +211,23 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
     Edge features are listed in canonical (column-major) edge order.
     Features come out as float32 tensors on ``device`` (``cuda`` unless the
     caller passes another).
+
+    With the tracing switch on (``utils/config.enable_tracing``) a call is
+    the span ``gn.batch``: ``gn.batch.pack`` (checks, the COO, padding and
+    features in numpy) and then ``gn.batch.to_device`` (one copy an array).
     """
     device = resolve_device(device)
+    with span("gn.batch"):
+        with span("gn.batch.pack"):
+            arrays, meta = _pack(data, pad)
+        with span("gn.batch.to_device"):
+            g = _to_device(arrays, device, **meta)
+        return _validated(g)
+
+
+def _pack(data: dict, pad: Optional[PadSpec]) -> Tuple[dict, dict]:
+    """:func:`batch`'s arrays in numpy and the ``GraphsTuple``'s host
+    metadata."""
     if set(data.keys()) != {"graphs", "ef", "nf", "gf"}:
         raise ValueError(
             "batch input must be a dict with exactly the keys "
@@ -263,9 +279,8 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
     if pad is None:
         pad = PadSpec()
     if pad.per_slot:
-        return _validated(_batch_uniform(n_node, n_edge, senders, receivers,
-                                         ef_list, nf_list, gf_arr, pad,
-                                         homogeneous, device))
+        return _batch_uniform(n_node, n_edge, senders, receivers, ef_list,
+                              nf_list, gf_arr, pad, homogeneous)
     NP = pad.num_nodes if pad.num_nodes is not None else N
     EP = pad.num_edges if pad.num_edges is not None else E
     GP = pad.num_graphs if pad.num_graphs is not None else G
@@ -311,15 +326,16 @@ def batch(data: dict, pad: Optional[PadSpec] = None,
         gf_p = np.zeros((GP, gf_arr.shape[1]), np.float32)
         gf_p[:B] = np.asarray(gf_arr, np.float32)
     exact = homogeneous and GP == B and NP == N and EP == E and B > 0
-    return _validated(_to_device(dict(
+    arrays = dict(
         senders=senders, receivers=receivers, node_graph=node_graph,
         edge_graph=edge_graph, n_node=n_node_p, n_edge=n_edge_p,
         node_mask=np.arange(NP) < N, edge_mask=np.arange(EP) < E,
         graph_mask=np.arange(GP) < G,
-        ef=_cat_feats(ef_list, EP), nf=_cat_feats(nf_list, NP), gf=gf_p),
-        device, homogeneous=homogeneous,
+        ef=_cat_feats(ef_list, EP), nf=_cat_feats(nf_list, NP), gf=gf_p)
+    return arrays, dict(
+        homogeneous=homogeneous,
         # Exact homogeneous batches have a uniform slot layout.
-        slot_shape=(int(n_node[0]), int(n_edge[0])) if exact else None))
+        slot_shape=(int(n_node[0]), int(n_edge[0])) if exact else None)
 
 
 def _validated(g: GraphsTuple) -> GraphsTuple:
@@ -332,8 +348,8 @@ def _validated(g: GraphsTuple) -> GraphsTuple:
 
 
 def _batch_uniform(n_node, n_edge, senders, receivers, ef_list, nf_list,
-                   gf_arr, pad: PadSpec, homogeneous: bool,
-                   device) -> GraphsTuple:
+                   gf_arr, pad: PadSpec, homogeneous: bool
+                   ) -> Tuple[dict, dict]:
     """Uniform slot layout (``PadSpec.uniform``): every graph slot owns
     ``ns`` node slots and ``es`` edge slots, padding interleaved per slot.
 
@@ -401,7 +417,7 @@ def _batch_uniform(n_node, n_edge, senders, receivers, ef_list, nf_list,
         gf_p = np.zeros((GP, gf_arr.shape[1]), np.float32)
         gf_p[:B] = np.asarray(gf_arr, np.float32)
     padded = bool(GP > B or (~node_mask).any() or (~edge_mask).any())
-    return _to_device(dict(
+    arrays = dict(
         senders=senders_u.astype(np.int32),
         receivers=receivers_u.astype(np.int32),
         node_graph=np.repeat(np.arange(GP, dtype=np.int32), ns),
@@ -411,8 +427,9 @@ def _batch_uniform(n_node, n_edge, senders, receivers, ef_list, nf_list,
         graph_mask=np.arange(GP) < B,
         ef=_place(ef_list, GP * es, slot_edge_base, n_edge),
         nf=_place(nf_list, GP * ns, slot_node_base, n_node),
-        gf=gf_p), device, homogeneous=homogeneous, slot_shape=(ns, es),
-        pad_aliases_real=padded)
+        gf=gf_p)
+    return arrays, dict(homogeneous=homogeneous, slot_shape=(ns, es),
+                        pad_aliases_real=padded)
 
 
 def _to_device(arrays: dict, device, **meta) -> GraphsTuple:

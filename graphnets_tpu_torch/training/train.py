@@ -45,6 +45,7 @@ from ..data.sort_task import (SortTaskConfig, device_batch, get_batch,
 from ..graph import GraphsTuple
 from ..models.encode_process_decode import EncodeProcessDecode
 from ..utils.config import debug_checks, get_config, resolve_device
+from ..utils.profiling import PhaseMarkers, span
 from ..utils.tree import map_tensors, structure, tensors
 from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
                      masked_logit_crossentropy)
@@ -107,17 +108,52 @@ def make_train_step(
     ``generator`` draws the dropout masks.  The metrics are 0-d tensors on
     the model's device (no host sync): ``loss``, ``node_acc``, ``edge_acc``
     and ``graph_acc``.
+
+    With the tracing switch on (``utils/config.enable_tracing``) the step
+    opens the spans ``gn.train.forward`` (parameter cast, model, loss),
+    ``gn.train.backward``, ``gn.train.optimizer`` and ``gn.train.metrics``
+    and puts a device marker before each and ``end`` after the last
+    (``utils/profiling.PhaseMarkers``); inside another step body the
+    outer body puts ``end``.
     """
     params = dict(model.named_parameters())
+    mark = PhaseMarkers(_device(list(params.values())))
 
     def step(x: GraphsTuple, y: GraphsTuple) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad(set_to_none=True)
-        run = params if compute_dtype is None else {
-            n: p.to(compute_dtype) for n, p in params.items()}
-        pred = functional_call(model, run, (x,),
-                               {"training": training, "generator": generator})
-        loss = loss_fn(pred, y)
+        with mark.step():
+            mark("forward")
+            with span("gn.train.forward"):
+                optimizer.zero_grad(set_to_none=True)
+                run = params if compute_dtype is None else {
+                    n: p.to(compute_dtype) for n, p in params.items()}
+                pred = functional_call(model, run, (x,), {
+                    "training": training, "generator": generator})
+                loss = loss_fn(pred, y)
+            _backward_and_update(loss, params, optimizer, mark)
+            with span("gn.train.metrics"), torch.no_grad():
+                return {
+                    "loss": loss.detach(),
+                    "node_acc": masked_accuracy(pred.nf, y.nf, x.node_mask),
+                    "edge_acc": masked_accuracy(pred.ef, y.ef, x.edge_mask),
+                    "graph_acc": graph_accuracy(pred, y),
+                }
+
+    # What capture_step restores after its warm-up calls.
+    step.model, step.optimizer = model, optimizer
+    step.generators = () if generator is None else (generator,)
+    return step
+
+
+def _backward_and_update(loss: torch.Tensor, params: Dict[str, nn.Parameter],
+                         optimizer: torch.optim.Optimizer,
+                         mark: PhaseMarkers) -> None:
+    """The backward and optimizer phases of a step body, and the marker
+    of the metrics phase that follows them."""
+    mark("backward")
+    with span("gn.train.backward"):
         loss.backward()
+    mark("optimizer")
+    with span("gn.train.optimizer"):
         for p in params.values():
             # A parameter the loss does not reach (the last core's graph
             # update) has a zero gradient in JAX, and optax still decays
@@ -125,18 +161,7 @@ def make_train_step(
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         optimizer.step()
-        with torch.no_grad():
-            return {
-                "loss": loss.detach(),
-                "node_acc": masked_accuracy(pred.nf, y.nf, x.node_mask),
-                "edge_acc": masked_accuracy(pred.ef, y.ef, x.edge_mask),
-                "graph_acc": graph_accuracy(pred, y),
-            }
-
-    # What capture_step restores after its warm-up calls.
-    step.model, step.optimizer = model, optimizer
-    step.generators = () if generator is None else (generator,)
-    return step
+    mark("metrics")
 
 
 def make_node_classification_step(
@@ -156,29 +181,34 @@ def make_node_classification_step(
 
     ``compute_dtype`` casts the (f32 master) parameters for the forward,
     as in :func:`make_train_step`; ``feat`` is used in the type it has.
-    The loss is a 0-d tensor on the model's device (no host sync)."""
+    The loss is a 0-d tensor on the model's device (no host sync).  The
+    spans and markers are :func:`make_train_step`'s; the feature gather
+    belongs to the forward."""
     params = dict(model.named_parameters())
+    mark = PhaseMarkers(_device(list(params.values())))
 
     def step(graph: GraphsTuple, node_ids: torch.Tensor,
              labels: torch.Tensor, label_mask: torch.Tensor,
              seed_idx: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        graph = graph.with_features(nf=feat.index_select(0, node_ids))
-        run = params if compute_dtype is None else {
-            n: p.to(compute_dtype) for n, p in params.items()}
-        pred = functional_call(model, run, (graph,), {"training": True})
-        logits = pred.nf.index_select(0, seed_idx)
-        # jax.nn.one_hot: a label outside [0, n_classes) (an OGB dataset's
-        # -1 for an unlabelled node) is a row of zeros.
-        onehot = labels.long()[:, None] == torch.arange(
-            n_classes, device=labels.device)
-        loss = masked_logit_crossentropy(logits, onehot, label_mask)
-        loss.backward()
-        for p in params.values():
-            if p.grad is None:  # as in make_train_step
-                p.grad = torch.zeros_like(p)
-        optimizer.step()
-        return loss.detach()
+        with mark.step():
+            mark("forward")
+            with span("gn.train.forward"):
+                optimizer.zero_grad(set_to_none=True)
+                graph = graph.with_features(
+                    nf=feat.index_select(0, node_ids))
+                run = params if compute_dtype is None else {
+                    n: p.to(compute_dtype) for n, p in params.items()}
+                pred = functional_call(model, run, (graph,),
+                                       {"training": True})
+                logits = pred.nf.index_select(0, seed_idx)
+                # jax.nn.one_hot: a label outside [0, n_classes) (an OGB
+                # dataset's -1 for an unlabelled node) is a row of zeros.
+                onehot = labels.long()[:, None] == torch.arange(
+                    n_classes, device=labels.device)
+                loss = masked_logit_crossentropy(logits, onehot, label_mask)
+            _backward_and_update(loss, params, optimizer, mark)
+            with span("gn.train.metrics"):
+                return loss.detach()
 
     step.model, step.optimizer, step.generators = model, optimizer, ()
     return step
@@ -227,7 +257,19 @@ class CapturedStep:
 
     ``captures``, ``replays`` and ``traced_calls`` (eager calls of the step
     itself: warm-ups and captures, the calls that pass through the kernel
-    wrappers' launch counters) count what happened.
+    wrappers' launch counters) count what happened; ``copy_in_bytes`` and
+    ``copy_in_tensors`` count the copies of inputs into the captured ones
+    that calls on the card made (an input that is the captured tensor
+    itself is not copied).  All five count always.
+
+    The tracing switch (``GRAPHNETS_TPU_TORCH_TRACE=1``,
+    ``utils/config.enable_tracing``) is one of the switches in the key, so
+    toggling it captures anew.  While it is on a call opens the spans
+    ``gn.step`` and, inside it, ``gn.step.lookup``, ``gn.step.copy_in``,
+    ``gn.step.replay`` and ``gn.step.outputs`` (``gn.step.capture`` and
+    its ``gn.step.warm_up`` where it captures), and the step's device
+    phase markers (``utils/profiling.PhaseMarkers``) are captured with it:
+    only a graph captured with the switch on holds them.
     """
 
     WARMUP_CALLS = 2
@@ -246,6 +288,7 @@ class CapturedStep:
         self._graphs: Dict[Any, Tuple] = {}
         self._pool = None
         self.captures = self.replays = self.traced_calls = 0
+        self.copy_in_bytes = self.copy_in_tensors = 0
 
     def _params(self):
         return [] if self.model is None else list(self.model.parameters())
@@ -262,21 +305,38 @@ class CapturedStep:
         return (any(t.is_cuda for t in self._params() + list(self.buffers))
                 or any(g.device.type == "cuda" for g in self.generators))
 
+    def _key(self, args) -> Tuple:
+        """The key of the graph a call on ``args`` replays: the input
+        structure and the port's switches."""
+        return structure(args), dataclasses.astuple(get_config())
+
     def __call__(self, *args):
-        flat = tensors(args)
-        if not self._on_card(flat):
-            return self.step(*args)
-        key = (structure(args), dataclasses.astuple(get_config()))
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = self._capture(args)
-        graph, static_in, static_out = entry
-        for dst, src in zip(static_in, flat):
-            if dst.data_ptr() != src.data_ptr():
-                dst.copy_(src)
-        graph.replay()
-        self.replays += 1
-        return map_tensors(lambda t: t.clone(), static_out)
+        with span("gn.step"):
+            with span("gn.step.lookup"):
+                flat = tensors(args)
+                eager = not self._on_card(flat)
+                if not eager:
+                    key = self._key(args)
+                    entry = self._graphs.get(key)
+            if eager:
+                return self.step(*args)
+            if entry is None:
+                entry = self._graphs[key] = self._capture(args)
+            graph, static_in, sizes, static_out = entry
+            with span("gn.step.copy_in"):
+                n_bytes = n_tensors = 0
+                for dst, src, size in zip(static_in, flat, sizes):
+                    if dst.data_ptr() != src.data_ptr():
+                        dst.copy_(src)
+                        n_bytes += size
+                        n_tensors += 1
+                self.copy_in_bytes += n_bytes
+                self.copy_in_tensors += n_tensors
+            with span("gn.step.replay"):
+                graph.replay()
+            self.replays += 1
+            with span("gn.step.outputs"):
+                return map_tensors(lambda t: t.clone(), static_out)
 
     def _snapshot(self):
         params = [p.detach().clone() for p in self._params()]
@@ -313,19 +373,20 @@ class CapturedStep:
         """``WARMUP_CALLS`` eager steps on ``args`` (on a side stream on the
         card), then the parameters, the optimizer's state, the generators
         and the buffers as they were before."""
-        snap = self._snapshot()
-        side = None
-        if self._on_card(tensors(args)):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-        with (torch.cuda.stream(side) if side is not None
-              else contextlib.nullcontext()):
-            for _ in range(self.WARMUP_CALLS):
-                self.step(*args)
-                self.traced_calls += 1
-        if side is not None:
-            torch.cuda.current_stream().wait_stream(side)
-        self._restore(snap)
+        with span("gn.step.warm_up"):
+            snap = self._snapshot()
+            side = None
+            if self._on_card(tensors(args)):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                for _ in range(self.WARMUP_CALLS):
+                    self.step(*args)
+                    self.traced_calls += 1
+            if side is not None:
+                torch.cuda.current_stream().wait_stream(side)
+            self._restore(snap)
 
     def _capture(self, args) -> Tuple:
         if debug_checks():
@@ -335,20 +396,23 @@ class CapturedStep:
                 "they read tensors on the host, which a CUDA-graph capture "
                 "cannot. Turn them off to capture, or call the step itself "
                 "(uncaptured) to run it with the checks.")
-        static_args = map_tensors(lambda t: t.clone(), args)
-        self.warm_up(*static_args)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            if g.device.type == "cuda":
-                graph.register_generator_state(g)
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="global"):
-            static_out = self.step(*static_args)
-        self.traced_calls += 1
-        self.captures += 1
-        return graph, tensors(static_args), static_out
+        with span("gn.step.capture"):
+            static_args = map_tensors(lambda t: t.clone(), args)
+            self.warm_up(*static_args)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                if g.device.type == "cuda":
+                    graph.register_generator_state(g)
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="global"):
+                static_out = self.step(*static_args)
+            self.traced_calls += 1
+            self.captures += 1
+        static_in = tensors(static_args)
+        return (graph, static_in, [t.numel() * t.element_size()
+                                   for t in static_in], static_out)
 
 
 def capture_step(step: Callable) -> CapturedStep:
@@ -468,17 +532,27 @@ def make_sort_device_step(state: TrainState, cfg: SortTaskConfig,
     In bf16 the parameters stay the f32 masters and are not cast as a
     whole: the batch's features are bf16 and each layer casts at use, as
     the JAX model does (``Linear`` casts its weight to the input's type;
-    ``LayerNorm`` computes in f32 with f32 scale and bias)."""
+    ``LayerNorm`` computes in f32 with f32 scale and bias).
+
+    With the tracing switch on, the draw is the span ``gn.train.batch``
+    behind the ``batch`` marker, the step's phases are
+    :func:`make_train_step`'s, the sums join its metrics phase, and the
+    ``end`` marker closes the step."""
     gen = state.generators[0]
     core = make_train_step(state.model, state.optimizer, generator=gen)
+    mark = PhaseMarkers(gen.device)
     sums = {k: torch.zeros((), dtype=torch.float32, device=gen.device)
             for k in _METRICS}
 
     def step() -> None:
-        x, y = device_batch(gen, cfg, pad, dtype)
-        metrics = core(x, y)
-        for k, v in sums.items():
-            v.add_(metrics[k])
+        with mark.step():
+            mark("batch")
+            with span("gn.train.batch"):
+                x, y = device_batch(gen, cfg, pad, dtype)
+            metrics = core(x, y)
+            with span("gn.train.metrics"):
+                for k, v in sums.items():
+                    v.add_(metrics[k])
 
     step.model, step.optimizer = state.model, state.optimizer
     step.generators, step.sums = (gen,), sums

@@ -16,7 +16,10 @@ materialises the concatenated update inputs
 ``GRAPHNETS_TPU_SPLIT_LINEAR`` for the JAX package).  ``debug_checks()``
 says whether the host-side invariant checks run
 (``GRAPHNETS_TPU_TORCH_DEBUG=1``, as ``GRAPHNETS_TPU_DEBUG`` for the JAX
-package; see ``utils/debug``).
+package; see ``utils/debug``).  ``tracing()`` says whether the step,
+capture and batch paths record their spans and the step bodies their
+device phase markers (``utils/profiling.span`` / ``PhaseMarkers``;
+``GRAPHNETS_TPU_TORCH_TRACE=1``, default 0).
 """
 
 from __future__ import annotations
@@ -64,6 +67,14 @@ class Config:
     # checks read tensors on the host, so a CUDA-graph capture refuses to
     # run while they are on (training/train.CapturedStep).
     debug_checks: bool = False
+    # Spans and device phase markers (GRAPHNETS_TPU_TORCH_TRACE=1): the
+    # step, capture and batch paths open named host ranges
+    # (utils/profiling.span) and the step bodies enqueue a phase marker
+    # at each phase boundary (utils/profiling.PhaseMarkers).  A field of
+    # this dataclass, so it is part of CapturedStep's key: a graph
+    # captured with it on holds the markers, one captured with it off
+    # holds nothing of them.
+    trace: bool = False
 
 
 def _env_tristate(name: str) -> Optional[bool]:
@@ -80,7 +91,8 @@ _config = Config(
                                 "1") == "1",
     g1_agg_fusion_training=os.environ.get(
         "GRAPHNETS_TPU_TORCH_G1_AGG_TRAIN", "1") == "1",
-    debug_checks=os.environ.get("GRAPHNETS_TPU_TORCH_DEBUG", "0") == "1")
+    debug_checks=os.environ.get("GRAPHNETS_TPU_TORCH_DEBUG", "0") == "1",
+    trace=os.environ.get("GRAPHNETS_TPU_TORCH_TRACE", "0") == "1")
 
 
 def get_config() -> Config:
@@ -132,6 +144,14 @@ def debug_checks() -> bool:
 
 def enable_debug_checks(flag: bool = True) -> None:
     _config.debug_checks = flag
+
+
+def tracing() -> bool:
+    return _config.trace
+
+
+def enable_tracing(flag: bool = True) -> None:
+    _config.trace = flag
 
 
 def resolve_device(device=None) -> torch.device:

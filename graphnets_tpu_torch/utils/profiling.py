@@ -1,19 +1,37 @@
 """Tracing and profiling hooks (counterpart of
 ``graphnets_tpu/utils/profiling.py``): a ``torch.profiler`` trace written
 as a Chrome trace (viewable in Perfetto), named ranges for traces and
-Nsight, and a wall-clock step timer."""
+Nsight, and a wall-clock step timer.
+
+With the tracing switch on (``GRAPHNETS_TPU_TORCH_TRACE=1`` or
+``utils/config.enable_tracing()``) the port's own paths record what they
+do in the same trace: :func:`span` opens the host ranges ``gn.step`` (and
+its ``.lookup``, ``.copy_in``, ``.replay``, ``.outputs``, ``.capture``,
+``.warm_up``), ``gn.batch`` (``.pack``, ``.to_device``) and ``gn.train.*``
+(``batch``, ``forward``, ``backward``, ``optimizer``, ``metrics``), and
+:class:`PhaseMarkers` puts one marker on the device at each phase
+boundary of a step body."""
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
+import threading
 import time
 from typing import Iterator
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from .config import tracing
+
 __all__ = ["trace", "annotate", "StepTimer"]
+
+# A step body's phases in the order their markers are enqueued: ``batch``
+# only where the step draws its own batch, ``end`` last.  The marker of a
+# phase is the kernel ``gn_phase_<phase>`` (``csrc/phase_marker.cu``).
+PHASES = ("batch", "forward", "backward", "optimizer", "metrics", "end")
 
 
 @contextlib.contextmanager
@@ -35,7 +53,9 @@ def trace(log_dir: str) -> Iterator[profile]:
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
     """A named range around a block: a ``record_function`` range in
-    ``torch.profiler`` traces and, on a card, an NVTX range."""
+    ``torch.profiler`` traces and, on a card, an NVTX range.  Always on;
+    the port's own paths open theirs through :func:`span`, which is this
+    range while the tracing switch is on and a profiler collects."""
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
@@ -45,6 +65,81 @@ def annotate(name: str) -> Iterator[None]:
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+
+
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _nvtx(name: str) -> Iterator[None]:
+    torch.cuda.nvtx.range_push(name)
+    try:
+        yield
+    finally:
+        torch.cuda.nvtx.range_pop()
+
+
+def span(name: str):
+    """The span sites of the step, capture and batch paths: with the
+    tracing switch off a no-op that costs one flag read; with it on
+    :func:`annotate` (``name``) while a ``torch.profiler`` is collecting,
+    and otherwise the NVTX range alone (on a card), since a
+    ``record_function`` range costs ~15 us a use with no profiler to
+    read it."""
+    if not tracing():
+        return _OFF
+    if torch.autograd._profiler_enabled():
+        return annotate(name)
+    return _nvtx(name) if torch.cuda.is_available() else _OFF
+
+
+class PhaseMarkers:
+    """The device phase markers of a step body on ``device``.
+
+    While the tracing switch is on, ``markers(phase)`` launches on the
+    current stream the empty one-thread kernel ``gn_phase_<phase>``
+    (``csrc/phase_marker.cu``).  A CUDA-graph capture takes it into the
+    graph, so every replay of a graph captured with the switch on carries
+    the markers, and one captured with it off none.  In a
+    ``torch.profiler`` trace a marker is a kernel event on the device's
+    clock whose name says the phase; a phase runs from its marker to the
+    next one.  A marker is a kernel, so a profile's kernel count holds the
+    five or six of each step (the file says why no memset or copy can be
+    a marker).  With the switch off, or off the card, nothing is
+    enqueued."""
+
+    # Step bodies open on this thread (see ``step``).
+    _open = threading.local()
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    @contextlib.contextmanager
+    def step(self) -> Iterator[None]:
+        """A step body: the outermost one open on this thread puts the
+        ``end`` marker when it closes, so a step body that calls another
+        (the sort device step calls ``make_train_step``'s) ends once."""
+        depth = getattr(self._open, "depth", 0)
+        self._open.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._open.depth = depth
+        if depth == 0:
+            self("end")
+
+    def __call__(self, phase: str) -> None:
+        if not tracing() or self.device.type != "cuda":
+            return
+        from ..ops.kernels import _build     # built on the first marker
+        lib = _build.load("phase_marker")
+        if lib.gn_phase_marker.argtypes is None:
+            lib.gn_phase_marker.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            lib.gn_phase_marker.restype = ctypes.c_int
+        _build.check(lib, lib.gn_phase_marker(
+            PHASES.index(phase),
+            torch.cuda.current_stream(self.device).cuda_stream),
+            f"phase marker {phase!r}")
 
 
 class StepTimer:
