@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase G         # phase G alone
     python3 chip_smoke.py --phase F         # phase F alone, with its kernels
     python3 chip_smoke.py --phase sums      # the segment sums, then A and S
+    python3 chip_smoke.py --phase adamw     # the optimizer's one-launch AdamW
 
 A ``--phase`` run builds the kernels, runs that phase alone and prints its
 JSON, with no kernels line and no ``ok`` line (``--phase F`` also runs
@@ -320,6 +321,17 @@ batches, and prints ``graph_acc`` beside the JAX package's records, with
 a curve of both accuracies every 2,000 steps; it exits 1 where one is
 more than 0.05 below its record.
 
+``--phase adamw`` holds the optimizer's update (``ops/kernels/adamw.py``)
+on the sort model's 72 tensors and ``lg256``'s 90 (the benchmark's two
+models) against torch's capturable foreach AdamW over 10 steps (4 f32
+ulps of each tensor's largest magnitude), at the benchmark's rate and
+decay (3e-4, 1e-4) and at 1e-2 and 0.1, where the decay alone moves each
+value by 1e-3 of itself a step, then times one step of each as
+CUDA-graph replays (kernel, torch's foreach AdamW as the plain version,
+torch's fused AdamW as the yardstick the port never calls; in turns) with
+its bound (28 bytes a value at 3.35 TB/s) and counts a step's kernels; it
+exits 1 where the kernel disagrees.
+
 Float32 products everywhere run without TF32 (set below), so the plain
 versions' f32 matmuls are exact-product, f32-accumulate.  The script
 imports neither JAX nor the JAX package.
@@ -436,6 +448,14 @@ def cuda_ms(torch, fn, iters=ITERS, warmup=WARMUP):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def grads_of(torch, model):
+    """Each parameter's gradient, cloned; zeros where the loss does not
+    reach it (the port's optimizer keeps no gradient there on the card
+    and takes it as zero)."""
+    return {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for n, p in model.named_parameters()}
 
 
 def graph_ms(torch, fn, iters=ITERS):
@@ -1176,7 +1196,7 @@ def train_phase(torch, pt, g, expect, zero_counts, read_counts, what):
     if launches != want:
         raise SystemExit(f"{what} did not take the kernels as expected "
                          f"({want}): {launches}")
-    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    grads = grads_of(torch, model)
     pt.enable_kernels(False)
     mp = pure_step(g, y)
     f32 = lambda t: t.float()
@@ -1185,12 +1205,12 @@ def train_phase(torch, pt, g, expect, zero_counts, read_counts, what):
     torch.cuda.synchronize()
     pt.enable_kernels(True)
     loss, pure_loss = float(m["loss"]), float(mp["loss"])
-    grads32 = dict(twin32.named_parameters())
+    pure, grads32 = grads_of(torch, twin), grads_of(torch, twin32)
     ratios = {}
-    for n, p in twin.named_parameters():
-        bound = max(5e-2 * float(p.grad.abs().max()),
-                    float((p.grad - grads32[n].grad).abs().max()))
-        err = float((grads[n] - p.grad).abs().max())
+    for n, t in pure.items():
+        bound = max(5e-2 * float(t.abs().max()),
+                    float((t - grads32[n]).abs().max()))
+        err = float((grads[n] - t).abs().max())
         ratios[n] = err / bound if bound > 0 else float(err > 0)
     worst = max((r, n) for n, r in ratios.items())
     if (abs(loss - pure_loss) > 1e-2 * abs(pure_loss) or worst[0] > 1.0
@@ -2076,7 +2096,7 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
     remat_launches = read_counts()
     remat_peak_gb = gib(torch.cuda.max_memory_allocated())
     remat_own_gb = gib(torch.cuda.max_memory_allocated() - base)
-    remat_grads = {n: p.grad.clone() for n, p in remat.named_parameters()}
+    remat_grads = grads_of(torch, remat)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -2091,7 +2111,7 @@ def large_train_phase(torch, pt, g, zero_counts, read_counts):
                                ln_backward=LG_CORES,
                                segment_sum=2 * LG_CORES, gather=LG_CORES),
                 "large-graph train step")
-    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    grads = grads_of(torch, model)
     loss, remat_loss = float(m["loss"]), float(m_remat["loss"])
     remat_worst = max((float((remat_grads[n] - t).abs().max())
                        / max(float(t.abs().max()), 1e-30), n)
@@ -2320,7 +2340,7 @@ def f32_large_train_phase(torch, pt, g, zero_counts, read_counts):
                     ffn_backward=2 * LG_CORES, ln_backward=LG_CORES,
                     segment_sum=2 * LG_CORES, gather=LG_CORES)
     want_counts(launches, per_step, "F(b) f32 train step")
-    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    grads = grads_of(torch, model)
     loss = float(m["loss"])
     pt.enable_kernels(False)
     pure_loss, pure = loss_and_grads(torch, pt, twin, g, y)
@@ -2505,7 +2525,7 @@ def sampled_phase(torch, pt, zero_counts, read_counts, graph, build_s):
     zero_counts()
     loss0 = float(run(step, b0))
     first_launches = read_counts()
-    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    grads = grads_of(torch, model)
     pt.enable_kernels(False)
     pure0 = float(run(pure_step, b0))
     f32_0 = float(f32_step(b0.graph, b0.node_ids, b0.labels, b0.label_mask,
@@ -2514,14 +2534,14 @@ def sampled_phase(torch, pt, zero_counts, read_counts, graph, build_s):
     # The backward of this route (the single-graph kernel's with f32
     # partials, the chunked sorted sum over the pad node's segment): the
     # first step's gradients under phase 4b's rule.
-    grads32 = dict(twin32.named_parameters())
+    pure, grads32 = grads_of(torch, twin), grads_of(torch, twin32)
     ratios = {}
-    for n, p in twin.named_parameters():
-        if p.numel() == 0:  # the encoder's parts for the width-0 sets
+    for n, t in pure.items():
+        if t.numel() == 0:  # the encoder's parts for the width-0 sets
             continue
-        bound = max(5e-2 * float(p.grad.abs().max()),
-                    float((p.grad - grads32[n].grad).abs().max()))
-        err = float((grads[n] - p.grad).abs().max())
+        bound = max(5e-2 * float(t.abs().max()),
+                    float((t - grads32[n]).abs().max()))
+        err = float((grads[n] - t).abs().max())
         ratios[n] = err / bound if bound > 0 else float(err > 0)
     worst = max((r, n) for n, r in ratios.items())
     log(f"sampled step 1 launches: {first_launches}; loss {loss0:.6f} vs "
@@ -3243,6 +3263,101 @@ GATE_SETTINGS = (
     ("min_rows_8192", {"min_rows": 8192}),
     ("agg_off", {"agg": False}),
 )
+
+
+def adamw_phase(torch, pt, where):
+    """``--phase adamw`` (see the module's docstring): a row a parameter
+    set with the values, the bound, each variant's ms a step (two
+    readings, in the order kernel, plain, lib, lib, plain, kernel), its
+    kernels a step, the kernel's launches in one step, and the kernel's
+    largest error in ulps at each checked setting."""
+    from graphnets_tpu_torch.ops.kernels import adamw as ak
+    from graphnets_tpu_torch.training.optim import FusedAdamW
+    models = {
+        "sort": lambda: pt.EncodeProcessDecode(
+            (0, 100, 0), (384,) * 3, (2, 2, 0), n_cores=2, device="cuda"),
+        "lg256": lambda: pt.GNCoreList(
+            [pt.GNCore((256,) * 3, device="cuda") for _ in range(3)])}
+
+    def make(variant, ps, lr, wd):
+        hyper = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
+                     capturable=True)
+        if variant == "kernel":
+            return FusedAdamW(ps, **hyper)
+        return torch.optim.AdamW(ps, **hyper, **(
+            {"foreach": True} if variant == "plain" else {"fused": True}))
+
+    def fresh(base, grads):
+        ps = [torch.nn.Parameter(p.clone()) for p in base]
+        for p, g in zip(ps, grads):
+            p.grad = g.clone()
+        return ps
+
+    # The benchmark's setting, and one where the decay moves each value by
+    # 1e-3 of itself a step, far above the tolerance, so that a kernel
+    # without it fails.
+    checks = {"lr3e-4_wd1e-4": (3e-4, 1e-4), "lr1e-2_wd1e-1": (1e-2, 0.1)}
+    out = {}
+    for name, build in models.items():
+        base = [p.detach() for p in build().parameters()]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        grads = [torch.randn(p.shape, generator=gen, device="cuda")
+                 for p in base]
+        numel = sum(p.numel() for p in base)
+        row = {"tensors": len(base), "values": numel,
+               "bound_ms": 28 * numel / H100_BYTES_PER_S * 1e3,
+               "ms": {v: [] for v in ("kernel", "plain", "lib")},
+               "kernels_per_step": {}, "worst_ulps": {}}
+        # Ten eager steps of the kernel against the plain version.
+        for setting, (lr, wd) in checks.items():
+            (kopt, kps), (popt, pps) = [
+                (make(v, ps, lr, wd), ps)
+                for v, ps in (("kernel", fresh(base, grads)),
+                              ("plain", fresh(base, grads)))]
+            for _ in range(10):
+                kopt.step()
+                popt.step()
+            torch.cuda.synchronize()
+            worst = 0.0
+            for p, q in zip(kps, pps):
+                pairs = [(p.detach(), q.detach())] + [
+                    (kopt.state[p][k], popt.state[q][k])
+                    for k in ("exp_avg", "exp_avg_sq")]
+                for a, b in pairs:
+                    if b.numel():
+                        scale = float(b.abs().max()) * 2.0 ** -23
+                        worst = max(worst, float((a - b).abs().max())
+                                    / max(scale, 1e-45))
+                if float(kopt.state[p]["step"]) != 10:
+                    raise SystemExit(f"adamw {name}: step counts not "
+                                     f"advanced")
+            row["worst_ulps"][setting] = worst
+            if worst > 4:
+                raise SystemExit(f"adamw {name} {setting}: the kernel "
+                                 f"disagrees with torch's foreach AdamW "
+                                 f"({worst:.2f} ulps)")
+        opts = {v: make(v, fresh(base, grads), 3e-4, 1e-4)
+                for v in row["ms"]}
+        for v in ("kernel", "plain", "lib", "lib", "plain", "kernel"):
+            row["ms"][v].append(graph_ms(torch, opts[v].step))
+        for v, opt in opts.items():
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                opt.step()
+            row["kernels_per_step"][v] = profile_replay(
+                torch, graph.replay)["replay_kernels"]
+        ak.LAUNCHES = 0
+        opts["kernel"].step()
+        row["launches_per_step"] = ak.LAUNCHES
+        log(f"adamw {name}: {len(base)} tensors, {numel:,} values, bound "
+            f"{row['bound_ms']:.4f} ms; ms a step as graph replays: kernel "
+            f"{row['ms']['kernel']}, plain (foreach) {row['ms']['plain']}, "
+            f"lib (fused) {row['ms']['lib']}; kernels a step "
+            f"{row['kernels_per_step']}, kernel launches a step "
+            f"{row['launches_per_step']}; kernel against plain after 10 "
+            f"steps {row['worst_ulps']} ulps (tolerance 4); {where}")
+        out[name] = row
+    return out
 
 
 def gates_phase(torch, pt):
@@ -4339,14 +4454,17 @@ def main() -> int:
         elif phase == "gates":
             _build.build()
             result = gates_phase(torch, pt)
+        elif phase == "adamw":
+            _build.build(["adamw"])
+            result = adamw_phase(torch, pt, where)
         elif phase == "flagship":
             _build.build()
             seeds = ([int(x) for x in args[args.index("--seeds") + 1]
                       .split(",")] if "--seeds" in args else None)
             result = flagship_phase(torch, pt, seeds)
         else:
-            raise SystemExit(f"unknown phase {phase!r}: F, G, sums, gates "
-                             f"or flagship")
+            raise SystemExit(f"unknown phase {phase!r}: F, G, sums, gates, "
+                             f"adamw or flagship")
         log(json.dumps({phase: result, "card": card}))
         if phase == "flagship":
             return 1 if any(r["fault"] for r in result.values()) else 0

@@ -49,6 +49,7 @@ from ..utils.profiling import PhaseMarkers, span
 from ..utils.tree import map_tensors, structure, tensors
 from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
                      masked_logit_crossentropy)
+from .optim import FusedAdam, FusedAdamW
 from .schedules import LearningRate, follow_schedule, initial_lr
 
 __all__ = ["adam", "adamw", "make_train_step",
@@ -66,26 +67,27 @@ def _device(params) -> torch.device:
 
 
 def adamw(params: Iterable[torch.Tensor], lr: LearningRate = 3e-4
-          ) -> torch.optim.AdamW:
+          ) -> FusedAdamW:
     """``optax.adamw(lr)`` in torch: betas (0.9, 0.999), eps 1e-8 and
     weight decay 1e-4 (torch's default decay is 1e-2).  On CUDA
     parameters it is ``capturable``, so :func:`capture_step` can take its
-    update into a CUDA graph.  ``lr`` is a float or a schedule
-    (``training/schedules``), evaluated at each step's count as optax
-    does."""
+    update into a CUDA graph, and its step is one kernel launch
+    (``training/optim``; torch's own step elsewhere).  ``lr`` is a float
+    or a schedule (``training/schedules``), evaluated at each step's count
+    as optax does."""
     params = list(params)
-    return follow_schedule(torch.optim.AdamW(
+    return follow_schedule(FusedAdamW(
         params, lr=initial_lr(lr, _device(params)), betas=(0.9, 0.999),
         eps=1e-8, weight_decay=1e-4, capturable=_on_cuda(params)), lr)
 
 
 def adam(params: Iterable[torch.Tensor], lr: LearningRate = 1e-3
-         ) -> torch.optim.Adam:
+         ) -> FusedAdam:
     """``optax.adam(lr)`` in torch: betas (0.9, 0.999), eps 1e-8;
-    ``capturable`` on CUDA parameters and ``lr`` a float or a schedule, as
-    :func:`adamw`."""
+    ``capturable`` on CUDA parameters, one kernel launch a step there, and
+    ``lr`` a float or a schedule, as :func:`adamw`."""
     params = list(params)
-    return follow_schedule(torch.optim.Adam(
+    return follow_schedule(FusedAdam(
         params, lr=initial_lr(lr, _device(params)), betas=(0.9, 0.999),
         eps=1e-8, capturable=_on_cuda(params)), lr)
 
@@ -154,12 +156,14 @@ def _backward_and_update(loss: torch.Tensor, params: Dict[str, nn.Parameter],
         loss.backward()
     mark("optimizer")
     with span("gn.train.optimizer"):
-        for p in params.values():
-            # A parameter the loss does not reach (the last core's graph
-            # update) has a zero gradient in JAX, and optax still decays
-            # it and advances its moments; torch would skip it.
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        # A parameter the loss does not reach (the last core's graph
+        # update) has a zero gradient in JAX, and optax still decays it
+        # and advances its moments; torch would skip it.  The port's own
+        # optimizers (training/optim) take a missing gradient as zero.
+        if not isinstance(optimizer, (FusedAdamW, FusedAdam)):
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         optimizer.step()
     mark("metrics")
 

@@ -232,6 +232,51 @@ def test_adamw_matches_optax():
                                    rtol=1e-6, atol=1e-9)
 
 
+
+@pytest.mark.parametrize("path", ["optimizer", "plain"])
+def test_missing_gradient_matches_optax(path):
+    """A parameter with no gradient (``None``) is one with a zero gradient,
+    as optax updates every leaf: decayed, its moments advanced.  Over 3
+    steps, through ``pt.adamw``'s own step and through the plain version
+    of the card's one-launch update (``ops/kernels/adamw``), against
+    ``optax.adamw`` given zeros for that leaf; tolerances as above."""
+    from graphnets_tpu_torch.ops.kernels import adamw as pt_aw
+    rng = np.random.default_rng(4)
+    p0 = {"w": rng.normal(size=(6, 5)).astype(np.float32),
+          "b": rng.normal(size=(5,)).astype(np.float32)}
+    grads = [{"w": rng.normal(size=(6, 5)).astype(np.float32),
+              "b": None} for _ in range(3)]
+    opt = optax.adamw(LR)
+    pj = jax.tree_util.tree_map(jnp.asarray, p0)
+    state = opt.init(pj)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in p0.items()}
+    topt = pt.adamw(tp.values(), LR)
+    moments = {k: (torch.zeros_like(p), torch.zeros_like(p), torch.zeros(()))
+               for k, p in tp.items()}
+    for g in grads:
+        gj = {k: jnp.zeros_like(pj[k]) if v is None else jnp.asarray(v)
+              for k, v in g.items()}
+        upd, state = opt.update(gj, state, pj)
+        pj = optax.apply_updates(pj, upd)
+        gt = {k: None if v is None else torch.from_numpy(v)
+              for k, v in g.items()}
+        if path == "optimizer":
+            for k, p in tp.items():
+                p.grad = gt[k]
+            topt.step()
+        else:
+            with torch.no_grad():
+                pt_aw.adamw_update_plain(
+                    list(tp.values()), [gt[k] for k in tp],
+                    *[[moments[k][i] for k in tp] for i in range(3)],
+                    lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                    weight_decay=1e-4)
+    for k in p0:
+        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(pj[k]),
+                                   rtol=1e-6, atol=1e-9)
+    assert not np.array_equal(tp["b"].detach().numpy(), p0["b"])
+
 _PLAIN = [(pt_eu, "fused_edge_update_plain"),
           (pt_ss, "sorted_segment_sum_plain"),
           (pt_ss, "windowed_segment_sum_plain"),
