@@ -1,7 +1,8 @@
 """One run of one cell: set-up (the model, its weights from the seed, the
 traffic, the captured step and its first three steps, which the checks
 compare), then the measured window or, with tracing, a profiled stretch,
-then the comparison with the plain reference and the result line."""
+then the comparison with the plain reference of the configuration's model
+kind (``reference/<kind>.py``) and the result line."""
 
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from reference import gn as ref_gn
+from reference.training import Readings
 
-from . import checks, spec
+from . import checks, spans, spec
 from . import trace as trace_mod
 from .peaks import peaks
 
@@ -125,7 +126,7 @@ def prepare(cell: spec.Cell, seed: int, device) -> Session:
                    opt["lr"], phases)
 
 
-def program_readings(s: Session, k: int = CHECKED_STEPS) -> ref_gn.Readings:
+def program_readings(s: Session, k: int = CHECKED_STEPS) -> Readings:
     """The program's first ``k`` steps through the window's own call:
     each loss, the first gradient as the optimizer got it (its first
     moment after one step over ``1 - beta1``) and each parameter's change
@@ -148,8 +149,8 @@ def program_readings(s: Session, k: int = CHECKED_STEPS) -> ref_gn.Readings:
                               for n, p in params.items()])
     vals = torch.cat([torch.stack(losses), grads, change]).tolist()
     names, m = list(params), len(params)
-    return ref_gn.Readings(vals[:k], dict(zip(names, vals[k:k + m])),
-                           dict(zip(names, vals[k + m:])))
+    return Readings(vals[:k], dict(zip(names, vals[k:k + m])),
+                    dict(zip(names, vals[k + m:])))
 
 
 def release(s: Session) -> None:
@@ -162,23 +163,30 @@ def release(s: Session) -> None:
         torch.cuda.empty_cache()
 
 
-def half_batch(x: ref_gn.Graphs):
-    """A planted fault: the loss's mean over half the batch (the rows of
-    the first half of the graphs, or of the first half of the rows of one
-    graph)."""
-    if x.n_graph > 1:
-        h = x.n_graph // 2
-        return x.node_graph < h, x.edge_graph < h
-    dev = x.senders.device
-    return (torch.arange(x.n_node, device=dev) < x.n_node // 2,
-            torch.arange(x.senders.numel(), device=dev)
-            < x.senders.numel() // 2)
-
-
 def reference_readings(s: Session, batches, precision: str = "f32",
-                       keep=None) -> ref_gn.Readings:
-    return ref_gn.train(s.w0, batches, s.cell.config["model"], s.lr,
-                        precision, keep)
+                       keep=None) -> Readings:
+    """The plain reference of the cell's model kind over ``batches`` from
+    the program's initial weights; ``keep`` plants a fault (the kind's
+    ``half_batch``)."""
+    return s.cell.reference().train(s.w0, batches, s.cell.config["model"],
+                                    s.lr, precision, keep)
+
+
+COPY_IN = ("copy_in_bytes", "copy_in_tensors")
+
+
+def counters(feed) -> Dict[str, Optional[float]]:
+    """The program's counters as they stand: the feed's ``counters()``
+    where it has one, otherwise the captured step's copy-in counters
+    (``None`` where the program has no such counter)."""
+    if hasattr(feed, "counters"):
+        return dict(feed.counters())
+    return {k: getattr(feed.step, k, None) for k in COPY_IN}
+
+
+def _change(before: dict, after: dict) -> Dict[str, Optional[float]]:
+    return {k: None if after[k] is None or before.get(k) is None
+            else after[k] - before[k] for k in after}
 
 
 @dataclasses.dataclass
@@ -187,7 +195,14 @@ class Window:
     steps: int
     step_ms: List[float]
     losses: list
+    rows: list
+    host_batch_s: Optional[List[float]]
+    peak_bytes: int
+    recaptures: int
     timeline: Optional[trace_mod.Timeline] = None
+    program: Optional[spans.Program] = None
+    counters: Dict[str, Optional[float]] = dataclasses.field(
+        default_factory=dict)
 
 
 def _units(s: Session, clock: Clock, n: Optional[int], seconds: float
@@ -205,38 +220,78 @@ def _units(s: Session, clock: Clock, n: Optional[int], seconds: float
     return out, steps, time.perf_counter() - t0
 
 
+def _close(s: Session, steps: int) -> tuple:
+    """What the window's readers take from the feed and the card once it
+    has closed: each step's rows, the host's batching times, the peak."""
+    return (s.feed.window_rows(steps),
+            s.feed.window_batch_s(steps)
+            if hasattr(s.feed, "window_batch_s") else None,
+            torch.cuda.max_memory_allocated(s.device)
+            if s.device.type == "cuda" else 0)
+
+
 def measure(s: Session, seconds: float) -> Window:
     """The measured window: whole units until ``seconds`` have passed on
     the host clock, ended by a device sync."""
     clock = Clock(s.device, s.cell.traffic.get("in_flight", 0))
+    captures = s.feed.step.captures
     sync(s.device)
     s.feed.begin_window()
     clock.start()
     losses, steps, wall = _units(s, clock, None, seconds)
-    return Window(wall, steps, clock.step_ms(), losses)
+    return Window(wall, steps, clock.step_ms(), losses, *_close(s, steps),
+                  s.feed.step.captures - captures)
 
 
-def measure_traced(s: Session) -> Window:
-    """A bounded stretch of steady units under ``torch.profiler`` (after
-    ``trace_warm_units`` units untraced), its Chrome trace written inside
-    the checkout and read back."""
+def _stretch(s: Session, clock: Clock, tracing: bool, tag: str) -> tuple:
+    """``trace_warm_units`` units with the program's tracing switch set to
+    ``tracing``, then ``trace_units`` units under ``torch.profiler``, its
+    Chrome trace written inside the checkout.  Returns the stretch's
+    losses, steps, wall time, timeline, trace path, program counters'
+    change and the captures it made beyond the one that switching the
+    tracing asks for."""
     from torch.profiler import ProfilerActivity, profile
     t = s.cell.traffic
-    clock = Clock(s.device, t.get("in_flight", 0))
-    clock.start()
+    switched = int(s.port.tracing() != tracing)
+    s.port.enable_tracing(tracing)
+    c0 = s.feed.step.captures
     for _ in range(t["trace_warm_units"]):
         s.feed.unit(clock.mark)
     sync(s.device)
+    c1 = s.feed.step.captures
     s.feed.begin_window()
+    before = counters(s.feed)
     activities = [ProfilerActivity.CPU]
     if s.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         losses, steps, wall = _units(s, clock, t["trace_units"], 0.0)
+    change = _change(before, counters(s.feed))
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / f"trace-{s.cell.name}.json"
+    path = TRACE_DIR / f"trace-{s.cell.name}-{tag}.json"
     prof.export_chrome_trace(str(path))
-    return Window(wall, steps, [], losses, trace_mod.read(path))
+    extra = max(0, c1 - c0 - switched) + s.feed.step.captures - c1
+    return losses, steps, wall, trace_mod.read(path), path, change, extra
+
+
+def measure_traced(s: Session) -> Window:
+    """Two traced stretches of the same number of steady units.  The
+    first runs with the program's tracing switch off, as an untraced run
+    does: the device's timeline, the program counters' change, the rows, the
+    host's batching times and the peak are read from it, so no reading of
+    the device pays for the program's host spans.  The second runs with
+    the switch on (``enable_tracing``: captured anew with the phase
+    markers): the program's spans and markers are read from it, with its
+    own timeline (``Program.timeline``)."""
+    clock = Clock(s.device, s.cell.traffic.get("in_flight", 0))
+    clock.start()
+    losses, steps, wall, tl, _, change, extra = _stretch(
+        s, clock, False, "device")
+    closed = _close(s, steps)
+    more, _, _, tl_p, path, _, extra_p = _stretch(s, clock, True, "program")
+    s.port.enable_tracing(False)
+    return Window(wall, steps, [], losses + more, *closed, extra + extra_p,
+                  tl, spans.read(path, tl_p), change)
 
 
 def _failed(losses) -> int:
@@ -272,24 +327,19 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
     s.phases = {"interpreter_and_torch": t_prepare - t_start, **s.phases}
     t_steps = time.perf_counter()
     prog = program_readings(s)
-    captures = s.feed.step.captures
     t_window = time.perf_counter()
     s.phases["capture_and_checked_steps"] = t_window - t_steps
     w = measure_traced(s) if traced else measure(s, seconds)
-    recaptured = s.feed.step.captures - captures
     cuda = s.device.type == "cuda"
-    peak_bytes = torch.cuda.max_memory_allocated(s.device) if cuda else 0
-    rows = s.feed.window_rows(w.steps)
     kind = torch.cuda.get_device_name(s.device) if cuda else "cpu"
     ctx = SimpleNamespace(
         config=cell.config, traffic=cell.traffic, peaks=peaks(kind),
-        steps=w.steps, window_s=w.seconds, step_ms=w.step_ms, rows=rows,
+        steps=w.steps, window_s=w.seconds, step_ms=w.step_ms, rows=w.rows,
         step_flops=[cell.model().step_flops(cell.config["model"], r)
-                    for r in rows],
-        setup_s=t_window - t_start, peak_bytes=peak_bytes,
-        timeline=w.timeline,
-        host_batch_s=(s.feed.window_batch_s(w.steps)
-                      if hasattr(s.feed, "window_batch_s") else None))
+                    for r in w.rows],
+        setup_s=t_window - t_start, peak_bytes=w.peak_bytes,
+        timeline=w.timeline, program=w.program, counters=w.counters,
+        host_batch_s=w.host_batch_s)
     metrics = {}
     for m in (cell.per_layer if traced else cell.end_to_end):
         value = importlib.import_module("metrics." + m["name"]).read(ctx)
@@ -303,22 +353,26 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
     ref = reference_readings(s, batches)
     found = checks.gaps(prog, ref)
     ok, compared = checks.judge(found, cell.checks["limits"])
-    compared["recaptures"] = {"value": recaptured, "limit": 0}
+    compared["recaptures"] = {"value": w.recaptures, "limit": 0}
     compared["failed_steps"] = {"value": failed, "limit": 0}
-    correct = ok and recaptured == 0 and failed == 0 and w.steps > 0
+    correct = ok and w.recaptures == 0 and failed == 0 and w.steps > 0
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
     if loaded:
         print(f"refusing to report: the process holds {loaded}", file=err)
         return 4
     dev = {"platform": "gpu" if cuda else "cpu", "kind": kind,
-           "count": 1, "memory_peak_bytes": int(peak_bytes)}
+           "count": 1, "memory_peak_bytes": int(w.peak_bytes)}
     result = {"correct": correct, "attempted": w.steps, "failed": failed,
               "metrics": metrics, "device": dev}
     if traced and w.timeline is not None:
         dev["busy_s"] = w.timeline.busy_s
         dev["window_s"] = w.timeline.window_s
-        result["breakdown"] = w.timeline.breakdown()
+        # The device's operations from the stretch with the switch off;
+        # the idle gaps from the one with it on, labelled by its spans.
+        result["breakdown"] = {
+            "device_ops": w.timeline.breakdown()["device_ops"],
+            "idle_gaps": spans.idle_gaps(w.program.timeline, w.program)}
         limit = _power_limit() if cuda else None
         if limit:
             dev["power_limit"] = limit

@@ -3,9 +3,13 @@ trace: the ``gn.*`` host ranges that ``graphnets_tpu_torch`` opens while
 its tracing switch is on (``GRAPHNETS_TPU_TORCH_TRACE=1``), and the device
 phase markers of its step bodies.
 
-A marker is the empty kernel ``gn_phase_<phase>`` (the port's
-``csrc/phase_marker.cu``); a phase runs from its marker to the next, and a
-step from its first marker to its ``end``.
+A marker is the empty kernel ``gn_phase_<name>`` (the port's
+``csrc/phase_marker.cu``).  The six ``PHASES`` are the step's phases: a
+phase runs from its marker to the next phase's, and a step from its first
+marker to its ``end``.  Any other name is a sub-phase (a stage of a model,
+say): it runs from its marker to the next marker of any name, inside the
+phase it falls in, which it neither ends nor splits.  A reader of a new
+marker is a ``metrics/<name>.py`` that calls ``phase_ms(ctx, name)``.
 A trace without them (the switch off, or a program that has none) reads
 as empty: every reading is ``None`` and the idle gaps keep the harness's
 labels."""
@@ -16,9 +20,10 @@ import bisect
 import dataclasses
 import json
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
-from .trace import Timeline
+if TYPE_CHECKING:
+    from .trace import Timeline
 
 PREFIX = "gn."
 PHASES = ("batch", "forward", "backward", "optimizer", "metrics", "end")
@@ -26,12 +31,12 @@ MARKER = "gn_phase_"
 
 
 def _marker(e: dict) -> Optional[str]:
-    """The phase ``e`` marks, or ``None`` where it is no marker."""
+    """The phase or sub-phase ``e`` marks, or ``None`` where it is no
+    marker."""
     name = e.get("name", "")
     if e.get("cat") != "kernel" or not name.startswith(MARKER):
         return None
-    phase = name[len(MARKER):].split("(")[0]
-    return phase if phase in PHASES else None
+    return name[len(MARKER):].split("(")[0] or None
 
 
 def _covered(merged: List[Tuple[float, float]], starts: List[float],
@@ -49,21 +54,24 @@ def _covered(merged: List[Tuple[float, float]], starts: List[float],
 @dataclasses.dataclass
 class Program:
     """The program's host ranges (``(start, end, name)``, host clock) and
-    phase markers (``(device start, phase)``) that start inside the traced
-    window, in time order."""
+    markers of phases and sub-phases (``(device start, name)``) that start
+    inside the traced window, in time order, and the timeline of that
+    window (its device operations, markers included)."""
     spans: List[Tuple[float, float, str]]
     markers: List[Tuple[float, str]]
+    timeline: Optional[Timeline] = None
 
     def steps(self) -> List[List[Tuple[float, str]]]:
-        """The markers of each whole step, from its first phase (the
+        """The phase markers of each whole step, from its first phase (the
         earliest phase any marker names: ``batch`` where the step draws
         its own batch) to its ``end``; a step the window's edges cut is
         left out."""
-        if not self.markers:
+        marks = [(t, ph) for t, ph in self.markers if ph in PHASES]
+        if not marks:
             return []
-        first = min(PHASES.index(ph) for _, ph in self.markers)
+        first = min(PHASES.index(ph) for _, ph in marks)
         out, cur = [], []
-        for t, phase in self.markers:
+        for t, phase in marks:
             i = PHASES.index(phase)
             if i == first:
                 cur = [(t, phase)]
@@ -80,6 +88,18 @@ class Program:
         """Each phase of each whole step: ``(start, end, phase)``."""
         return [(a, b, p) for step in self.steps()
                 for (a, p), (b, _) in zip(step, step[1:])]
+
+    def sub_intervals(self) -> List[Tuple[float, float, str]]:
+        """Each sub-phase inside a whole step, from its marker to the next
+        marker of any name: ``(start, end, name)``."""
+        bounds = [(s[0][0], s[-1][0]) for s in self.steps()]
+        firsts = [a for a, _ in bounds]
+        out = []
+        for (t, name), (t2, _) in zip(self.markers, self.markers[1:]):
+            i = bisect.bisect_right(firsts, t) - 1
+            if name not in PHASES and i >= 0 and t < bounds[i][1]:
+                out.append((t, t2, name))
+        return out
 
     def span_seconds(self, name: str) -> float:
         return sum(b - a for a, b, n in self.spans if n == name) * 1e-6
@@ -102,7 +122,7 @@ def read(path, tl: Timeline) -> Program:
             spans.append((a, a + float(e["dur"]), e["name"]))
         elif _marker(e) is not None:
             markers.append((a, _marker(e)))
-    return Program(sorted(spans), sorted(markers))
+    return Program(sorted(spans), sorted(markers), tl)
 
 
 def of(ctx) -> Optional[Program]:
@@ -113,12 +133,13 @@ def of(ctx) -> Optional[Program]:
 
 
 def phase_seconds(tl: Timeline, p: Program) -> Dict[str, float]:
-    """Busy device seconds in each phase, summed over the whole steps:
-    the union of the device's operations clipped to each phase."""
+    """Busy device seconds in each phase and each sub-phase, summed over
+    the whole steps: the union of the device's operations clipped to each
+    (a sub-phase's time is also its phase's)."""
     merged = tl.busy_intervals()
     starts = [a for a, _ in merged]
     out: Dict[str, float] = defaultdict(float)
-    for a, b, phase in p.intervals():
+    for a, b, phase in p.intervals() + p.sub_intervals():
         out[phase] += _covered(merged, starts, a, b) * 1e-6
     return dict(out)
 
@@ -134,11 +155,16 @@ def graph_gap_seconds(tl: Timeline, p: Program) -> float:
 
 
 def phase_ms(ctx, phase: str) -> Optional[float]:
-    """Busy device milliseconds a whole step in ``phase``."""
-    p, tl = of(ctx), ctx.timeline
-    if p is None or tl is None or not p.steps():
+    """Busy device milliseconds a whole step in ``phase``, a phase or a
+    sub-phase, on the timeline the markers were read from."""
+    p = of(ctx)
+    tl = p.timeline if p is not None else None
+    if tl is None or not p.steps():
         return None
-    return phase_seconds(tl, p).get(phase, 0.0) * 1e3 / len(p.steps())
+    busy = phase_seconds(tl, p)
+    if phase not in busy:       # no whole step holds its marker
+        return None
+    return busy[phase] * 1e3 / len(p.steps())
 
 
 def span_ms(ctx, name: str) -> Optional[float]:

@@ -2,8 +2,9 @@
 configuration (``configs/<config>.json``), its traffic
 (``traffic/<traffic>.json``), its checks (``cells/<cell>.json``), the
 generator the traffic names (``generators/<generator>.py``), the model
-the configuration names (``models/<model kind>.py``) and each per-layer
-metric's reader (``metrics/<metric>.py``)."""
+and the plain reference of the configuration's model kind
+(``models/<kind>.py``, ``reference/<kind>.py``) and each metric's reader
+(``metrics/<metric>.py``)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,10 @@ class Cell:
     def model(self):
         return importlib.import_module(
             "models." + self.config["model"]["kind"])
+
+    def reference(self):
+        return importlib.import_module(
+            "reference." + self.config["model"]["kind"])
 
 
 def load_json(path: Path) -> dict:

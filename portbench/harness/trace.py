@@ -1,14 +1,16 @@
 """Reading a ``torch.profiler`` Chrome trace: the device's operations in
-the traced window, their union on the timeline, the idle gaps labelled by
-what the host was doing, and the breakdown the result line carries."""
+the traced window, their union on the timeline, and the breakdown the
+result line carries, its idle gaps labelled by what the host was doing
+(``spans.idle_gaps``)."""
 
 from __future__ import annotations
 
-import bisect
 import dataclasses
 import json
 from collections import defaultdict
 from typing import Dict, List, Tuple
+
+from . import spans
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "portbench.window"
@@ -67,30 +69,21 @@ class Timeline:
             gaps.append((t, self.end))
         return gaps
 
-    def host_phase(self, t: float) -> str:
-        """The harness's host phase at time ``t``, or "host other"."""
-        i = bisect.bisect_right(self._phase_starts, t) - 1
-        if i >= 0 and self.phases[i][1] >= t:
-            return self.phases[i][2]
-        return "host other"
-
-    def __post_init__(self):
-        self.phases.sort()
-        self._phase_starts = [p[0] for p in self.phases]
-
     def device_seconds(self, match) -> float:
         return sum(o.end - o.start for o in self.ops if match(o)) * 1e-6
 
-    def breakdown(self, top: int = 10) -> Dict[str, list]:
+    def breakdown(self, program=None, top: int = 10) -> Dict[str, list]:
+        """The ``top`` device operations by their time, and the ``top``
+        idle gaps by the innermost host range open at each: the
+        program's own (``program``, a ``spans.Program``) or the
+        harness's."""
         by_name: Dict[str, float] = defaultdict(float)
         for o in self.ops:
             by_name[o.name[:NAME_CHARS]] += (o.end - o.start) * 1e-6
-        by_phase: Dict[str, float] = defaultdict(float)
-        for a, b in self.idle_gaps():
-            by_phase[self.host_phase((a + b) / 2)] += (b - a) * 1e-6
-        rank = lambda d: [[k, v] for k, v in sorted(
-            d.items(), key=lambda kv: -kv[1])[:top]]
-        return {"device_ops": rank(by_name), "idle_gaps": rank(by_phase)}
+        ops = [[k, v] for k, v in sorted(by_name.items(),
+                                         key=lambda kv: -kv[1])[:top]]
+        return {"device_ops": ops,
+                "idle_gaps": spans.idle_gaps(self, program, top)}
 
 
 def read(path) -> Timeline:

@@ -7,7 +7,7 @@ from harness import spans
 
 
 def read(ctx):
-    p, tl = spans.of(ctx), ctx.timeline
-    if p is None or tl is None or not p.steps():
+    p = spans.of(ctx)
+    if p is None or p.timeline is None or not p.steps():
         return None
-    return spans.graph_gap_seconds(tl, p) * 1e3 / len(p.steps())
+    return spans.graph_gap_seconds(p.timeline, p) * 1e3 / len(p.steps())

@@ -19,8 +19,8 @@ write it.  It imports nothing of the program.
   FFN ``Dense(d, 4d, relu) -> Dense(4d, d)``.
 * The loss is the mean softmax cross-entropy over the nodes plus the same
   over the edges.
-* AdamW is optax's: b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay
-  1e-4 (``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``).
+* AdamW and the training loop are ``reference/training.py``'s, which
+  every kind shares (its names are re-exported here).
 
 Parameters are a dict keyed by the dotted names of the model's modules
 (``core.0.block.edgefn.w``, ``0.ffwd.eff.0.w``, ...).  ``precision``
@@ -35,14 +35,17 @@ scaled per tensor), as a bf16 configuration keeps them in bf16.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import training
+from .training import (ADAM_EPS, BETA1, BETA2, WEIGHT_DECAY,  # noqa: F401
+                       Readings, adamw_update)
+
 EPS = 1e-5
 ROWS = 1 << 17
-BETA1, BETA2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
 FP8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
 
 
@@ -282,26 +285,17 @@ def loss(pred: Graphs, target: Graphs, keep=None) -> torch.Tensor:
             + cross_entropy(pred.ef, target.ef, ek))
 
 
-def adamw_update(p, g, m, v, t: int, lr: float) -> None:
-    """One AdamW update of ``p`` in place from its gradient ``g``, its
-    moments ``m`` and ``v`` (updated in place) at step ``t`` (from 1)."""
-    m.mul_(BETA1).add_(g, alpha=1 - BETA1)
-    v.mul_(BETA2).addcmul_(g, g, value=1 - BETA2)
-    m_hat = m / (1 - BETA1 ** t)
-    v_hat = v / (1 - BETA2 ** t)
-    p.sub_(lr * (m_hat / (v_hat.sqrt() + ADAM_EPS) + WEIGHT_DECAY * p))
-
-
-@dataclasses.dataclass
-class Readings:
-    """What the checks compare: each step's loss, each leaf's first
-    gradient norm and each leaf's change after the steps (by name); the
-    reference also gives each step's ``loss_scale``."""
-    losses: List[float]
-    grad_norms: Dict[str, float]
-    change_norms: Dict[str, float]
-    loss_scales: Optional[List[float]] = None
-    sizes: Optional[Dict[str, int]] = None
+def half_batch(x: Graphs):
+    """A planted fault: the loss's mean over half the batch (the rows of
+    the first half of the graphs, or of the first half of the rows of one
+    graph), as ``keep`` for :func:`train`."""
+    if x.n_graph > 1:
+        h = x.n_graph // 2
+        return x.node_graph < h, x.edge_graph < h
+    dev = x.senders.device
+    return (torch.arange(x.n_node, device=dev) < x.n_node // 2,
+            torch.arange(x.senders.numel(), device=dev)
+            < x.senders.numel() // 2)
 
 
 def train(params: Dict[str, torch.Tensor], batches: Sequence, model: dict,
@@ -309,29 +303,7 @@ def train(params: Dict[str, torch.Tensor], batches: Sequence, model: dict,
     """AdamW steps from ``params`` (left untouched), one per ``(x, y)`` of
     ``batches``; the loss of each step, the norms of the first step's
     gradients and of each parameter's change after the last step."""
-    p = {k: v.detach().clone().float().requires_grad_(True)
-         for k, v in params.items()}
-    m = {k: torch.zeros_like(v) for k, v in p.items()}
-    v2 = {k: torch.zeros_like(v) for k, v in p.items()}
-    losses, scales, grad_norms = [], [], {}
-    for t, (x, y) in enumerate(batches, start=1):
-        for q in p.values():
-            q.grad = None
+    def step_loss(p, x, y, keep_t):
         out = forward(p, x, model, precision)
-        keep_t = keep(x) if callable(keep) else keep
-        lo = loss(out, y, keep_t)
-        scales.append(loss_scale(out, y))
-        del out
-        lo.backward()
-        losses.append(float(lo.detach()))
-        with torch.no_grad():
-            for k, q in p.items():
-                g = q.grad if q.grad is not None else torch.zeros_like(q)
-                if t == 1:
-                    grad_norms[k] = float(g.norm())
-                adamw_update(q, g, m[k], v2[k], t, lr)
-    with torch.no_grad():
-        change = {k: float((q - params[k].float()).norm())
-                  for k, q in p.items()}
-    return Readings(losses, grad_norms, change, scales,
-                    {k: q.numel() for k, q in p.items()})
+        return loss(out, y, keep_t), loss_scale(out, y)
+    return training.train(params, batches, step_loss, lr, keep)

@@ -4,9 +4,12 @@
 
 Run from the root of a checkout on a machine with an NVIDIA card.  With
 ``--trace 0`` the result line holds the cell's end-to-end metrics; with
-``--trace 1`` its per-layer metrics, read from a profiled stretch.  A run
-with no card, or with fewer cards than the cell asks for, exits with code
-3 and prints no result: it never falls back to the CPU.
+``--trace 1`` its per-layer metrics, read from two profiled stretches:
+one with the program's own tracing switch off, for the device's readings,
+and one with it on (``enable_tracing``: its spans and phase markers), for
+the readers of those (``harness/runner.py`` ``measure_traced``).  A run
+with no card, or with fewer cards than the cell asks for, exits with
+code 3 and prints no result: it never falls back to the CPU.
 """
 
 import time

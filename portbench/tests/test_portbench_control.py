@@ -1,9 +1,10 @@
 """The control comes out as not correct: the plain reference in the next
 precision below the configuration's (TF32 for the f32 recipe, fp8 for the
-bf16 large graph), put in the program's place, reads over at least one
-of the cell's limits on three seeds.  On the CPU at sizes a test run can
-hold (the recipe at its own size; the large graph cut to 2,048 nodes and
-32,768 edges); marked ``cuda``, at every cell's own size on the card."""
+bf16 large graph and mini-batches), put in the program's place, reads over
+at least one of the cell's limits on three seeds.  On the CPU at sizes a
+test run can hold (the recipe at its own size; the large graph cut to
+2,048 nodes and 32,768 edges; the mini-batches at their own size, 4 of
+them made); marked ``cuda``, at every cell's own size on the card."""
 
 import pytest
 import torch
@@ -18,6 +19,8 @@ def _control_fails(name, seed, device, small=False):
     cell = spec.cell(name)
     if small and cell.traffic["generator"] == "single_graph":
         cell.traffic.update(num_nodes=2048, num_edges=32768)
+    if small and cell.traffic["generator"] == "uniform_batches":
+        cell.traffic.update(batches=4)
     s = runner.prepare(cell, seed, device)
     runner.program_readings(s)        # draws the checked steps' batches
     runner.release(s)
@@ -32,7 +35,7 @@ def _control_fails(name, seed, device, small=False):
 
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("name", ["sort384.device_loop", "sort384.host_loop",
-                                  "lg256.one_graph"])
+                                  "lg256.one_graph", "lg256.batch8x128"])
 def test_control_fails_on_the_cpu(name, seed):
     failed, compared = _control_fails(name, seed, "cpu", small=True)
     assert failed, compared

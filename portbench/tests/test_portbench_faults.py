@@ -3,7 +3,8 @@ underneath: ``correct`` comes out false for each fault a training cell
 can have (its state left unchanged; half of the batch left out of the
 loss's mean).  A sound run of the f32 recipe comes out true.  On the CPU,
 with the traffic cut so a run fits a test: the large graph at 512 nodes
-and 8,192 edges, the sort recipe's chunks at 2 steps."""
+and 8,192 edges, the sort recipe's chunks at 2 steps, the mini-batches 4
+of 4 graphs."""
 
 import io
 import json
@@ -15,7 +16,8 @@ import torch
 from graphnets_tpu_torch.training import losses
 from harness import runner, spec
 
-CELLS = ("lg256.one_graph", "sort384.device_loop", "sort384.host_loop")
+CELLS = ("lg256.one_graph", "sort384.device_loop", "sort384.host_loop",
+         "lg256.batch8x128")
 
 
 def _cell(name):
@@ -24,6 +26,8 @@ def _cell(name):
         cell.traffic.update(num_nodes=512, num_edges=8192)
     if "chunk" in cell.traffic:
         cell.traffic["chunk"] = 2
+    if cell.traffic["generator"] == "uniform_batches":
+        cell.traffic.update(batches=4, graphs=4)
     return cell
 
 

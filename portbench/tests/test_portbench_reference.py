@@ -109,3 +109,35 @@ def test_large_graph_agrees_with_the_pure_route():
     (the split-linear and the concatenated routes of the port itself
     differ so in f32, and agree to 1e-5 in f64)."""
     _compare(*_graph_batch(), compute_dtype=None, tol=2e-3)
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread: ``index_add`` sums in another order on more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name", ["lg256.one_graph", "sort384.host_loop"])
+def test_the_kinds_reference_is_gn_train(name, one_thread):
+    """The harness reaches the ``gn`` kind's reference through
+    ``cell.reference()``, and its readings (sound, control and planted
+    fault) equal ``reference.gn.train``'s called directly, bit for bit."""
+    from harness import runner
+    cell = spec.cell(name)
+    if cell.traffic["generator"] == "single_graph":
+        cell.traffic.update(num_nodes=256, num_edges=2048)
+    assert cell.reference() is ref_gn
+    s = runner.prepare(cell, 2 ** 31 + 77, CPU)
+    runner.program_readings(s)
+    runner.release(s)
+    batches = s.feed.reference_batches(runner.CHECKED_STEPS)
+    model = cell.config["model"]
+    control = "tf32" if cell.config["compute_dtype"] == "float32" else "fp8"
+    for precision, keep in (("f32", None), (control, None),
+                            ("f32", ref_gn.half_batch)):
+        via = runner.reference_readings(s, batches, precision, keep)
+        direct = ref_gn.train(s.w0, batches, model, s.lr, precision, keep)
+        assert via == direct, (precision, keep)

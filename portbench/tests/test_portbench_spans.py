@@ -58,17 +58,17 @@ def _step(o, program=True):
     return host + dev
 
 
-def _ctx(tmp_path, program=True):
+def _ctx(tmp_path, program=True, extra=None):
     events = [_x("user_annotation", "portbench.window", 0, 1000)]
     for o in (0, 500):
-        events += _step(o, program)
+        events += _step(o, program) + (extra(o) if extra else [])
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     tl = trace.read(path)
     return SimpleNamespace(steps=2, timeline=tl,
                            program=spans.read(path, tl),
-                           **({"copy_in_bytes": 2_000_000} if program
-                              else {}))
+                           counters={"copy_in_bytes": 2_000_000}
+                           if program else {})
 
 
 def test_markers_are_the_programs():
@@ -139,3 +139,91 @@ def test_steps_cut_by_the_window_are_left_out():
     assert [ph for _, ph in p("optimizer", "metrics", "end", *whole[1:])
             .steps()[0]] == whole[1:]
     assert p().steps() == [] and p("forward", "backward").steps() == []
+
+
+def test_a_sub_phase_marker_reads_its_own_time(tmp_path):
+    """A marker of another name (``gn_phase_encoder`` inside the forward)
+    is a sub-phase: it runs to the next marker of any name and leaves the
+    six phases, the steps and the launch count as they were."""
+    def sub(o):
+        return [_x("kernel", "gn_phase_encoder()", o + 202, o + 204)]
+    plain = _ctx(tmp_path)
+    ctx = _ctx(tmp_path, extra=sub)
+    assert len(ctx.program.steps()) == 2
+    assert ctx.program.sub_intervals() == [(202.0, 250.0, "encoder"),
+                                           (702.0, 750.0, "encoder")]
+    got = spans.phase_seconds(ctx.timeline, ctx.program)
+    want = spans.phase_seconds(plain.timeline, plain.program)
+    # [202, 250) holds its own marker 2 and the forward kernel 36 us.
+    assert got == pytest.approx({**want, "encoder": 76e-6,
+                                 "forward": want["forward"] + 4e-6})
+    for m in ("fwd_ms_per_step", "bwd_ms_per_step", "opt_ms_per_step"):
+        read = importlib.import_module("metrics." + m).read
+        assert read(ctx) == pytest.approx(read(plain) + (
+            0.002 if m == "fwd_ms_per_step" else 0.0)), m
+    assert spans.phase_ms(ctx, "encoder") == pytest.approx(0.038)
+    assert spans.phase_ms(plain, "encoder") is None
+    launches = importlib.import_module("metrics.launches_per_step").read
+    assert launches(ctx) == launches(plain)
+
+
+def test_launches_leave_the_markers_out(tmp_path):
+    """Five kernels a step: the five markers are not counted."""
+    launches = importlib.import_module("metrics.launches_per_step").read
+    assert launches(_ctx(tmp_path)) == 5
+    assert launches(_ctx(tmp_path, program=False)) == 5
+
+
+def test_device_and_span_readers_take_their_own_stretch(tmp_path):
+    """A traced run reads the device from a stretch with the program's
+    tracing off (``ctx.timeline``) and the program's spans and markers
+    from one with it on (``ctx.program``, on its own timeline): each
+    reader reads its own stretch."""
+    (tmp_path / "off").mkdir()
+    (tmp_path / "on").mkdir()
+    off = _ctx(tmp_path / "off", program=False)
+    on = _ctx(tmp_path / "on")
+    ctx = SimpleNamespace(steps=2, timeline=off.timeline, program=on.program,
+                          counters=on.counters)
+    assert ctx.program.timeline is on.timeline
+    for m in METRICS:
+        read = importlib.import_module("metrics." + m).read
+        assert read(ctx) == pytest.approx(read(on)), m
+    for m in ("device_idle_share", "launches_per_step", "cast_ms_per_step"):
+        read = importlib.import_module("metrics." + m).read
+        assert read(ctx) == pytest.approx(read(off)), m
+    # The markers are device operations of the stretch with the switch on.
+    idle = importlib.import_module("metrics.device_idle_share").read
+    assert idle(off) > idle(on)
+
+
+def test_a_traced_run_switches_the_tracing_on_for_its_second_stretch(
+        tmp_path, monkeypatch):
+    """``measure_traced`` on the CPU, the host loop cut to a few steps:
+    the first stretch's trace holds none of the program's spans, the
+    second's does, the window's readings are the first's, and the switch
+    is off again afterwards."""
+    from harness import runner
+    import graphnets_tpu_torch as port
+    monkeypatch.setattr(runner, "TRACE_DIR", tmp_path)
+    cell = spec.cell("sort384.host_loop")
+    cell.traffic.update(trace_warm_units=1, trace_units=3)
+    s = runner.prepare(cell, 2 ** 33 + 11, "cpu")
+    runner.program_readings(s)
+    assert not port.tracing()
+    w = runner.measure_traced(s)
+    assert not port.tracing()
+    assert w.steps == 3 and len(w.rows) == 3 and w.recaptures == 0
+    assert len(w.host_batch_s) == 3 and len(w.losses) == 6
+
+    def names(tag):
+        path = tmp_path / f"trace-{cell.name}-{tag}.json"
+        return {e.get("name") for e in json.loads(path.read_text())[
+            "traceEvents"] if e.get("cat") == "user_annotation"}
+    assert not {n for n in names("device") if n.startswith(spans.PREFIX)}
+    assert {"gn.step", "gn.batch.to_device"} <= names("program")
+    assert w.program.timeline is not w.timeline
+    assert {n for _, _, n in w.program.spans} >= {"gn.step",
+                                                   "gn.batch.to_device"}
+    ctx = SimpleNamespace(steps=w.steps, program=w.program)
+    assert spans.span_ms(ctx, "gn.step") > 0

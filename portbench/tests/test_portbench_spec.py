@@ -1,6 +1,6 @@
 """BENCHMARK.json keeps to the benchmark's contract, and every cell finds
-its configuration, traffic, checks, generator, model and metric readers
-by name."""
+its configuration, traffic, checks, generator, model, plain reference and
+metric readers by name."""
 
 import importlib
 import re
@@ -119,6 +119,9 @@ def test_cell_resolves_by_name(name):
     model = cell.model()
     for fn in ("build", "make_weights", "step_flops"):
         assert callable(getattr(model, fn))
+    ref = cell.reference()
+    assert ref.__name__ == "reference." + cell.config["model"]["kind"]
+    assert callable(ref.train) and callable(ref.half_batch)
     for m in cell.per_layer + cell.end_to_end:
         assert callable(importlib.import_module("metrics." + m["name"]).read)
     from harness import checks

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 import graphnets_tpu_torch as port
-from generators import single_graph, sort_device, sort_host
+from generators import single_graph, sort_device, sort_host, uniform_batches
 from harness import runner, spec
 
 SORT = spec.cell("sort384.host_loop").config
@@ -73,6 +73,34 @@ def test_sort_device_draws_by_seed():
     assert all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
                for x, y in zip(a, b))
     assert any(not torch.equal(x[1], y[1]) for x, y in zip(a, c))
+
+
+MINI = {"graphs": 3, "nodes": 32, "in_degree": 4, "batches": 5}
+
+
+def _mini(seed):
+    return uniform_batches.Feed(port, LG, MINI, seed, torch.device("cpu"))
+
+
+def test_uniform_batches_by_seed():
+    def tensors(f):
+        return [t for x, y in f.batches
+                for t in (x.senders, x.ef, x.nf, x.gf, y.ef, y.nf)]
+    a, b, c = _mini(5), _mini(5), _mini(6)
+    assert _same(tensors(a), tensors(b))
+    assert not _same(tensors(a), tensors(c))
+    G, n, deg = MINI["graphs"], MINI["nodes"], MINI["in_degree"]
+    for k, (x, y) in enumerate(a.batches):
+        # The port's layout holds the benchmark's own edge lists.
+        assert torch.equal(x.senders.long(), a.senders[k])
+        assert torch.equal(x.receivers.long(), a.receivers)
+        assert x.slot_shape == (n, n * deg) and bool(x.edge_mask.all())
+        s, r = a.senders[k].view(G * n, deg), a.receivers.view(G * n, deg)
+        assert bool((s[:, 1:] > s[:, :-1]).all())       # distinct, ascending
+        assert bool((s // n == r // n).all())            # in its own graph
+        assert x.ef.dtype == getattr(torch, LG["feature_dtype"])
+        assert y.gf is None and x.gf.shape == (G, LG["model"]["core_dims"][2])
+    assert len({a.senders[k].sum().item() for k in range(MINI["batches"])}) > 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2 ** 31 + 5, 2 ** 40, -3])

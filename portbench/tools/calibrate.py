@@ -1,9 +1,10 @@
 """Readings that set a cell's limits: for each seed, the program's first
-three steps against the plain reference (the lower readings), the control
-(the reference itself in the next precision below the configuration's:
-TF32 for f32, fp8 for bf16) and the planted half-batch fault against the
-same reference (the upper readings).  One process for all the seeds, so
-the kernels build once.
+three steps against the plain reference of the configuration's model
+kind (the lower readings), the control (the reference itself in the next
+precision below the configuration's: TF32 for f32, fp8 for bf16) and the
+kind's planted fault (its ``half_batch``) against the same reference (the
+upper readings).  One process for all the seeds, so the kernels build
+once.
 
     python3 portbench/tools/calibrate.py --workload <cell> --seeds 1 2 3 ...
 
@@ -45,7 +46,7 @@ def main(argv=None) -> int:
         t2 = time.perf_counter()
         ctrl = runner.reference_readings(s, batches, control)
         half = runner.reference_readings(s, batches,
-                                         keep=runner.half_batch)
+                                         keep=cell.reference().half_batch)
         row = {"seed": seed, "setup_s": t1 - t0, "reference_s": t2 - t1,
                "program": checks.gaps(prog, ref),
                "control": checks.gaps(ctrl, ref),

@@ -1,5 +1,5 @@
 """One cell's traced stretch with the program's tracing switch on
-(``GRAPHNETS_TPU_TORCH_TRACE=1``), read through the program's own spans,
+(``enable_tracing``), read through the program's own spans,
 phase markers and counters (``harness/spans.py``): the per-layer metrics
 that read them, the device's busy and idle time split by phase and by
 step, the idle gaps labelled by the innermost host range, and each
@@ -8,22 +8,20 @@ phase's device operations.
     python3 portbench/tools/spans.py --workload <cell> --seed <n>
 
 Prints one JSON line.  The run makes the cell's set-up, checked steps and
-traced stretch as ``run.py --trace 1`` does, and leaves out the
-reference: ``GRAPHNETS_TPU_TORCH_TRACE=1 python3 portbench/run.py ...
---trace 1`` runs the same with the switch on and checks it.
+two traced stretches as ``run.py --trace 1`` does (the switch off, then
+on), reads the second, and leaves out the reference:
+``python3 portbench/run.py ... --trace 1`` runs the same and checks it.
 """
 
 import argparse
 import bisect
 import importlib
 import json
-import os
 import sys
 from collections import defaultdict
 from pathlib import Path
 from types import SimpleNamespace
 
-os.environ["GRAPHNETS_TPU_TORCH_TRACE"] = "1"  # before the program loads
 HERE = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(HERE)]
 sys.path.append(str(HERE.parent))
@@ -65,21 +63,14 @@ def main(argv=None) -> int:
     cell = spec.cell(args.workload)
     s = runner.prepare(cell, args.seed, args.device)
     runner.program_readings(s)
-    # The warm-up units here, so the counters' change is the window's.
-    clock = runner.Clock(s.device, cell.traffic.get("in_flight", 0))
-    clock.start()
-    for _ in range(cell.traffic["trace_warm_units"]):
-        s.feed.unit(clock.mark)
-    cell.traffic["trace_warm_units"] = 0
-    step = s.feed.step
-    before = step.copy_in_bytes, step.copy_in_tensors
     w = runner.measure_traced(s)
-    tl = w.timeline
-    program = spans.read(runner.TRACE_DIR / f"trace-{cell.name}.json", tl)
+    program = w.program
+    tl = program.timeline
     ctx = SimpleNamespace(steps=w.steps, timeline=tl, program=program,
-                          copy_in_bytes=step.copy_in_bytes - before[0])
+                          counters=w.counters)
     whole = len(program.steps())
     phase_s = spans.phase_seconds(tl, program)
+    in_steps = sum(v for k, v in phase_s.items() if k in spans.PHASES)
     gap_s = spans.graph_gap_seconds(tl, program)
     idle_s = tl.window_s - tl.busy_s
     print(json.dumps({
@@ -87,10 +78,10 @@ def main(argv=None) -> int:
         "whole_steps": whole, "window_s": tl.window_s, "busy_s": tl.busy_s,
         "metrics": {m: importlib.import_module("metrics." + m).read(ctx)
                     for m in METRICS},
-        "copy_in_tensors_per_step":
-            (step.copy_in_tensors - before[1]) / w.steps,
+        "counters_per_step": {k: None if v is None else v / w.steps
+                              for k, v in w.counters.items()},
         "phases_busy_s": phase_s,
-        "busy_outside_steps_s": tl.busy_s - sum(phase_s.values()),
+        "busy_outside_steps_s": tl.busy_s - in_steps,
         "graph_gap_s": gap_s, "idle_between_steps_s": idle_s - gap_s,
         "idle_gaps": spans.idle_gaps(tl, program),
         "ops_by_phase": ops_by_phase(tl, program, max(whole, 1)),
