@@ -29,9 +29,13 @@ policy, metrics and profiling helpers (spans and device phase markers
 under ``GRAPHNETS_TPU_TORCH_TRACE=1``); and learning-rate schedules
 (``training/schedules``) and parallel training over ``torch.distributed``
 (``parallel/``: meshes, the multi-process runtime, data, tensor and
-pipeline parallelism).
+pipeline parallelism); and GraphCast (``models/graphcast``) on a typed
+graph of the grid and the icosahedral multi-mesh (``typed_graph``,
+``data/graphcast_mesh``), trained on the latitude-weighted MSE.
 """
 
+from .data.graphcast_mesh import (GraphCastGraph, batch_samples,
+                                  build_graphcast_graph)
 from .data.large_graph import (LargeGraph, NeighborSampler, SampledBatch,
                                csc_from_coo, device_feature_table)
 from .data.ogb import (OGBNodeDataset, load_ogb_node_dataset,
@@ -63,6 +67,7 @@ from .graph import (
     unpaddedcollapsedef,
 )
 from .models.encode_process_decode import EncodeProcessDecode, GNModel
+from .models.graphcast import GraphCast, InteractionNetwork, SwishMLP
 from .models.gn_block import (
     GNBlock,
     get_edge_fn_input,
@@ -88,8 +93,9 @@ from .params import from_jax_params, to_numpy_tree
 from .training.checkpoint import (CheckpointManager, restore_checkpoint,
                                   save_checkpoint)
 from .training.losses import (graph_accuracy, graph_loss_nf_ef,
-                              masked_accuracy, masked_logit_crossentropy,
-                              per_graph_correct)
+                              graphcast_latitude_weights,
+                              latitude_weighted_mse, masked_accuracy,
+                              masked_logit_crossentropy, per_graph_correct)
 from .training.evaluate import sort_accuracy
 from .training.schedules import (constant_schedule,
                                  warmup_cosine_decay_schedule)
@@ -98,6 +104,7 @@ from .training.train import (CapturedStep, SortTrainResult, TrainState,
                              make_node_classification_step,
                              make_sort_device_step, make_train_step,
                              train_sort, train_sort_device)
+from .typed_graph import EdgeSet, TypedGraph
 from .util import get_edge_features, get_graph_features, get_node_features
 from .utils.config import (debug_checks, enable_debug_checks,
                            enable_kernels, enable_tracing, tracing,
@@ -143,4 +150,7 @@ __all__ = [
     "assert_finite", "checked", "MetricLogger", "host0_logger", "is_host0",
     "trace", "annotate", "StepTimer", "render_graph_svg", "sort_input_svg",
     "sort_target_svg", "constant_schedule", "warmup_cosine_decay_schedule",
+    "TypedGraph", "EdgeSet", "GraphCastGraph", "build_graphcast_graph",
+    "batch_samples", "GraphCast", "InteractionNetwork", "SwishMLP",
+    "latitude_weighted_mse", "graphcast_latitude_weights",
 ]

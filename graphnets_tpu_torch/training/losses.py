@@ -3,16 +3,22 @@
 
 Padded slots are weighted out by the masks, so the mean runs over real
 slots only: Flux's ``logitcrossentropy`` restricted to them.
+
+:func:`latitude_weighted_mse` is GraphCast's training loss
+(arXiv:2212.12794 eq. 19) on the grid's real rows, with the latitude
+weights of :func:`graphcast_latitude_weights`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..graph import GraphsTuple
 
 __all__ = ["masked_logit_crossentropy", "graph_loss_nf_ef",
-           "masked_accuracy", "per_graph_correct", "graph_accuracy"]
+           "masked_accuracy", "per_graph_correct", "graph_accuracy",
+           "latitude_weighted_mse", "graphcast_latitude_weights"]
 
 
 def masked_logit_crossentropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -68,3 +74,31 @@ def graph_accuracy(pred: GraphsTuple, target: GraphsTuple) -> torch.Tensor:
     gm = pred.graph_mask.float()
     return ((per_graph_correct(pred, target).float() * gm).sum()
             / gm.sum().clamp(min=1.0))
+
+
+def graphcast_latitude_weights(lat_deg) -> np.ndarray:
+    """GraphCast's ``normalized_latitude_weights`` for an equiangular grid
+    whose latitudes ``lat_deg`` (degrees, ascending) include both poles:
+    ``cos(lat) * sin(delta / 2)`` a row, ``sin(delta / 4) ** 2`` at each
+    pole (the cap that row stands for), over their mean, so the weights
+    average 1 over the rows."""
+    lat = np.asarray(lat_deg, np.float64)
+    delta = np.deg2rad(abs(lat[1] - lat[0]))
+    w = np.cos(np.deg2rad(lat)) * np.sin(delta / 2)
+    w[[0, -1]] = np.sin(delta / 4) ** 2
+    return w / w.mean()
+
+
+def latitude_weighted_mse(pred: torch.Tensor, target: torch.Tensor,
+                          node_weights: torch.Tensor,
+                          channel_weights: torch.Tensor) -> torch.Tensor:
+    """``mean_i sum_j a_i w_j (pred_ij - target_ij) ** 2`` over the first
+    ``R = len(node_weights)`` rows (the real grid nodes of every sample;
+    later rows are padding), in f32: ``a_i`` are the latitude weights of the
+    rows (``node_weights [R]``), ``w_j`` the per-channel weights
+    (``channel_weights [C]``: pressure level over the mean level, or a
+    surface variable's weight)."""
+    rows = node_weights.shape[0]
+    d = pred[:rows].float() - target[:rows].float()
+    per_row = (d.square() * channel_weights).sum(-1)
+    return (per_row * node_weights).sum() / rows

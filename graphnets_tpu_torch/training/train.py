@@ -44,7 +44,8 @@ from ..data.sort_task import (SortTaskConfig, device_batch, get_batch,
                               sort_pad_spec)
 from ..graph import GraphsTuple
 from ..models.encode_process_decode import EncodeProcessDecode
-from ..utils.config import debug_checks, get_config, resolve_device
+from ..utils.config import (debug_checks, get_config, resolve_device,
+                            use_kernels)
 from ..utils.profiling import PhaseMarkers, span
 from ..utils.tree import map_tensors, structure, tensors
 from .losses import (graph_accuracy, graph_loss_nf_ef, masked_accuracy,
@@ -108,8 +109,10 @@ def make_train_step(
     ``compute_dtype`` (for example ``torch.bfloat16``) casts the
     parameters for the forward; ``None`` runs them as they are.
     ``generator`` draws the dropout masks.  The metrics are 0-d tensors on
-    the model's device (no host sync): ``loss``, ``node_acc``, ``edge_acc``
-    and ``graph_acc``.
+    the model's device (no host sync): ``loss``, and where the prediction
+    is a ``GraphsTuple`` its accuracies ``node_acc``, ``edge_acc`` and
+    ``graph_acc`` (a regression model's prediction, as GraphCast's grid
+    tensor, has none).
 
     With the tracing switch on (``utils/config.enable_tracing``) the step
     opens the spans ``gn.train.forward`` (parameter cast, model, loss),
@@ -133,6 +136,8 @@ def make_train_step(
                 loss = loss_fn(pred, y)
             _backward_and_update(loss, params, optimizer, mark)
             with span("gn.train.metrics"), torch.no_grad():
+                if not isinstance(pred, GraphsTuple):
+                    return {"loss": loss.detach()}
                 return {
                     "loss": loss.detach(),
                     "node_acc": masked_accuracy(pred.nf, y.nf, x.node_mask),
@@ -311,7 +316,10 @@ class CapturedStep:
 
     def _key(self, args) -> Tuple:
         """The key of the graph a call on ``args`` replays: the input
-        structure and the port's switches."""
+        structure and the port's switches, the "auto" kernel switch
+        resolved first (the step would resolve it, and a key read before
+        that would miss on every later call, capturing the step twice)."""
+        use_kernels()
         return structure(args), dataclasses.astuple(get_config())
 
     def __call__(self, *args):
@@ -341,6 +349,17 @@ class CapturedStep:
             self.replays += 1
             with span("gn.step.outputs"):
                 return map_tensors(lambda t: t.clone(), static_out)
+
+    def clear(self) -> None:
+        """Drop every captured graph and their memory pool, as
+        ``jax.clear_caches()`` drops jit's compiled steps: the next call
+        captures anew.  A caller that will not replay a graph again (one
+        captured under other switches) frees its pool for the next
+        capture this way."""
+        self._graphs.clear()
+        self._pool = None
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
 
     def _snapshot(self):
         params = [p.detach().clone() for p in self._params()]

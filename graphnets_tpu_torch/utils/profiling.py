@@ -32,6 +32,12 @@ __all__ = ["trace", "annotate", "StepTimer"]
 # only where the step draws its own batch, ``end`` last.  The marker of a
 # phase is the kernel ``gn_phase_<phase>`` (``csrc/phase_marker.cu``).
 PHASES = ("batch", "forward", "backward", "optimizer", "metrics", "end")
+# A model's stages (GraphCast's, ``models/graphcast.py``): sub-phases,
+# each from its marker to the next marker of any name, inside the phase it
+# falls in.  The marker of a stage is the kernel ``gn_phase_<stage>``
+# (``csrc/stage_marker.cu``).
+STAGES = ("encoder", "processor", "decoder", "decoder_bwd", "processor_bwd",
+          "encoder_bwd")
 
 
 @contextlib.contextmanager
@@ -132,14 +138,42 @@ class PhaseMarkers:
         if not tracing() or self.device.type != "cuda":
             return
         from ..ops.kernels import _build     # built on the first marker
-        lib = _build.load("phase_marker")
-        if lib.gn_phase_marker.argtypes is None:
-            lib.gn_phase_marker.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            lib.gn_phase_marker.restype = ctypes.c_int
-        _build.check(lib, lib.gn_phase_marker(
-            PHASES.index(phase),
+        stage = phase in STAGES
+        lib = _build.load("stage_marker" if stage else "phase_marker")
+        fn = lib.gn_stage_marker if stage else lib.gn_phase_marker
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _build.check(lib, fn(
+            (STAGES if stage else PHASES).index(phase),
             torch.cuda.current_stream(self.device).cuda_stream),
             f"phase marker {phase!r}")
+
+    def boundary(self, stage: str, *xs: torch.Tensor) -> tuple:
+        """``xs`` as they are, through an identity whose backward puts the
+        marker of ``stage``: the backward's stage starts once the gradient
+        of every one of ``xs`` is complete, so ``xs`` should be every
+        tensor that crosses the boundary.  With the switch off no autograd
+        node is added."""
+        if not tracing():
+            return xs
+        return _Boundary.apply(self, stage, *xs)
+
+
+class _Boundary(torch.autograd.Function):
+    """The identity on its tensors; its backward enqueues a stage marker
+    before it hands the gradients on (on the stream of the forward, where
+    autograd runs a node's backward)."""
+
+    @staticmethod
+    def forward(ctx, markers, stage, *xs):
+        ctx.markers, ctx.stage = markers, stage
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.markers(ctx.stage)
+        return (None, None) + grads
 
 
 class StepTimer:

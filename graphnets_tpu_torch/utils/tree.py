@@ -1,5 +1,6 @@
-"""Walks over the tensors inside nested values (``GraphsTuple`` and
-``SampledBatch`` dataclasses, tuples, lists, dicts): the port's small
+"""Walks over the tensors inside nested values (``GraphsTuple``,
+``TypedGraph`` / ``EdgeSet`` and ``SampledBatch`` dataclasses, tuples,
+lists, dicts): the port's small
 counterpart of ``jax.tree_util`` for what ``data/prefetch`` and the captured
 training step need."""
 
@@ -40,7 +41,8 @@ def structure(item: Any) -> Hashable:
     """A hashable description of ``item``: its containers, each tensor's
     shape, dtype and device, and every other leaf's value (the host
     metadata of a ``GraphsTuple``: ``homogeneous``, ``slot_shape``,
-    ``pad_aliases_real``, ...).  Two values with one structure differ only
+    ``pad_aliases_real``, ...; of a ``TypedGraph``: its sets' names and
+    real row counts).  Two values with one structure differ only
     in the contents of their tensors."""
     if isinstance(item, torch.Tensor):
         return ("tensor", tuple(item.shape), item.dtype, item.device)

@@ -70,6 +70,40 @@ def test_cpu_capture_step_gives_the_eager_results(dropout):
     assert cap.captures == cap.replays == cap.traced_calls == 0
 
 
+def test_capture_key_resolves_the_auto_switch():
+    """A fresh process's first call keys its graph as every later call
+    does: the "auto" kernel switch is resolved before the key is read, so
+    a step is captured once."""
+    from graphnets_tpu_torch.utils import config
+    x, y, model = _sort_setup()
+    cap = pt.capture_step(pt.make_train_step(model,
+                                             pt.adamw(model.parameters())))
+    was = config.get_config().use_kernels
+    try:
+        pt.enable_kernels(None)
+        first = cap._key((x, y))
+        assert config.get_config().use_kernels is not None
+        cap(x, y)
+        assert cap._key((x, y)) == first
+    finally:
+        pt.enable_kernels(was)
+
+
+def test_clear_drops_the_graphs():
+    """``clear()`` drops every graph and the pool; the next call captures
+    anew (on the CPU: runs eagerly, as before)."""
+    x, y, model = _sort_setup()
+    twin = copy.deepcopy(model)
+    cap = pt.capture_step(pt.make_train_step(model,
+                                             pt.adamw(model.parameters())))
+    eager = pt.make_train_step(twin, pt.adamw(twin.parameters()))
+    cap._graphs[("stale",)], cap._pool = object(), object()
+    cap.clear()
+    assert cap._graphs == {} and cap._pool is None
+    assert torch.equal(cap(x, y)["loss"], eager(x, y)["loss"])
+    _equal_models(model, twin)
+
+
 @pytest.mark.parametrize("steps_before", [0, 2])
 @pytest.mark.parametrize("dropout", [0.0, 0.2])
 def test_warm_up_restores_the_state(dropout, steps_before):
