@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase F         # phase F alone, with its kernels
     python3 chip_smoke.py --phase sums      # the segment sums, then A and S
     python3 chip_smoke.py --phase adamw     # the optimizer's one-launch AdamW
+    python3 chip_smoke.py --phase split     # GraphCast's split edge layer
 
 A ``--phase`` run builds the kernels, runs that phase alone and prints its
 JSON, with no kernels line and no ``ok`` line (``--phase F`` also runs
@@ -331,6 +332,22 @@ CUDA-graph replays (kernel, torch's foreach AdamW as the plain version,
 torch's fused AdamW as the yardstick the port never calls; in turns) with
 its bound (28 bytes a value at 3.35 TB/s) and counts a step's kernels; it
 exits 1 where the kernel disagrees.
+
+``--phase split`` holds GraphCast's split first edge layer and its swish
+(``ops/kernels/split_edge_layer.py``) at GraphCast_small's three shapes
+(latent = hidden = 512; the 1 degree graph's ids for 4 samples: the
+processor's 327,680 edge rows, g2m's 407,680, m2g's 781,952) against its
+plain version (``pre`` and ``d_pre`` within one bf16 ulp, an ulp of
+``pre`` no smaller than 2^-16 of the largest magnitude; ``h`` within one
+ulp of swish of the kernel's own ``pre``; ``d_b`` within 1e-5 of each
+column's sum of magnitudes of the f64 sums of the kernel's own ``d_pre``), then times the forward and the
+backward (eager calls between CUDA events) beside their bound (bytes over
+3.35 TB/s against bf16 FLOPs over 989 TFLOP/s; each node table counted
+once), the plain version and the composed torch chain they replace
+(forward: the edge product, the two gathers, the adds and swish; backward:
+swish's backward and the bias gradient's column sum), and prints the
+forward kernel's registers and spills; it exits 1 where the kernel
+disagrees.
 
 Float32 products everywhere run without TF32 (set below), so the plain
 versions' f32 matmuls are exact-product, f32-accumulate.  The script
@@ -3360,6 +3377,108 @@ def adamw_phase(torch, pt, where):
     return out
 
 
+def split_phase(torch, pt, logs, where):
+    """``--phase split`` (see the module's docstring): a row an edge set
+    with its shape, the errors against the plain version, and the forward
+    and backward times (kernel, plain, composed) beside their bounds."""
+    import torch.nn.functional as F
+    from graphnets_tpu_torch.ops.kernels import split_edge_layer as sel
+    from graphnets_tpu_torch.ops.scatter import gather_nodes
+
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    def ulps(a, b):
+        return int((key(a) - key(b)).abs().max())
+
+    def ulp_err(a, b):
+        # In ulps of b's values, an ulp no smaller than 2^-16 of b's
+        # largest magnitude (a sum that cancels to near 0 moves by ~1e-6
+        # of its terms with the f32 adds' order).
+        a, b = a.float(), b.float()
+        ulp = torch.ldexp(torch.ones_like(b), torch.frexp(b.abs())[1] - 8)
+        ulp = torch.where(b == 0, 0.0, ulp)
+        ulp = torch.maximum(ulp, 2.0 ** -16 * b.abs().max())
+        return float(((a - b).abs() / ulp).max())
+
+    report = [line.strip() for line in logs.get("split_edge_layer",
+                                                "").splitlines()
+              if "registers" in line or "spill" in line]
+    log(f"split_edge_layer ptxas: {report}")
+    tg = pt.batch_samples(pt.build_graphcast_graph(1.0, 5, 0.6), 4,
+                          device="cuda")
+    ends = {"mesh": ("mesh", "mesh"), "g2m": ("grid", "mesh"),
+            "m2g": ("mesh", "grid")}
+    D = H = 512
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, (src, dst) in ends.items():
+        es = tg.edges[name]
+        E, n_s, n_r = es.senders.shape[0], tg.num_nodes(src), tg.num_nodes(dst)
+
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=gen, device="cuda")
+                    ).to(torch.bfloat16)
+        x = dict(e=rand(E, D), w_e=rand(D, H, scale=D ** -0.5),
+                 p_s=rand(n_s, H), p_r=rand(n_r, H), b=rand(H),
+                 senders=es.senders, receivers=es.receivers)
+        d_h = rand(E, H)
+        pre, h = sel._forward_kernel(**x)
+        ppre, _ = sel.split_edge_layer_plain(**x)
+        d_pre, d_b = sel._backward_kernel(d_h, pre.clone())
+        p_dpre, _ = sel.split_edge_backward_plain(d_h, pre)
+        torch.cuda.synchronize()
+        scale = d_pre.double().abs().sum(0)
+        row = {"rows": E, "sender_rows": n_s, "receiver_rows": n_r,
+               "pre_ulps": ulp_err(pre, ppre),
+               "h_ulps": ulp_err(h, F.silu(pre.float()).to(torch.bfloat16)),
+               "d_pre_ulps": ulps(d_pre, p_dpre),
+               "d_b_err": float(((d_b.double() - d_pre.double().sum(0)).abs()
+                                 / scale).max())}
+        row["ok"] = (row["pre_ulps"] <= 1 and row["h_ulps"] <= 1
+                     and row["d_pre_ulps"] <= 1 and row["d_b_err"] <= 1e-5)
+
+        def composed():
+            p = (x["e"] @ x["w_e"] + gather_nodes(x["p_s"], x["senders"])
+                 + gather_nodes(x["p_r"], x["receivers"], idx_sorted=True)
+                 + x["b"])
+            return F.silu(p)
+
+        def composed_bwd():
+            dp = torch.ops.aten.silu_backward(d_h, pre)
+            return dp, dp.sum(0)
+        ms = lambda fn: cuda_ms(torch, fn, iters=10, warmup=2)
+        fwd_bytes = 2 * (E * D + n_s * H + n_r * H + H + D * H
+                         + 2 * E * H) + 8 * E
+        bwd_bytes = 2 * 3 * E * H + 4 * H
+        fb, fby = bound_ms(fwd_bytes, 2 * E * D * H)
+        bb, bby = bound_ms(bwd_bytes, 0)
+        row["forward"] = {
+            "kernel_ms": [ms(lambda: sel._forward_kernel(**x))],
+            "plain_ms": ms(lambda: sel.split_edge_layer_plain(**x)),
+            "composed_ms": ms(composed), "bound_ms": fb, "bound_by": fby}
+        # The kernel writes d_pre over its second argument: a scratch copy.
+        scratch = pre.clone()
+        row["backward"] = {
+            "kernel_ms": [ms(lambda: sel._backward_kernel(d_h, scratch))],
+            "plain_ms": ms(lambda: sel.split_edge_backward_plain(d_h, pre)),
+            "composed_ms": ms(composed_bwd), "bound_ms": bb, "bound_by": bby}
+        row["forward"]["kernel_ms"].append(
+            ms(lambda: sel._forward_kernel(**x)))
+        row["backward"]["kernel_ms"].append(
+            ms(lambda: sel._backward_kernel(d_h, scratch)))
+        log(f"split {name} [{E}, {D}] -> {H}, tables {n_s} / {n_r}: "
+            f"forward {row['forward']}, backward {row['backward']}; "
+            f"against plain: pre {row['pre_ulps']} ulps, h "
+            f"{row['h_ulps']}, d_pre {row['d_pre_ulps']}, d_b "
+            f"{row['d_b_err']:.2e}; {where}")
+        out[name] = row
+        del x, d_h, pre, h, ppre, d_pre, p_dpre, scratch
+        torch.cuda.empty_cache()
+    return out
+
+
 def gates_phase(torch, pt):
     """``python3 chip_smoke.py --phase gates``: the phase C train step (the large
     graph, d = 256) and the phase D sampled step under JAX's training gates
@@ -4457,6 +4576,10 @@ def main() -> int:
         elif phase == "adamw":
             _build.build(["adamw"])
             result = adamw_phase(torch, pt, where)
+        elif phase == "split":
+            logs = _build.build(["split_edge_layer", "segment_sum",
+                                 "gather"])
+            result = split_phase(torch, pt, logs, where)
         elif phase == "flagship":
             _build.build()
             seeds = ([int(x) for x in args[args.index("--seeds") + 1]
@@ -4464,10 +4587,12 @@ def main() -> int:
             result = flagship_phase(torch, pt, seeds)
         else:
             raise SystemExit(f"unknown phase {phase!r}: F, G, sums, gates, "
-                             f"adamw or flagship")
+                             f"adamw, split or flagship")
         log(json.dumps({phase: result, "card": card}))
         if phase == "flagship":
             return 1 if any(r["fault"] for r in result.values()) else 0
+        if phase == "split":
+            return 0 if all(r["ok"] for r in result.values()) else 1
         return 0
 
     # 2. Build every kernel.

@@ -20,11 +20,15 @@ the output MLP, which has none.  Every update is residual.
 An interaction network's edge MLP takes ``[e, v_s[senders],
 v_r[receivers]]``.  Its first layer is computed split, each term on the rows
 it lives on: ``e @ W_e + (v_s @ W_s)[senders] + (v_r @ W_r)[receivers] +
-b``, the node tables projected before the gathers
-(``ops/scatter.gather_nodes``, the receivers declared sorted), and the
-updated edges are summed onto their receivers by the sorted segment sum
+b``, the node tables projected before the gathers, and the updated edges
+are summed onto their receivers by the sorted segment sum
 (``segment_sum(..., sorted_pad_safe=True)``).  The weight is the one
-``[3 * d, hidden]`` matrix of the concatenated form, sliced.
+``[3 * d, hidden]`` matrix of the concatenated form, sliced.  That layer
+and its swish are one pass, ``ops/kernels/split_edge_layer`` (the receivers
+declared sorted): its kernel for CUDA tensors where its gate holds, its
+plain version for CPU tensors; a CUDA shape outside the gate, or the
+kernels switched off, takes the composed form (``ops/scatter.gather_nodes``,
+then ``F.silu``).
 
 With the tracing switch on, the forward puts the stage markers
 ``encoder``, ``processor`` and ``decoder`` (``utils/profiling.STAGES``),
@@ -41,9 +45,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.core import Linear, init_generator
+from ..ops.kernels.split_edge_layer import (split_edge_layer,
+                                            supports_split_edge_layer)
 from ..ops.scatter import gather_nodes, segment_sum
 from ..typed_graph import EdgeSet, TypedGraph
-from ..utils.config import resolve_device
+from ..utils.config import resolve_device, use_kernels
 from ..utils.profiling import PhaseMarkers
 
 __all__ = ["SwishMLP", "InteractionNetwork", "GraphCast"]
@@ -73,7 +79,12 @@ class SwishMLP(nn.Module):
 
     def tail(self, pre: torch.Tensor) -> torch.Tensor:
         """The MLP from its first layer's output ``pre`` on."""
-        y = self.l1(F.silu(pre))
+        return self.out(F.silu(pre))
+
+    def out(self, h: torch.Tensor) -> torch.Tensor:
+        """The MLP from its activation ``h`` on: ``l1``, then the
+        LayerNorm."""
+        y = self.l1(h)
         if self.ln is None:
             return y
         return F.layer_norm(y, y.shape[-1:], self.ln.scale.to(y.dtype),
@@ -81,6 +92,17 @@ class SwishMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tail(self.l0(x.to(self.l0.w.dtype)))
+
+
+def _takes_split_layer(e: torch.Tensor, latent: int, hidden: int) -> bool:
+    """Whether an edge MLP's first layer and swish go through
+    ``split_edge_layer``: CPU tensors (its plain version), and tensors on
+    the card where the kernels are on and its gate holds (the receivers are
+    sorted: ``EdgeSet``'s contract)."""
+    if e.device.type == "cpu":
+        return True
+    return use_kernels() and supports_split_edge_layer(
+        e.shape[0], latent, hidden, e.dtype, receivers_sorted=True)
 
 
 class InteractionNetwork(nn.Module):
@@ -105,11 +127,19 @@ class InteractionNetwork(nn.Module):
                 es: EdgeSet) -> Tuple[torch.Tensor, torch.Tensor]:
         d = self.latent
         w, b = self.edge.l0.w, self.edge.l0.b
-        pre = (e @ w[:d]
-               + gather_nodes(v_s @ w[d:2 * d], es.senders)
-               + gather_nodes(v_r @ w[2 * d:], es.receivers, idx_sorted=True)
-               + b)
-        e_new = self.edge.tail(pre)
+        # The node tables' projections are temporaries: nothing holds them
+        # past the layer (the decoder's grid table is [N_grid, hidden]).
+        if _takes_split_layer(e, d, w.shape[1]):
+            e_new = self.edge.out(split_edge_layer(
+                e, w[:d], v_s @ w[d:2 * d], v_r @ w[2 * d:], b, es.senders,
+                es.receivers))
+        else:
+            pre = (e @ w[:d]
+                   + gather_nodes(v_s @ w[d:2 * d], es.senders)
+                   + gather_nodes(v_r @ w[2 * d:], es.receivers,
+                                  idx_sorted=True)
+                   + b)
+            e_new = self.edge.tail(pre)
         agg = segment_sum(e_new, es.receivers, v_r.shape[0],
                           sorted_pad_safe=True)
         wn, bn = self.node.l0.w, self.node.l0.b

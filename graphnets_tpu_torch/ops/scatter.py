@@ -35,6 +35,7 @@ from ..utils.config import debug_checks, get_config, use_kernels
 
 __all__ = [
     "gather_nodes",
+    "gather_nodes_grad",
     "take_rows_sorted_grad",
     "segment_sum",
     "segment_mean",
@@ -108,13 +109,19 @@ class _TakeRows(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         n, idx_sorted = ctx.meta
-        g = g.contiguous()
-        if not idx_sorted:
-            # One stable sort gives the segment ids and the permutation.
-            seg, perm = torch.sort(idx, stable=True)
-            g, idx = g.index_select(0, perm), seg
-        dx = segment_sum(g, idx, n, sorted_pad_safe=True)
-        return dx.to(g.dtype), None, None
+        return _take_rows_grad(g, idx, n, idx_sorted), None, None
+
+
+def _take_rows_grad(g: torch.Tensor, idx: torch.Tensor, n: int,
+                    idx_sorted: bool) -> torch.Tensor:
+    """The pullback of ``x[idx]`` onto ``x``'s ``n`` rows: a sorted f32
+    segment sum, in ``g``'s type."""
+    g = g.contiguous()
+    if not idx_sorted:
+        # One stable sort gives the segment ids and the permutation.
+        seg, perm = torch.sort(idx, stable=True)
+        g, idx = g.index_select(0, perm), seg
+    return segment_sum(g, idx, n, sorted_pad_safe=True).to(g.dtype)
 
 
 class _TakeRowsWindowed(torch.autograd.Function):
@@ -174,6 +181,17 @@ def gather_nodes(nf: torch.Tensor, idx: torch.Tensor,
     if get_config().sorted_scatter_grad:
         return take_rows_sorted_grad(nf, idx, idx_sorted, windows)
     return nf.index_select(0, idx)
+
+
+def gather_nodes_grad(g: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                      idx_sorted: bool = False) -> torch.Tensor:
+    """The gradient of :func:`gather_nodes` ``(nf, idx, idx_sorted)`` with
+    respect to ``nf`` (``num_rows`` rows) for the cotangent ``g``, in its
+    type, as that function's own backward takes it."""
+    if get_config().sorted_scatter_grad:
+        return _take_rows_grad(g, idx, num_rows, idx_sorted)
+    return g.new_zeros((num_rows,) + tuple(g.shape[1:])).index_add_(0, idx,
+                                                                     g)
 
 
 def segment_sum(x: torch.Tensor, segment_ids: torch.Tensor,

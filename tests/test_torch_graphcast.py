@@ -525,15 +525,18 @@ def test_on_the_card():
     the CPU), the bf16 step's kernel route against the plain route (the
     loss 1e-3 relative; each leaf's gradient 2e-2 of its norm, a few of
     bf16's 2^-8 steps accumulated over the layers, where a wrong gather or
-    sum moves a leaf's gradient by its own size), three
-    captured bf16 steps against three eager ones (to the bit: the same
-    kernels in the same order), and a traced replay's markers in order."""
+    sum moves a leaf's gradient by its own size; the kernel route takes the
+    split first edge layer's kernels once a network, forward and backward),
+    three captured bf16 steps against three eager ones (to the bit: the
+    same kernels in the same order), and a traced replay's markers in
+    order."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels, CUDA graphs and "
                     "device markers exist only on the card)")
     import json
     import tempfile
     from torch.profiler import ProfilerActivity, profile
+    from graphnets_tpu_torch.ops.kernels import split_edge_layer as sel
     from graphnets_tpu_torch.utils.config import enable_kernels
     dev = torch.device("cuda")
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -582,7 +585,12 @@ def test_on_the_card():
         for kernels in (True, False):
             enable_kernels(kernels)
             m = model()
+            before = (sel.LAUNCHES, sel.LAUNCHES_BWD)
             lo = float(step(m)(x, y)["loss"])
+            # One split first edge layer a network, forward and backward.
+            nets = (LAYERS + 2) * kernels
+            assert (sel.LAUNCHES, sel.LAUNCHES_BWD) == (before[0] + nets,
+                                                        before[1] + nets)
             routes.append((lo, {k: p.grad.clone()
                                 for k, p in m.named_parameters()}))
         enable_kernels(None)
